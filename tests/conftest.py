@@ -29,3 +29,5 @@ from repro.sparse.format import csc_bit_identical as bit_identical  # noqa: F401
 
 def pytest_configure(config):
     jax.devices()  # initializes the backend with the default device count
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card (CUDA); skipped without one")
