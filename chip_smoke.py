@@ -9,14 +9,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    versions, and the ``nvcc`` build of ``src/repro_torch/csrc/*.cu``.
 2. Kernel phase: K2 SPA, K3 SPARS and K4 HASH each against its plain
    PyTorch version on the same CUDA tensors — the first and last group of
-   each kind in the main path's plans, plus edge cases — exactly equal.
+   each kind in the main path's plans, on the integer values and on
+   real-valued (normal) values of the same patterns, plus edge cases —
+   exactly equal.
 3. Main path: C = A·A through ``repro_torch.core.spgemm`` for eleven of the
    paper's Table-1 matrices (synthesized from their published statistics,
    integer values in {1, 2, 3} from ``--seed``) under the default method and
    four others; every C must equal ``scipy.sparse`` A@A in f64 exactly, and
    every kernel's launch count must rise during this phase.
 4. Timing: per matrix and method, the host plan time, the execute time
-   (median of ``--reps``), each kernel's device time (CUDA events) and
+   (median of ``--reps``), the host syncs of one execute on operands
+   already on the card, each kernel's device time (CUDA events) and
    ``torch.sparse.mm(A, A)`` as ``library_ms``, a yardstick the port never
    calls; per kernel, its time, its plain version's, its bound and a library
    call's, at its largest main-path group.
@@ -105,6 +108,18 @@ def integer_matrix(name: str, seed: int):
     return CSC(torch.from_numpy(vals), m.row_indices, m.col_ptr, m.shape)
 
 
+def real_valued(a, seed: int):
+    """The same pattern with standard normal f32 values: sums that round,
+    so a kernel that summed in another order than its plain version would
+    differ from it."""
+    import torch
+    from repro_torch.sparse import CSC
+
+    rng = np.random.default_rng([seed, 1])
+    vals = rng.standard_normal(a.nnz).astype(np.float32)
+    return CSC(torch.from_numpy(vals), a.row_indices, a.col_ptr, a.shape)
+
+
 def scipy_square(a):
     """(indptr, indices, data) of A@A in f64 by scipy, zeros dropped."""
     import scipy.sparse as sps
@@ -183,20 +198,21 @@ def edge_operands(dev):
 # ---------------------------------------------------------------------------
 
 
-def group_operands(plan, a):
-    """(ab, steps, m, block, h) of every group of ``plan`` on A's values, as
-    the executor feeds them to the kernels."""
+def group_operands(plan, a, groups=None):
+    """(ab, steps, m, block, h) of each of ``groups`` (default: all groups
+    of ``plan``) on A's values, as the executor feeds them to the kernels."""
     import torch
+    from repro_torch.core.planner import BLOCK_COLS
     from repro_torch.sparse.format import padded_values
 
     lay = plan.layout
     vals = a.values.to(plan.device, torch.float32)
     av = padded_values(vals, lay.a_gather, lay.a_mask)
-    for g in lay.groups:
+    for g in lay.groups if groups is None else groups:
         yield g, dict(ab=(lay.a_rows, av, lay.a_nnz, g.b_rows,
                           padded_values(vals, g.b_vgather, g.b_vmask),
                           g.b_nnz),
-                      steps=g.steps, m=plan.shape[0], block=lay.block_cols,
+                      steps=g.steps, m=plan.shape[0], block=BLOCK_COLS,
                       h=g.h)
 
 
@@ -244,23 +260,27 @@ def compare(kind, op, label):
     return err
 
 
-def kernel_phase(plans, mats, dev):
+def kernel_phase(plans, mats, dev, seed):
     """Every kernel against its plain version: the first and last group of
-    each kind of every matrix's plans, and the edge cases."""
+    each kind of every matrix's plans, on the integer values and on real
+    values of the same pattern, and the edge cases."""
     errs = {k: 0.0 for k in KERNELS}
     checked = {k: 0 for k in KERNELS}
     for name in MATRICES:
         seen = {}
         for method in METHODS:
-            for g, op in group_operands(plans[name, method], mats[name]):
-                seen.setdefault(g.kind, []).append((method, g, op))
+            for g in plans[name, method].layout.groups:
+                seen.setdefault(g.kind, []).append((method, g))
+        real = real_valued(mats[name], seed)
         for kind, groups in seen.items():
             picks = [groups[0]] + ([groups[-1]] if len(groups) > 1 else [])
-            for method, g, op in picks:
-                errs[kind] = max(errs[kind], compare(
-                    kind, op, f"{name} {method_name(method)} "
-                    f"{len(g.cols)} cols"))
-                checked[kind] += 1
+            for method, g in picks:
+                for values, a in (("int", mats[name]), ("real", real)):
+                    (_, op), = group_operands(plans[name, method], a, [g])
+                    errs[kind] = max(errs[kind], compare(
+                        kind, op, f"{name} {method_name(method)} "
+                        f"{len(g.cols)} cols, {values} values"))
+                    checked[kind] += 1
     for name, op in edge_operands(dev).items():
         for kind in KERNELS:
             errs[kind] = max(errs[kind], compare(kind, op, name))
@@ -330,6 +350,23 @@ def event_ms(fn, reps: int, warmup: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def host_syncs(fn) -> int:
+    """How many times ``fn`` made the host wait for the card, as PyTorch's
+    sync debug mode reports them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        fn()
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
 
 
 def torch_csr(a, dev):
@@ -405,6 +442,7 @@ def library_ms(kind, op, reps):
 
 def timing_phase(plans, mats, plan_ms, dev, reps):
     import torch
+    from repro_torch.core.planner import BLOCK_COLS
     from repro_torch.kernels import ops as kops
 
     runs = {"spa": kops.run_spa, "spars": kops.run_spars,
@@ -412,6 +450,7 @@ def timing_phase(plans, mats, plan_ms, dev, reps):
     biggest = {}
     for name in MATRICES:
         a = mats[name]
+        a_dev = a.to(dev)
         a_csr = torch_csr(a, dev)
         lib = event_ms(lambda: torch.sparse.mm(a_csr, a_csr), reps)
         for method in METHODS:
@@ -425,13 +464,13 @@ def timing_phase(plans, mats, plan_ms, dev, reps):
                 plan.execute(a, a)
                 torch.cuda.synchronize()
                 samples.append((time.perf_counter() - t0) * 1e3)
+            syncs = host_syncs(lambda: plan.execute(a_dev, a_dev))
             per_kind = {}
             launches = {}
             for g, op in group_operands(plan, a):
-                lay = plan.layout
                 a_arrs, g_vals = op["ab"][:3], op["ab"][4]
                 ms = event_ms(lambda: runs[g.kind](
-                    g, a_arrs, g_vals, m=op["m"], block_cols=lay.block_cols),
+                    g, a_arrs, g_vals, m=op["m"], block_cols=BLOCK_COLS),
                     reps=3)
                 per_kind[g.kind] = per_kind.get(g.kind, 0.0) + ms
                 launches[g.kind] = launches.get(g.kind, 0) + 1
@@ -442,7 +481,7 @@ def timing_phase(plans, mats, plan_ms, dev, reps):
                 "matrix": name, "method": method_name(method),
                 "plan_ms": plan_ms[name, method],
                 "execute_ms_median": statistics.median(samples),
-                "execute_ms_min": min(samples),
+                "execute_ms_min": min(samples), "host_syncs": syncs,
                 "kernel_device_ms": per_kind, "launches": launches,
                 "library_ms": lib}), flush=True)
     return biggest
@@ -460,7 +499,7 @@ def kernel_report(biggest, counts, errs, reps):
         b_ms, by = bound_ms(products, nbytes)
         rows.append(dict(
             info, launches=counts[info["name"]], max_abs_err=errs[kind],
-            max_abs_diff=errs[kind], ms=ms, plain_ms=plain, bound_ms=b_ms,
+            ms=ms, plain_ms=plain, bound_ms=b_ms,
             bound_by=by, library_ms=library_ms(kind, op, reps),
             at=dict(matrix=name, method=method_name(method),
                     cols=len(g.cols), products=products, bytes=nbytes,
@@ -496,11 +535,9 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    _build.build(extra_flags=("-Xptxas", "-v"), verbose=True)
     _build.library()
-    print(f"nvcc build of {len(_build.sources())} sources: "
-          f"{time.perf_counter() - t0:.2f} s (with the -Xptxas -v build)",
-          flush=True)
+    print(f"nvcc build and load of {len(_build.sources())} sources: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     t0 = time.perf_counter()
     mats = {name: integer_matrix(name, args.seed) for name in MATRICES}
@@ -519,7 +556,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             plan_ms[name, method] = (time.perf_counter() - t0) * 1e3
 
-    errs = kernel_phase(plans, mats, dev)
+    errs = kernel_phase(plans, mats, dev, args.seed)
     counts = main_path(mats, expected)
     biggest = timing_phase(plans, mats, plan_ms, dev, args.reps)
     rows = kernel_report(biggest, counts, errs, args.reps)

@@ -9,7 +9,6 @@ executes it against the operand values::
 
     plan = cached_plan(a, b)                 # symbolic phase, once
     c1 = plan.execute(a_vals_1, b_vals_1)    # numeric phase only
-    c2 = spgemm(a2, b2, plan=plan)           # equivalent spelling
 
 ``device=None`` means the card (``"cuda"``); without one it raises.  Pass
 ``device="cpu"`` to run the kernels' plain versions on the host.
@@ -20,13 +19,10 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 
-from repro_torch.core import backends
 from repro_torch.core.planner import (
-    ALGORITHMS,
     SpgemmPlan,
     pattern_fingerprint,
     plan_spgemm,
-    resolve_params,
 )
 from repro_torch.device import resolve_device
 from repro_torch.sparse.format import CSC
@@ -113,53 +109,20 @@ def plan_cache_resize(n: int) -> dict:
     return PLAN_CACHE.resize(n)
 
 
-def _resolve_method_backend(method, backend):
-    method = DEFAULT_METHOD if method is None else method
-    backend = DEFAULT_BACKEND if backend is None else backend
-    if method not in ALGORITHMS:
-        raise ValueError(
-            f"unknown method {method!r}; one of {list(ALGORITHMS)}")
-    backends.get_backend(backend)   # canonical unknown-backend error
-    return method, backend
-
-
 def cached_plan(a: CSC, b: CSC, method: str | None = None, *,
-                backend: str | None = None, device=None,
-                t: float | None = None, b_min: int | None = None,
-                b_max: int | None = None) -> SpgemmPlan:
+                backend: str | None = None, device=None) -> SpgemmPlan:
     """Fetch-or-build a plan through the shared LRU.
 
-    The key is both operands' pattern fingerprints, the method, backend,
-    resolved parameters and the device.
+    The key is both operands' pattern fingerprints, the method, the backend
+    and the device.
     """
-    method, backend = _resolve_method_backend(method, backend)
+    method = DEFAULT_METHOD if method is None else method
+    backend = DEFAULT_BACKEND if backend is None else backend
     dev = resolve_device(device)
-    params = resolve_params(method, t=t, b_min=b_min, b_max=b_max)
     key = (pattern_fingerprint(a), pattern_fingerprint(b), method, backend,
-           tuple(sorted(params.items())), str(dev))
+           str(dev))
     return PLAN_CACHE.get_or_build(
-        key, lambda: plan_spgemm(a, b, method, backend=backend, device=dev,
-                                 t=t, b_min=b_min, b_max=b_max))
-
-
-def _check_plan_overrides(plan, method, backend, device, t, b_min,
-                          b_max) -> None:
-    """Reject ``spgemm(plan=...)`` arguments that conflict with the plan."""
-    own = dict(plan.params)
-    conflicts = []
-    if method is not None and method != plan.method:
-        conflicts.append(f"method={method!r} (plan has {plan.method!r})")
-    if backend is not None and backend != plan.backend:
-        conflicts.append(f"backend={backend!r} (plan has {plan.backend!r})")
-    if device is not None and resolve_device(device) != plan.device:
-        conflicts.append(f"device={device!r} (plan has {plan.device})")
-    for name, given in (("t", t), ("b_min", b_min), ("b_max", b_max)):
-        if given is not None and own.get(name) != given:
-            conflicts.append(
-                f"{name}={given!r} (plan has {own.get(name, '<unset>')})")
-    if conflicts:
-        raise ValueError(
-            "arguments conflict with the held plan: " + "; ".join(conflicts))
+        key, lambda: plan_spgemm(a, b, method, backend=backend, device=dev))
 
 
 def spgemm(
@@ -169,31 +132,14 @@ def spgemm(
     *,
     backend: str | None = None,
     device=None,
-    t: float | None = None,
-    b_min: int | None = None,
-    b_max: int | None = None,
-    plan: SpgemmPlan | None = None,
-    cache: bool = True,
-    validate: str | None = None,
     engine: str | None = None,
 ) -> CSC:
     """Compute C = A @ B with one of the paper's algorithms.
 
-    The default method is ``"h-hash-256/256"`` (the paper's best overall);
-    t/b_min/b_max override the named method's defaults.  ``device=None``
-    runs on the card and raises where there is none.  With ``plan`` the
-    symbolic phase is skipped (conflicting explicit arguments raise); with
-    ``cache=False`` the plan is rebuilt, bypassing the LRU.  The result is a
-    CSC whose values (f32), rows and col_ptr lie on the plan's device.
+    The default method is ``"h-hash-256/256"`` (the paper's best overall).
+    ``device=None`` runs on the card and raises where there is none.  The
+    plan comes from the shared LRU.  The result is a CSC whose values
+    (f32), rows and col_ptr lie on the plan's device.
     """
-    if plan is not None:
-        _check_plan_overrides(plan, method, backend, device, t, b_min, b_max)
-        return plan.execute(a, b, validate=validate, engine=engine)
-    method, backend = _resolve_method_backend(method, backend)
-    if cache:
-        p = cached_plan(a, b, method, backend=backend, device=device, t=t,
-                        b_min=b_min, b_max=b_max)
-    else:
-        p = plan_spgemm(a, b, method, backend=backend, device=device, t=t,
-                        b_min=b_min, b_max=b_max)
-    return p.execute(a, b, validate=validate, engine=engine)
+    plan = cached_plan(a, b, method, backend=backend, device=device)
+    return plan.execute(a, b, engine=engine)

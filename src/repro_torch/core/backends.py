@@ -7,8 +7,9 @@ HASH schedule).  Its only engine is ``"naive"`` (``None`` resolves to it).
 The plan's device decides where it runs: ``"cuda"`` launches the kernels,
 ``"cpu"`` (tests only, asked for explicitly) runs their plain versions.
 
-Callers that need a capability decision (``core.api`` argument validation,
-``core.planner`` method admission, ``core.executor`` engine resolution)
+The JAX package's host-only methods (``esc``, ``expand``) have no kernel
+family: the planner does not know them, so no backend here can plan them.
+``core.planner`` (backend names) and ``core.executor`` (engine resolution)
 consult the :class:`ExecutionContract` registered here instead of matching
 backend names.
 """
@@ -17,10 +18,6 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
-
-#: methods with no kernel family (host-only executors in the JAX package)
-HOST_ONLY_METHODS = ("esc", "expand")
-
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionContract:
@@ -35,8 +32,6 @@ class ExecutionContract:
     engines: Tuple[Optional[str], ...]
     #: what engine=None resolves to
     default_engine: str
-    #: methods this backend cannot plan
-    excluded_methods: Tuple[str, ...] = ()
 
 
 _REGISTRY: "dict[str, ExecutionContract]" = {}
@@ -76,5 +71,4 @@ CUDA = register_backend(ExecutionContract(
     # stream engine of the JAX package is a later slice of the port
     engines=(None, "naive"),
     default_engine="naive",
-    excluded_methods=HOST_ONLY_METHODS,
 ))

@@ -10,7 +10,8 @@ padded layouts, kernel groups) was made once by
 this slice, ``"naive"`` on the ``"cuda"`` backend, is the counterpart of the
 JAX package's ``_execute_pallas``: gather each group's padded values with
 the plan's resident index tensors, launch one kernel per group, and compact
-each group's output into CSC on the plan's device.
+each group's output into CSC on the plan's device.  The host waits for the
+card once per execution, to read the result's nnz.
 """
 
 from __future__ import annotations
@@ -18,9 +19,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.backends import check_engine, get_backend
-from repro_torch.core.planner import SpgemmPlan
+from repro_torch.core.planner import BLOCK_COLS, SpgemmPlan
 from repro_torch.sparse.format import CSC, CSCBuilder, as_tensor, \
     padded_values
+
 
 def resolve_engine(plan, engine: str | None) -> str:
     """The engine an execution will run: explicit choice or the default."""
@@ -30,20 +32,17 @@ def resolve_engine(plan, engine: str | None) -> str:
 
 
 def execute(plan: SpgemmPlan, a_values, b_values, *,
-            stats: dict | None = None, validate: str | None = None,
-            engine: str | None = None) -> CSC:
+            stats: dict | None = None, engine: str | None = None) -> CSC:
     """C = A @ B for new numeric values on the plan's sparsity patterns.
 
     ``a_values``/``b_values``: CSC matrices or raw nnz-length value vectors
     (torch tensors or numpy arrays), on any device: they are moved to the
     plan's device once.  Shapes and nnz are checked against the planned
-    patterns (O(1)); ``validate="fingerprint"`` re-hashes a CSC operand's
-    structure.  ``stats``, if given, is filled with the engine, the tile
+    patterns (O(1)).  ``stats``, if given, is filled with the engine, the tile
     shapes and the launch count.
     """
     resolve_engine(plan, engine)   # "naive": the per-group schedule
-    return _execute_groups(plan, a_values, b_values, stats=stats,
-                           validate=validate)
+    return _execute_groups(plan, a_values, b_values, stats=stats)
 
 
 def _values(x, device) -> torch.Tensor:
@@ -55,12 +54,11 @@ def _values(x, device) -> torch.Tensor:
 
 
 def _execute_groups(plan: SpgemmPlan, a_values, b_values, *,
-                    stats: dict | None = None,
-                    validate: str | None = None) -> CSC:
+                    stats: dict | None = None) -> CSC:
     from repro_torch.kernels import ops as kops  # kernels import core
 
-    plan.a.check_compatible(a_values, validate)
-    plan.b.check_compatible(b_values, validate)
+    plan.a.check_compatible(a_values)
+    plan.b.check_compatible(b_values)
     lay = plan.layout
     m, n = plan.shape
     dev = plan.device
@@ -69,18 +67,18 @@ def _execute_groups(plan: SpgemmPlan, a_values, b_values, *,
     b_raw = _values(b_values, dev)[: plan.b.nnz]
     a_arrs = (lay.a_rows, av, lay.a_nnz)
 
-    builder = CSCBuilder((m, n), dev)
+    builder = CSCBuilder((m, n), lay.c_slots)
     for g in lay.groups:
         g_vals = padded_values(b_raw, g.b_vgather, g.b_vmask)
         if g.kind == "spa":
             builder.add_dense_tile(g.cols_t, kops.run_spa(
-                g, a_arrs, g_vals, m=m, block_cols=lay.block_cols))
+                g, a_arrs, g_vals, m=m, block_cols=BLOCK_COLS))
         elif g.kind == "spars":
             builder.add_dense_tile(g.cols_t, kops.run_spars(
-                g, a_arrs, g_vals, m=m, block_cols=lay.block_cols))
+                g, a_arrs, g_vals, m=m, block_cols=BLOCK_COLS))
         elif g.kind == "hash":
             keys, vals = kops.run_hash(g, a_arrs, g_vals, m=m,
-                                       block_cols=lay.block_cols)
+                                       block_cols=BLOCK_COLS)
             builder.add_hash_tables(g.cols_t, keys, vals)
         else:
             raise AssertionError(g.kind)

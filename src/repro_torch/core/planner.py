@@ -24,10 +24,11 @@ import torch
 from repro_torch.core import backends
 from repro_torch.core.analysis import Preprocess, preprocess
 from repro_torch.device import resolve_device
-from repro_torch.sparse.format import CSC, _np, csc_pad_gather
-from repro_torch.sparse.stats import steps_per_column
+from repro_torch.sparse.format import CSC, ColumnSlots, _np, csc_pad_gather
+from repro_torch.sparse.stats import ops_per_column, steps_per_column
 
-# method -> base kwargs; the paper's Section 5.3 configurations
+# method -> base kwargs; the paper's Section 5.3 configurations that have a
+# kernel family (the JAX package's host-only "esc" and "expand" have none)
 ALGORITHMS = {
     "spa": {},
     "spars-16/64": dict(b_min=16, b_max=64),
@@ -38,50 +39,19 @@ ALGORITHMS = {
     "hash-256/256": dict(b_min=256, b_max=256),
     "h-hash-32/256": dict(t=40, b_min=32, b_max=256, accumulator="hash"),
     "h-hash-256/256": dict(t=40, b_min=256, b_max=256, accumulator="hash"),
-    "esc": {},
-    "expand": {},  # host-only in the JAX package; no kernel family here
 }
 
+#: lane-block width of the lock-step kernels, and C columns per launch
+BLOCK_COLS = 128
 
-def resolve_params(
-    method: str,
-    *,
-    t: float | None = None,
-    b_min: int | None = None,
-    b_max: int | None = None,
-) -> dict:
-    """Named-method defaults with optional overrides.
 
-    Unregistered ``family-x/y`` names (e.g. ``spars-128/128``) are parsed
-    from the name itself.
-    """
-    params = dict(ALGORITHMS.get(method, ()))
+def resolve_params(method: str) -> dict:
+    """The named method's parameters; raises on a method with no kernel
+    family."""
     if method not in ALGORITHMS:
-        if "-" in method:
-            bounds = method.rsplit("-", 1)[1]
-            if "/" in bounds or bounds.isdigit():
-                try:
-                    bmin, bmax = (int(x) for x in bounds.split("/"))
-                except ValueError:
-                    raise ValueError(
-                        f"malformed block bounds in method {method!r}; "
-                        "expected 'family-bmin/bmax'") from None
-                params.setdefault("b_min", bmin)
-                params.setdefault("b_max", bmax)
-        if method.startswith("h-"):
-            params.setdefault("t", 40.0)
-            params.setdefault(
-                "accumulator", "hash" if "hash" in method else "spa")
-    if method.startswith(("spars", "hash", "h-")):
-        params.setdefault("b_min", 256)
-        params.setdefault("b_max", 256)
-    if t is not None:
-        params["t"] = t
-    if b_min is not None:
-        params["b_min"] = b_min
-    if b_max is not None:
-        params["b_max"] = b_max
-    return params
+        raise ValueError(
+            f"unknown method {method!r}; one of {list(ALGORITHMS)}")
+    return dict(ALGORITHMS[method])
 
 
 def pattern_fingerprint(m: CSC) -> str:
@@ -118,13 +88,9 @@ class Pattern:
     def nnz(self) -> int:
         return int(self.col_ptr[-1])
 
-    def check_compatible(self, operand, validate: str | None = None) -> None:
+    def check_compatible(self, operand) -> None:
         """O(1) check of an execute-time operand (shape and nnz for a CSC,
-        length for a raw value vector); ``validate="fingerprint"`` also
-        re-hashes a CSC's structure (O(nnz))."""
-        if validate not in (None, "fingerprint"):
-            raise ValueError(
-                f"unknown validate mode {validate!r}; None or 'fingerprint'")
+        length for a raw value vector)."""
         if isinstance(operand, CSC):
             if tuple(operand.shape) != self.shape:
                 raise ValueError(
@@ -134,11 +100,6 @@ class Pattern:
                 raise ValueError(
                     f"operand nnz {operand.nnz} != planned {self.nnz} "
                     "(sparsity pattern does not match this plan)")
-            if (validate == "fingerprint"
-                    and pattern_fingerprint(operand) != self.fingerprint):
-                raise ValueError(
-                    "operand sparsity pattern does not match this plan "
-                    "(fingerprint mismatch despite equal shape and nnz)")
             return
         shape = tuple(operand.shape)
         if len(shape) != 1:
@@ -182,14 +143,15 @@ class KernelLayout:
 
     The A operand rides whole into every launch; B is pre-sliced per group.
     ``a_gather``/``a_mask`` re-pad fresh A values with one gather.
+    ``c_slots`` bounds each C column's entries by min(Op_j, m), so each
+    group's output is compacted on the device with no host sync.
     """
 
-    block_cols: int
-    tile_cols: int
     a_rows: torch.Tensor      # [n_a, za] int32 (device)
     a_nnz: torch.Tensor       # [n_a] int32 (device)
     a_gather: torch.Tensor    # [n_a, za] int64 (device)
     a_mask: torch.Tensor      # [n_a, za] bool (device)
+    c_slots: ColumnSlots
     groups: Tuple[KernelGroup, ...]
 
 
@@ -213,17 +175,11 @@ class SpgemmPlan:
         return (self.a.shape[0], self.b.shape[1])
 
     def execute(self, a_values, b_values, *, stats: dict | None = None,
-                validate: str | None = None,
                 engine: str | None = None) -> CSC:
         """Numeric phase only: C for new values on the planned patterns."""
         from repro_torch.core.executor import execute
 
-        return execute(self, a_values, b_values, stats=stats,
-                       validate=validate, engine=engine)
-
-
-def _freeze(params: dict) -> tuple:
-    return tuple(sorted(params.items()))
+        return execute(self, a_values, b_values, stats=stats, engine=engine)
 
 
 def plan_spgemm(
@@ -233,47 +189,27 @@ def plan_spgemm(
     *,
     backend: str = "cuda",
     device=None,
-    t: float | None = None,
-    b_min: int | None = None,
-    b_max: int | None = None,
-    block_cols: int = 128,
-    tile_cols: int | None = None,
 ) -> SpgemmPlan:
     """Build the symbolic plan for C = A @ B (pattern-dependent work only).
 
     ``device`` (default ``"cuda"``) is where the plan's index tensors live
-    and its kernels run.  ``block_cols`` is the lane-block width of the
-    lock-step kernels; ``tile_cols`` bounds how many C columns one launch
-    materializes (defaults to ``block_cols``).
+    and its kernels run.  Every launch covers at most ``BLOCK_COLS`` C
+    columns, one lane block of the lock-step kernels.
     """
     if a.n_cols != b.n_rows:
         raise ValueError(f"shape mismatch {a.shape} @ {b.shape}")
-    if method not in ALGORITHMS and not method.startswith(
-            ("spars", "hash", "h-")):
-        raise ValueError(
-            f"unknown method {method!r}; one of {list(ALGORITHMS)} or a "
-            "'spars-*/hash-*/h-*' family name")
-    contract = backends.get_backend(backend)
-    if method in contract.excluded_methods:
-        raise ValueError(
-            f"method {method!r} has no {contract.name} kernel family "
-            "(host-only)")
+    params = resolve_params(method)
+    backends.get_backend(backend)   # canonical unknown-backend error
     dev = resolve_device(device)
-    params = resolve_params(method, t=t, b_min=b_min, b_max=b_max)
-    pre, layout = _plan_groups(a, b, method, params, block_cols, tile_cols,
-                               dev)
-    return SpgemmPlan(method, backend, _freeze(params), Pattern.of(a),
-                      Pattern.of(b), pre, layout, dev)
+    pre, layout = _plan_groups(a, b, method, params, dev)
+    return SpgemmPlan(method, backend, tuple(sorted(params.items())),
+                      Pattern.of(a), Pattern.of(b), pre, layout, dev)
 
 
-def _plan_groups(a, b, method, params, block_cols, tile_cols, dev):
+def _plan_groups(a, b, method, params, dev):
     """The per-group launch schedule (mirrors the JAX package's
-    ``_plan_pallas``), built in numpy and lifted once to ``dev``."""
-    if tile_cols is None:
-        tile_cols = block_cols
-    if tile_cols % block_cols:
-        raise ValueError(
-            f"tile_cols={tile_cols} not a multiple of block_cols={block_cols}")
+    ``_plan_pallas`` at its default ``block_cols = tile_cols = 128``),
+    built in numpy and lifted once to ``dev``."""
     n = b.n_cols
     a_rows, a_gather, a_mask, a_nnz = csc_pad_gather(a)
     b_rows, b_gather, b_mask, b_nnz = csc_pad_gather(b)
@@ -286,9 +222,7 @@ def _plan_groups(a, b, method, params, block_cols, tile_cols, dev):
     def add_group(kind, cols, steps=None, h=None):
         cols = np.asarray(cols, np.int64)
         n_real = len(cols)
-        if n_real == 0:
-            return
-        n_pad = -(-n_real // block_cols) * block_cols
+        n_pad = BLOCK_COLS
         sel = np.zeros(n_pad, np.int64)
         sel[:n_real] = cols
         valid = np.zeros(n_pad, bool)
@@ -296,64 +230,54 @@ def _plan_groups(a, b, method, params, block_cols, tile_cols, dev):
         g_rows = np.where(valid[:, None], b_rows[sel], 0).astype(np.int32)
         g_nnz = np.where(valid, b_nnz[sel], 0).astype(np.int32)
         if steps is not None:
-            steps = np.asarray(steps, np.int32)
-            if len(steps) != n_pad // block_cols:
-                raise AssertionError((len(steps), n_pad))
-            steps = lift(steps)
+            steps = lift(np.asarray([steps], np.int32))
         groups.append(KernelGroup(
             kind, cols, lift(cols), lift(g_rows), lift(g_nnz),
             lift(b_gather[sel]), lift(b_mask[sel] & valid[:, None]),
             steps, h))
 
-    # the kernels process each lane independently, so splitting a family
-    # into tile_cols-wide launches changes peak memory, never values
     if method == "spa":
         pre = None
         head = np.arange(n)
     else:
         tt = params["t"] if method.startswith("h-") else np.inf
         # the lock-step kernels use fixed-width lane blocks: the blocking
-        # bounds collapse to block_cols (the named method only selects the
+        # bounds collapse to BLOCK_COLS (the named method only selects the
         # family), exactly as in the JAX package
-        pre = preprocess(a, b, t=tt, b_min=block_cols, b_max=block_cols)
+        pre = preprocess(a, b, t=tt, b_min=BLOCK_COLS, b_max=BLOCK_COLS)
         head = pre.perm[: pre.split]
 
-    for c0 in range(0, len(head), tile_cols):
-        add_group("spa", head[c0: c0 + tile_cols])
+    # the kernels process each lane independently, so one launch per
+    # BLOCK_COLS columns changes peak memory, never values
+    for c0 in range(0, len(head), BLOCK_COLS):
+        add_group("spa", head[c0: c0 + BLOCK_COLS])
 
     if method != "spa" and pre.blocks.n_blocks:
         fam = "hash" if "hash" in method else "spars"
         starts, sizes = pre.blocks.starts, pre.blocks.sizes
-        n_blocks = pre.blocks.n_blocks
         # per-block trip count: the block max of steps_per_column (a lane
         # takes one step per stored B entry even on an empty A column)
         steps_sorted = steps_per_column(a, b)[pre.perm]
         steps_all = np.maximum.reduceat(steps_sorted, starts).astype(np.int32)
-        if fam == "hash":
-            # blocks with equal table size H form contiguous runs (H
-            # shrinks monotonically along sorted blocks, Section 3.2)
-            hs = pre.hash_sizes
-            run_bounds = np.concatenate(
-                ([0], np.nonzero(np.diff(hs))[0] + 1, [n_blocks]))
-            runs = list(zip(run_bounds[:-1], run_bounds[1:]))
-        else:
-            runs = [(0, n_blocks)]
-        blocks_per_tile = tile_cols // block_cols
-        for r0, r1 in runs:
-            h = int(pre.hash_sizes[r0]) if fam == "hash" else None
-            for i0 in range(r0, r1, blocks_per_tile):
-                i1 = min(i0 + blocks_per_tile, r1)
-                lo = int(starts[i0])
-                hi = int(starts[i1 - 1] + sizes[i1 - 1])
-                add_group(fam, pre.perm[lo:hi], steps=steps_all[i0:i1], h=h)
+        for i in range(pre.blocks.n_blocks):
+            # H shrinks monotonically along sorted blocks (Section 3.2):
+            # one launch per block, each with its block's table size
+            lo = int(starts[i])
+            add_group(fam, pre.perm[lo: lo + int(sizes[i])],
+                      steps=steps_all[i],
+                      h=int(pre.hash_sizes[i]) if fam == "hash" else None)
 
+    # C column j holds at most min(Op_j, m) entries: the compaction's slots
+    ops = ops_per_column(a, b) if pre is None else pre.ops
+    cap = np.minimum(ops, a.n_rows)
+    tile_cells = max(((a.n_rows if g.h is None else g.h) * g.n_real
+                      for g in groups), default=0)
     layout = KernelLayout(
-        block_cols=block_cols,
-        tile_cols=tile_cols,
         a_rows=lift(a_rows),
         a_nnz=lift(a_nnz.astype(np.int32)),
         a_gather=lift(a_gather),
         a_mask=lift(a_mask),
+        c_slots=ColumnSlots.of(cap, tile_cells, dev),
         groups=tuple(groups),
     )
     return pre, layout

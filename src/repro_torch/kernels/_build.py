@@ -65,24 +65,18 @@ def nvcc() -> str:
         "cannot be built")
 
 
-def _key(extra_flags) -> str:
+def _key() -> str:
     h = hashlib.sha256()
-    for f in (*NVCC_FLAGS, *extra_flags):
+    for f in NVCC_FLAGS:
         h.update(f.encode() + b"\0")
     for src in sources():
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(extra_flags=(), verbose: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` into the cached shared library; return its path.
-
-    ``extra_flags`` (e.g. ``("-Xptxas", "-v")``) join the key, so a build
-    with them never aliases the plain one.  With ``verbose`` the compiler's
-    output is printed even when it succeeds.
-    """
-    extra_flags = tuple(extra_flags)
-    out_dir = BUILD_ROOT / _key(extra_flags)
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the cached shared library; return its path."""
+    out_dir = BUILD_ROOT / _key()
     lib_path = out_dir / "librepro_torch_kernels.so"
     if lib_path.exists():
         return lib_path
@@ -92,15 +86,13 @@ def build(extra_flags=(), verbose: bool = False) -> Path:
         procs = []
         for src in sources():
             obj = Path(tmp) / (src.stem + ".o")
-            cmd = [compiler, *NVCC_FLAGS, *extra_flags, "-c", str(src),
-                   "-o", str(obj)]
+            cmd = [compiler, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        logs, failed = [], []
+        failed = []
         for cmd, _, p in procs:
             log = p.communicate()[0]
-            logs.append(log)
             if p.returncode:
                 failed.append(f"{' '.join(cmd)}\n{log}")
         if failed:
@@ -112,8 +104,6 @@ def build(extra_flags=(), verbose: bool = False) -> Path:
         if res.returncode:
             raise RuntimeError(
                 f"nvcc link failed:\n{' '.join(link)}\n{res.stdout}{res.stderr}")
-        if verbose:
-            print("".join(logs) + res.stdout + res.stderr, end="")
         # atomic publish: concurrent builders of one key never see a
         # half-written library
         os.replace(Path(tmp) / lib_path.name, lib_path)

@@ -49,21 +49,13 @@ def run_hash(group, a_arrs, b_vals, *, m: int, block_cols: int):
     return keys[:, : group.n_real], vals[:, : group.n_real]
 
 
-def spgemm_cuda(a: CSC, b: CSC, method: str = "spa", *, t: float = 40.0,
-                b_min: int | None = None, b_max: int | None = None,
-                block_cols: int = 128, tile_cols: int | None = None,
-                device=None, plan=None) -> CSC:
+def spgemm_cuda(a: CSC, b: CSC, method: str = "spa", *, device=None) -> CSC:
     """C = A @ B through the per-group kernels (plan once, execute once).
 
-    The lock-step kernels use fixed-width column blocks (= ``block_cols``),
-    so the b_min/b_max of the named method select the *family*; hybrids
-    split at ``t`` as in the paper.  Pass a held ``plan`` to skip the
-    symbolic phase.
+    The lock-step kernels use fixed-width column blocks, so the b_min/b_max
+    of the named method select the *family*; hybrids split at the paper's
+    t = 40.
     """
-    if plan is None:
-        from repro_torch.core.planner import plan_spgemm
+    from repro_torch.core.planner import plan_spgemm
 
-        plan = plan_spgemm(a, b, method, device=device, t=t, b_min=b_min,
-                           b_max=b_max, block_cols=block_cols,
-                           tile_cols=tile_cols)
-    return plan.execute(a, b)
+    return plan_spgemm(a, b, method, device=device).execute(a, b)

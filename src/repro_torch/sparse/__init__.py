@@ -7,6 +7,7 @@ kernel results are torch tensors on the device the caller chose.
 from repro_torch.sparse.format import (
     CSC,
     CSCBuilder,
+    ColumnSlots,
     csc_equal,
     csc_from_dense,
     csc_from_numpy,
@@ -38,6 +39,7 @@ from repro_torch.sparse.suitesparse import (
 __all__ = [
     "CSC",
     "CSCBuilder",
+    "ColumnSlots",
     "csc_equal",
     "csc_from_dense",
     "csc_from_numpy",

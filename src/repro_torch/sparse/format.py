@@ -13,7 +13,8 @@ Design notes
   padded view with one torch gather on the values' device.
 * :class:`CSCBuilder` compacts the kernels' per-group outputs (dense
   accumulator tiles, per-lane hash tables) on the device with torch ops; no
-  tile is copied to the host.
+  tile is copied to the host, and one execution reads one number back (the
+  result's nnz).
 """
 
 from __future__ import annotations
@@ -170,30 +171,73 @@ def csc_to_padded_columns(m: CSC, pad_to: int | None = None):
             torch.as_tensor(nnz_col, device=dev))
 
 
+@dataclasses.dataclass(frozen=True)
+class ColumnSlots:
+    """Staging slots for a result's columns: column j's entries go to
+    ``start[j] .. start[j+1]``.  ``start`` lives on the device, ``total``
+    (= ``start[-1]``) on the host, so writing into the slots needs no sync.
+    ``spare`` slots past the end take the discarded cells of one tile, each
+    its own: cells stored to one address would queue behind each other.
+    """
+
+    start: torch.Tensor   # [n + 1] int64 (device)
+    total: int
+    spare: int            # cells of the largest tile
+
+    @classmethod
+    def of(cls, capacity, spare: int, device) -> "ColumnSlots":
+        """Slots for at most ``capacity[j]`` entries in column j, for tiles
+        of at most ``spare`` cells."""
+        start = np.zeros(len(capacity) + 1, np.int64)
+        np.cumsum(capacity, out=start[1:])
+        return cls(torch.as_tensor(start, device=device), int(start[-1]),
+                   int(spare))
+
+
 class CSCBuilder:
     """Column-sliced CSC assembly from per-group kernel outputs, on the device.
 
     The executor produces results group by group — dense ``[m, L]``
     accumulator tiles (SPA/SPARS) or ``[H, L]`` hash tables (HASH).  Each
-    group is compacted where it lies, with torch ops, into (rows, values)
-    runs ordered by lane and then by row; :meth:`build` scatters the runs of
-    all groups into one CSC on the same device.  Peak transient memory is
-    one group tile plus the compacted entries; ``tile_shapes`` records every
-    tile seen.
+    group is compacted where it lies, with torch ops and no host sync: its
+    kept entries, ordered by row, are written into their columns' slots
+    and their counts recorded.
+    :meth:`build` reads the total once and gathers the slots into one CSC
+    on the same device.  ``tile_shapes`` records every tile seen.
     """
 
     dtype = torch.float32   # the kernels' value type
 
-    def __init__(self, shape, device):
+    def __init__(self, shape, slots: ColumnSlots):
         self.shape = tuple(int(s) for s in shape)
-        self.device = torch.device(device)
+        self.device = slots.start.device
+        n = self.shape[1]
+        self.slots = slots
         self.tile_shapes: list = []  # (kind, (rows, cols)) per compacted tile
-        self._parts: list = []       # (cols [L] int64, counts [L], rows, vals)
+        size = slots.total + slots.spare
+        self._rows = torch.empty(size, dtype=torch.int32, device=self.device)
+        self._vals = torch.empty(size, dtype=self.dtype, device=self.device)
+        self._counts = torch.zeros(n, dtype=torch.int64, device=self.device)
 
     @property
     def peak_tile_elems(self) -> int:
         """Largest intermediate tile compacted so far, in elements."""
         return max((s[0] * s[1] for _, s in self.tile_shapes), default=0)
+
+    def _scatter(self, cols, keep, rows, vals) -> None:
+        """Write ``rows``/``vals`` [R, L] where ``keep``; column ``cols[i]``
+        takes lane i's kept entries in ascending R order."""
+        if keep.numel() > self.slots.spare:
+            raise ValueError(f"a tile of {keep.numel()} cells exceeds the "
+                             f"{self.slots.spare} spare slots")
+        rank = torch.cumsum(keep, dim=0) - 1
+        spare = torch.arange(keep.numel(), device=keep.device).view(
+            keep.shape)
+        dest = torch.where(keep, self.slots.start[cols][None, :] + rank,
+                           self.slots.total + spare).reshape(-1)
+        self._rows[dest] = rows.to(torch.int32).reshape(-1)
+        self._vals[dest] = vals.to(self.dtype).reshape(-1)
+        self._counts[cols] = keep.sum(dim=0)
 
     def add_dense_tile(self, cols: torch.Tensor, tile: torch.Tensor) -> None:
         """Compact a dense [m, L] accumulator tile; tile[:, i] is C column
@@ -202,52 +246,39 @@ class CSCBuilder:
             raise ValueError(
                 f"tile has {tile.shape[1]} columns for {len(cols)} cols")
         self.tile_shapes.append(("dense", tuple(tile.shape)))
-        present = tile.abs() > 0
-        lane, row = torch.nonzero(present.T, as_tuple=True)  # lane-major
-        self._parts.append((cols, present.sum(dim=0), row,
-                            tile[row, lane].to(self.dtype)))
+        rows = torch.arange(tile.shape[0], device=tile.device)[:, None]
+        self._scatter(cols, tile.abs() > 0, rows.expand(tile.shape), tile)
 
     def add_hash_tables(self, cols: torch.Tensor, keys: torch.Tensor,
                         vals: torch.Tensor) -> None:
         """Compact per-lane hash tables keys/vals [H, L]; lane i holds C
         column cols[i].  Keeps slots with key >= 0 and |v| > 0, sorted by
-        (lane, row)."""
+        row within each lane."""
         if keys.shape[1] != len(cols):
             raise ValueError(
                 f"tables hold {keys.shape[1]} lanes for {len(cols)} cols")
         self.tile_shapes.append(("hash", tuple(keys.shape)))
+        m = self.shape[0]
         occupied = (keys >= 0) & (vals.abs() > 0)
-        lane, slot = torch.nonzero(occupied.T, as_tuple=True)
-        rows = keys[slot, lane].to(torch.int64)
-        # stable sort on (lane, row): equal keys keep their slot order
-        order = torch.sort(lane * self.shape[0] + rows, stable=True).indices
-        self._parts.append((cols, occupied.sum(dim=0), rows[order],
-                            vals[slot, lane][order].to(self.dtype)))
+        # free slots sort after every row; a stable sort keeps equal keys
+        # in slot order
+        rows, order = torch.sort(torch.where(occupied, keys.long(), m),
+                                 dim=0, stable=True)
+        self._scatter(cols, rows < m, rows, vals.gather(0, order))
 
     def build(self) -> CSC:
         m, n = self.shape
         dev = self.device
-        counts = torch.zeros(n, dtype=torch.int64, device=dev)
-        for cols, cnt, _, _ in self._parts:
-            counts[cols] = cnt
         col_ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-        torch.cumsum(counts, 0, out=col_ptr[1:])
-        nnz = sum(len(r) for _, _, r, _ in self._parts)
-        rows = torch.empty(nnz, dtype=torch.int32, device=dev)
-        vals = torch.empty(nnz, dtype=self.dtype, device=dev)
-        for cols, cnt, r, v in self._parts:
-            k = len(r)
-            if k == 0:
-                continue
-            # entry e of lane l lands at col_ptr[cols[l]] + (its rank in l)
-            lane_of = torch.repeat_interleave(
-                torch.arange(len(cols), device=dev), cnt, output_size=k)
-            lane_start = torch.cumsum(cnt, 0) - cnt
-            dest = (col_ptr[cols][lane_of]
-                    + torch.arange(k, device=dev) - lane_start[lane_of])
-            rows[dest] = r.to(torch.int32)
-            vals[dest] = v
-        return CSC(vals, rows, col_ptr.to(torch.int32), (m, n))
+        torch.cumsum(self._counts, 0, out=col_ptr[1:])
+        nnz = int(col_ptr[-1])       # the one host sync of an execution
+        # entry p of column j sits at slot start[j] + (p - col_ptr[j])
+        col = torch.repeat_interleave(torch.arange(n, device=dev),
+                                      self._counts, output_size=nnz)
+        src = (self.slots.start[col] + torch.arange(nnz, device=dev)
+               - col_ptr[col])
+        return CSC(self._vals[src], self._rows[src], col_ptr.to(torch.int32),
+                   (m, n))
 
 
 def validate_csc(m: CSC, *, sorted_rows: bool = False) -> None:

@@ -13,13 +13,15 @@ version, with no fused multiply-add, so they must agree exactly — on
 real-valued inputs too.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels
-from repro_torch.core import spgemm
+from repro_torch.core import cached_plan, spgemm
 from repro_torch.core.analysis import hash_table_size
 from repro_torch.sparse import generate
 from repro_torch.sparse.format import _np, csc_to_padded_columns
@@ -99,6 +101,25 @@ def test_spgemm_on_card_equals_cpu(cuda, method):
     want = spgemm(a, a, method, device="cpu")
     for f in ("col_ptr", "row_indices", "values"):
         assert np.array_equal(_np(getattr(got, f)), _np(getattr(want, f))), f
+
+
+@pytest.mark.parametrize("method", ["spa", "h-spa-16/64", "h-hash-256/256"])
+def test_execute_waits_for_the_card_once(cuda, method):
+    """Every group is gathered, launched and compacted without a host sync;
+    the one sync of an execution reads the result's nnz."""
+    a = generate.random_powerlaw_csc(600, 8.0, seed=5).to(cuda)
+    plan = cached_plan(a, a, method)
+    assert len(plan.layout.groups) > 1
+    plan.execute(a, a)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        plan.execute(a, a)
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
 
 
 def test_wrapper_rejects_bad_cuda_operands(cuda):

@@ -25,7 +25,7 @@ from repro_torch.core.api import (
 )
 from repro_torch.sparse import generate, stats, suitesparse
 from repro_torch.sparse.format import (
-    CSCBuilder, _np, csc_equal, csc_from_dense, csc_pad_gather, csc_to_dense,
+    CSCBuilder, ColumnSlots, _np, csc_equal, csc_from_dense, csc_pad_gather, csc_to_dense,
     validate_csc,
 )
 from torch_parity import adversarial, to_ref
@@ -218,7 +218,8 @@ def test_compaction_matches_reference_builder(seed):
     want_b.add_dense_tile(dense_cols, tile)
     want_b.add_hash_tables(hash_cols, keys, vals)
     want = want_b.build()
-    got_b = CSCBuilder((m, n), "cpu")
+    got_b = CSCBuilder((m, n), ColumnSlots.of(np.full(n, m), max(m, h) * 12,
+                                              "cpu"))
     got_b.add_dense_tile(torch.from_numpy(dense_cols), torch.from_numpy(tile))
     got_b.add_hash_tables(torch.from_numpy(hash_cols), torch.from_numpy(keys),
                           torch.from_numpy(vals))

@@ -29,6 +29,26 @@ def test_spgemm_matches_reference(method, case, values):
     check_spgemm_parity(a, b, method, values)
 
 
+@pytest.mark.parametrize("method", ["esc", "expand", "spars-128/128", "auto"])
+def test_methods_without_kernel_family_raise(method):
+    """The JAX package's host-only methods, unregistered family names and
+    ``auto`` have no kernel family in this port."""
+    a, b = adversarial("random")
+    with pytest.raises(ValueError, match="unknown method"):
+        spgemm(a, b, method, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(engine="fused"), dict(engine="stream"),
+                                dict(backend="pallas"), dict(backend="host")])
+def test_only_the_cuda_backend_and_naive_engine(kw):
+    a, b = adversarial("random")
+    with pytest.raises(ValueError, match="backend|engine"):
+        spgemm(a, b, device="cpu", **kw)
+    got = spgemm(a, b, device="cpu", backend="cuda", engine="naive")
+    want = spgemm(a, b, device="cpu")
+    assert (_np(got.values) == _np(want.values)).all()
+
+
 @pytest.mark.parametrize("method", ["spa", "h-spa-40/40", "h-hash-32/256"])
 def test_spgemm_cuda_is_plan_then_execute(method):
     """``kernels.spgemm_cuda`` (the counterpart of ``spgemm_pallas``) gives
