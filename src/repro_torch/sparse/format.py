@@ -225,19 +225,24 @@ class CSCBuilder:
         return max((s[0] * s[1] for _, s in self.tile_shapes), default=0)
 
     def _scatter(self, cols, keep, rows, vals) -> None:
-        """Write ``rows``/``vals`` [R, L] where ``keep``; column ``cols[i]``
-        takes lane i's kept entries in ascending R order."""
+        """Write ``rows``/``vals`` [L, R] where ``keep``; column ``cols[i]``
+        takes lane i's kept entries in ascending R order.
+
+        Lanes are the first axis so that the rank is a scan along the last
+        one: PyTorch scans an outer axis with one thread per lane, walking
+        all R cells in sequence.
+        """
         if keep.numel() > self.slots.spare:
             raise ValueError(f"a tile of {keep.numel()} cells exceeds the "
                              f"{self.slots.spare} spare slots")
-        rank = torch.cumsum(keep, dim=0) - 1
+        rank = torch.cumsum(keep, dim=1) - 1
         spare = torch.arange(keep.numel(), device=keep.device).view(
             keep.shape)
-        dest = torch.where(keep, self.slots.start[cols][None, :] + rank,
+        dest = torch.where(keep, self.slots.start[cols][:, None] + rank,
                            self.slots.total + spare).reshape(-1)
         self._rows[dest] = rows.to(torch.int32).reshape(-1)
         self._vals[dest] = vals.to(self.dtype).reshape(-1)
-        self._counts[cols] = keep.sum(dim=0)
+        self._counts[cols] = keep.sum(dim=1)
 
     def add_dense_tile(self, cols: torch.Tensor, tile: torch.Tensor) -> None:
         """Compact a dense [m, L] accumulator tile; tile[:, i] is C column
@@ -246,8 +251,9 @@ class CSCBuilder:
             raise ValueError(
                 f"tile has {tile.shape[1]} columns for {len(cols)} cols")
         self.tile_shapes.append(("dense", tuple(tile.shape)))
-        rows = torch.arange(tile.shape[0], device=tile.device)[:, None]
-        self._scatter(cols, tile.abs() > 0, rows.expand(tile.shape), tile)
+        lanes = tile.T
+        rows = torch.arange(tile.shape[0], device=tile.device)
+        self._scatter(cols, lanes.abs() > 0, rows.expand(lanes.shape), lanes)
 
     def add_hash_tables(self, cols: torch.Tensor, keys: torch.Tensor,
                         vals: torch.Tensor) -> None:
@@ -259,12 +265,13 @@ class CSCBuilder:
                 f"tables hold {keys.shape[1]} lanes for {len(cols)} cols")
         self.tile_shapes.append(("hash", tuple(keys.shape)))
         m = self.shape[0]
+        keys, vals = keys.T, vals.T
         occupied = (keys >= 0) & (vals.abs() > 0)
         # free slots sort after every row; a stable sort keeps equal keys
         # in slot order
         rows, order = torch.sort(torch.where(occupied, keys.long(), m),
-                                 dim=0, stable=True)
-        self._scatter(cols, rows < m, rows, vals.gather(0, order))
+                                 dim=1, stable=True)
+        self._scatter(cols, rows < m, rows, vals.gather(1, order))
 
     def build(self) -> CSC:
         m, n = self.shape
