@@ -1,7 +1,10 @@
 """SpGEMM core of the PyTorch port: host analysis, plans, execution, API.
 
 ``spgemm(a, b)`` plans the product once per sparsity pattern (cached) and
-runs the plan's per-group SPA / SPARS / HASH kernels on the card.
+runs the plan's per-group SPA / SPARS / HASH kernels on the card;
+``engine="fused"`` runs the plan's product stream through one K1 launch
+instead, and ``plan.stream_apply(..., engine="fused")`` is its
+differentiable form.
 """
 
 from repro_torch.core.analysis import (
@@ -25,6 +28,7 @@ from repro_torch.core.api import (
 )
 from repro_torch.core.backends import ExecutionContract, get_backend
 from repro_torch.core.executor import execute, resolve_engine
+from repro_torch.core.fused_stream import FusedStream, fused_fn, fused_stream
 from repro_torch.core.planner import (
     ALGORITHMS,
     KernelGroup,
@@ -56,6 +60,9 @@ __all__ = [
     "get_backend",
     "execute",
     "resolve_engine",
+    "FusedStream",
+    "fused_fn",
+    "fused_stream",
     "ALGORITHMS",
     "KernelGroup",
     "KernelLayout",

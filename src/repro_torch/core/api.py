@@ -68,10 +68,17 @@ class PlanCache:
     def info(self) -> dict:
         with self._lock:
             lookups = self._stats["hits"] + self._stats["misses"]
+            plans = list(self._plans.values())
             return dict(self._stats, size=len(self._plans),
                         max_size=self.max_size,
                         hit_rate=(self._stats["hits"] / lookups
-                                  if lookups else 0.0))
+                                  if lookups else 0.0),
+                        # entries other than plans hold no stream
+                        stream_bytes=sum(getattr(p, "stream_nbytes", 0)
+                                         for p in plans),
+                        fused_stream_bytes=sum(
+                            getattr(p, "fused_stream_nbytes", 0)
+                            for p in plans))
 
     def clear(self) -> None:
         with self._lock:
@@ -94,7 +101,12 @@ PLAN_CACHE = PlanCache()
 
 
 def plan_cache_info() -> dict:
-    """Occupancy, hit/miss/eviction counters and hit rate of the plan LRU."""
+    """Occupancy, hit/miss/eviction counters and hit rate of the plan LRU.
+
+    ``stream_bytes`` totals the host product streams the cached plans hold,
+    ``fused_stream_bytes`` their K1 views on the device (both built at a
+    plan's first fused execution; a guarded plan holds neither).
+    """
     return PLAN_CACHE.info()
 
 
@@ -114,7 +126,9 @@ def cached_plan(a: CSC, b: CSC, method: str | None = None, *,
     """Fetch-or-build a plan through the shared LRU.
 
     The key is both operands' pattern fingerprints, the method, the backend
-    and the device.
+    and the device.  Cached plans keep the default stream guard
+    (``fast.STREAM_MAX_PRODUCTS``); call :func:`plan_spgemm` with
+    ``stream_limit=`` for another.
     """
     method = DEFAULT_METHOD if method is None else method
     backend = DEFAULT_BACKEND if backend is None else backend
@@ -138,8 +152,10 @@ def spgemm(
 
     The default method is ``"h-hash-256/256"`` (the paper's best overall).
     ``device=None`` runs on the card and raises where there is none.  The
-    plan comes from the shared LRU.  The result is a CSC whose values
-    (f32), rows and col_ptr lie on the plan's device.
+    plan comes from the shared LRU.  ``engine="fused"`` replaces the
+    method's per-group kernels by one K1 launch over the product stream.
+    The result is a CSC whose values (f32), rows and col_ptr lie on the
+    plan's device.
     """
     plan = cached_plan(a, b, method, backend=backend, device=device)
     return plan.execute(a, b, engine=engine)

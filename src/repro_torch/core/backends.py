@@ -1,9 +1,11 @@
 """Backend/engine registry: one execution contract per backend.
 
-This slice registers one backend, ``"cuda"``: the counterpart of the JAX
-package's ``"pallas"`` backend — one hand-written kernel launch per plan
+The port registers one backend, ``"cuda"``: the counterpart of the JAX
+package's ``"pallas"`` backend.  Its engines are ``"naive"`` (``None``
+resolves to it), one hand-written kernel launch per plan
 :class:`~repro_torch.core.planner.KernelGroup` (the per-group SPA, SPARS and
-HASH schedule).  Its only engine is ``"naive"`` (``None`` resolves to it).
+HASH schedule), and ``"fused"``, one launch of kernel K1 over the plan's
+product stream (``core.fused_stream``).
 The plan's device decides where it runs: ``"cuda"`` launches the kernels,
 ``"cpu"`` (tests only, asked for explicitly) runs their plain versions.
 
@@ -67,8 +69,8 @@ def check_engine(contract: ExecutionContract, engine: Optional[str]) -> None:
 
 CUDA = register_backend(ExecutionContract(
     name="cuda",
-    # the per-group kernel schedule (SPA/SPARS/HASH launches); the fused
-    # stream engine of the JAX package is a later slice of the port
-    engines=(None, "naive"),
+    # "naive": the per-group kernel schedule (SPA/SPARS/HASH launches);
+    # "fused": one K1 launch over the plan's product stream
+    engines=(None, "naive", "fused"),
     default_engine="naive",
 ))

@@ -6,12 +6,14 @@ padded layouts, kernel groups) was made once by
 ``core.planner.plan_spgemm``.
 
 :func:`resolve_engine` checks the caller's ``engine=`` against the plan's
-:class:`~repro_torch.core.backends.ExecutionContract`.  The one engine of
-this slice, ``"naive"`` on the ``"cuda"`` backend, is the counterpart of the
-JAX package's ``_execute_pallas``: gather each group's padded values with
-the plan's resident index tensors, launch one kernel per group, and compact
+:class:`~repro_torch.core.backends.ExecutionContract`.  The default engine,
+``"naive"`` on the ``"cuda"`` backend, is the counterpart of the JAX
+package's ``_execute_pallas``: gather each group's padded values with the
+plan's resident index tensors, launch one kernel per group, and compact
 each group's output into CSC on the plan's device.  The host waits for the
-card once per execution, to read the result's nnz.
+card once per execution, to read the result's nnz.  ``"fused"`` runs
+``core.fused_stream.execute_fused``: one K1 launch, and no host wait, since
+the stream fixes the result's nnz at plan time.
 """
 
 from __future__ import annotations
@@ -38,10 +40,14 @@ def execute(plan: SpgemmPlan, a_values, b_values, *,
     ``a_values``/``b_values``: CSC matrices or raw nnz-length value vectors
     (torch tensors or numpy arrays), on any device: they are moved to the
     plan's device once.  Shapes and nnz are checked against the planned
-    patterns (O(1)).  ``stats``, if given, is filled with the engine, the tile
-    shapes and the launch count.
+    patterns (O(1)).  ``stats``, if given, is filled with the engine, the
+    launch count and the engine's own figures (tile shapes; or the stream's
+    products and whether the plan keeps it).
     """
-    resolve_engine(plan, engine)   # "naive": the per-group schedule
+    if resolve_engine(plan, engine) == "fused":
+        from repro_torch.core.fused_stream import execute_fused
+
+        return execute_fused(plan, a_values, b_values, stats=stats)
     return _execute_groups(plan, a_values, b_values, stats=stats)
 
 

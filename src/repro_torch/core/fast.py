@@ -1,0 +1,117 @@
+"""The product stream: C = A @ B as a fixed gather-multiply-segment-sum.
+
+Once a plan has fixed C's structure, the numeric phase is a contraction
+that depends on the pattern alone: which products exist, which C slot each
+lands in and in what order each slot sums them.  :func:`build_product_stream`
+computes that contraction once, in host numpy, as a flat
+:class:`ProductStream`; the fused engine (``core.fused_stream``) lifts it to
+the plan's device and replays it with kernel K1::
+
+    c_vals[s] = sum over q in segment s of a_vals[a_pos[q]] * b_vals[b_pos[q]]
+
+The counterpart of the JAX package's ``core/fast.py`` without its host numpy
+engine: the port runs the stream on the card only.
+
+Memory guard: a stream costs O(products) plan-resident memory, so a plan
+keeps none above its ``stream_limit`` products (default
+``STREAM_MAX_PRODUCTS``); the fused engine then rebuilds the stream for each
+execution and keeps nothing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+
+from repro_torch.core.expand import expand_positions, product_count
+from repro_torch.sparse.format import _np
+
+# plan-resident stream guard, in products: the JAX package's default, sized
+# there for host RAM and not yet measured against the card's memory;
+# plan_spgemm(stream_limit=) sets it per plan
+STREAM_MAX_PRODUCTS = 8_000_000
+
+
+@dataclasses.dataclass(frozen=True)
+class ProductStream:
+    """Pattern-only flat layout of every scalar product of ``C = A @ B``.
+
+    ``a_pos``/``b_pos`` index the operands' value arrays, one entry per
+    scalar product, with the C-slot sort already applied: the products of
+    C's p-th stored slot occupy ``[seg_starts[p], seg_starts[p+1])``, slots
+    in canonical CSC order (column-major, rows ascending).  Within a
+    segment, products keep Gustavson stream order (``core.expand``).
+    """
+
+    a_pos: np.ndarray       # [P] int64: A value position of each product
+    b_pos: np.ndarray       # [P] int64: B value position of each product
+    seg_starts: np.ndarray  # [nnz_c] int64: first product of each C slot
+    c_rows: np.ndarray      # [nnz_c] int32: C's row indices
+    c_col_ptr: np.ndarray   # [n+1] int32: C's column offsets
+    shape: Tuple[int, int]
+
+    @property
+    def n_products(self) -> int:
+        return int(self.a_pos.shape[0])
+
+    @property
+    def nnz(self) -> int:
+        return int(self.c_col_ptr[-1])
+
+    @property
+    def nbytes(self) -> int:
+        """Plan-resident size of the stream's index arrays."""
+        return (self.a_pos.nbytes + self.b_pos.nbytes
+                + self.seg_starts.nbytes + self.c_rows.nbytes
+                + self.c_col_ptr.nbytes)
+
+
+def build_product_stream(a, b, max_products: int | None = None
+                         ) -> Optional[ProductStream]:
+    """The product stream of ``C = A @ B``, from structure alone.
+
+    ``a``/``b``: anything with ``col_ptr``/``row_indices``/``shape`` (a
+    planner ``Pattern`` or a CSC); values are never read.  Returns ``None``
+    when the stream would exceed ``max_products`` (the plan-memory guard);
+    ``None`` builds unconditionally.  The arrays are frozen (non-writeable):
+    the plan shares them with everything built from the stream.
+    """
+    a_cp = _np(a.col_ptr)
+    a_rows = _np(a.row_indices)[: int(a_cp[-1])]
+    b_cp = _np(b.col_ptr)
+    b_rows = _np(b.row_indices)
+    m, n = int(a.shape[0]), int(b.shape[1])
+
+    if max_products is not None and product_count(
+            a_cp, b_cp, b_rows) > max_products:
+        return None
+    a_pos, b_pos, cols = expand_positions(a_cp, b_cp, b_rows)
+    total = len(a_pos)
+    if total == 0:
+        z = np.zeros(0, np.int64)
+        return _frozen_stream(z, z.copy(), z.copy(), np.zeros(0, np.int32),
+                              np.zeros(n + 1, np.int32), (m, n))
+    rows = a_rows[a_pos].astype(np.int64)
+
+    # sort products to C slots (stable: stream order survives in each slot)
+    order = np.lexsort((rows, cols))
+    rows, cols = rows[order], cols[order]
+    key = cols * m + rows                  # ascending after the lexsort
+    boundary = np.empty(total, bool)
+    boundary[0] = True
+    np.not_equal(key[1:], key[:-1], out=boundary[1:])
+    starts = np.nonzero(boundary)[0].astype(np.int64)
+    c_rows = rows[boundary].astype(np.int32)
+    col_ptr = np.zeros(n + 1, np.int32)
+    np.cumsum(np.bincount(cols[boundary], minlength=n), out=col_ptr[1:])
+    return _frozen_stream(a_pos[order], b_pos[order], starts, c_rows,
+                          col_ptr, (m, n))
+
+
+def _frozen_stream(a_pos, b_pos, seg_starts, c_rows, c_col_ptr,
+                   shape) -> ProductStream:
+    for arr in (a_pos, b_pos, seg_starts, c_rows, c_col_ptr):
+        arr.flags.writeable = False
+    return ProductStream(a_pos, b_pos, seg_starts, c_rows, c_col_ptr, shape)

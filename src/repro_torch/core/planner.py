@@ -5,7 +5,9 @@ column sorting, blocking, hash-table sizing, padded kernel layouts,
 per-family column groups, per-block trip counts — on the host in numpy, and
 captures the result in an immutable :class:`SpgemmPlan` whose index arrays
 live on the plan's device.  Executing the plan (``core.executor``) does
-only value work: one gather per operand and one kernel launch per group.
+only value work: one gather per operand and one kernel launch per group, or,
+under ``engine="fused"``, one K1 launch over the plan's product stream
+(``core.fast``, built at first use).
 
 Plans are keyed by :func:`pattern_fingerprint`, which hashes only structure
 (shape, col_ptr, row_indices) — never values — so ``core.api``'s bounded LRU
@@ -21,8 +23,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import backends
+from repro_torch.core import backends, fast
 from repro_torch.core.analysis import Preprocess, preprocess
+from repro_torch.core.fast import ProductStream, build_product_stream
 from repro_torch.device import resolve_device
 from repro_torch.sparse.format import CSC, ColumnSlots, _np, csc_pad_gather
 from repro_torch.sparse.stats import ops_per_column, steps_per_column
@@ -169,10 +172,61 @@ class SpgemmPlan:
     pre: Optional[Preprocess]
     layout: KernelLayout
     device: torch.device
+    stream_limit: Optional[int] = None  # plan-memory guard (products)
+    _stream_memo: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def shape(self) -> Tuple[int, int]:
         return (self.a.shape[0], self.b.shape[1])
+
+    @property
+    def stream(self) -> Optional[ProductStream]:
+        """The product stream of the fused engine (``core.fast``), built at
+        first access and kept on the plan, so per-group executions never
+        pay for it.  ``None`` when it would exceed ``stream_limit``."""
+        if "stream" not in self._stream_memo:
+            self._stream_memo["stream"] = build_product_stream(
+                self.a, self.b, self.stream_limit)
+        return self._stream_memo["stream"]
+
+    @property
+    def stream_nbytes(self) -> int:
+        """Host bytes of the stream this plan holds (0 before the first
+        fused execution and when the guard tripped); reads the memo
+        without building it."""
+        s = self._stream_memo.get("stream")
+        return s.nbytes if s is not None else 0
+
+    @property
+    def fused_stream_nbytes(self) -> int:
+        """Device bytes of the K1 views this plan holds
+        (``core.fused_stream``); reads the memo without building them."""
+        f = self._stream_memo.get("fused")
+        return f.nbytes if f is not None else 0
+
+    def stream_apply(self, a_values, b_values, engine: str | None = None):
+        """Differentiable numeric phase: C's values only.
+
+        ``a_values``/``b_values`` are value vectors (torch tensors, which
+        may require grad) aligned with the planned patterns; the result is
+        the ``[nnz_c]`` f32 value vector of C on the stream's structure
+        (``plan.stream.c_rows``/``c_col_ptr``), on the plan's device, and
+        ``torch.autograd`` differentiates it with two more K1 replays.
+        Only ``engine="fused"`` exists: the JAX package's XLA device stream
+        (``engine=None``/``"stream"``) has no counterpart in the port yet.
+        A guarded plan raises (there is no stream to differentiate through).
+        """
+        if engine != "fused":
+            raise ValueError(
+                f"stream_apply supports only engine='fused' in this port, "
+                f"got {engine!r}: the XLA device stream (engine=None/"
+                "'stream') is not ported")
+        from repro_torch.core.fused_stream import fused_fn
+
+        self.a.check_compatible(a_values)
+        self.b.check_compatible(b_values)
+        return fused_fn(self)(a_values, b_values)
 
     def execute(self, a_values, b_values, *, stats: dict | None = None,
                 engine: str | None = None) -> CSC:
@@ -189,12 +243,16 @@ def plan_spgemm(
     *,
     backend: str = "cuda",
     device=None,
+    stream_limit: int | None = None,
 ) -> SpgemmPlan:
     """Build the symbolic plan for C = A @ B (pattern-dependent work only).
 
     ``device`` (default ``"cuda"``) is where the plan's index tensors live
     and its kernels run.  Every launch covers at most ``BLOCK_COLS`` C
-    columns, one lane block of the lock-step kernels.
+    columns, one lane block of the lock-step kernels.  The fused engine's
+    product stream is kept on the plan while it has at most
+    ``stream_limit`` products (default ``fast.STREAM_MAX_PRODUCTS``);
+    above that each fused execution rebuilds it and keeps nothing.
     """
     if a.n_cols != b.n_rows:
         raise ValueError(f"shape mismatch {a.shape} @ {b.shape}")
@@ -202,8 +260,10 @@ def plan_spgemm(
     backends.get_backend(backend)   # canonical unknown-backend error
     dev = resolve_device(device)
     pre, layout = _plan_groups(a, b, method, params, dev)
+    limit = (fast.STREAM_MAX_PRODUCTS if stream_limit is None
+             else int(stream_limit))
     return SpgemmPlan(method, backend, tuple(sorted(params.items())),
-                      Pattern.of(a), Pattern.of(b), pre, layout, dev)
+                      Pattern.of(a), Pattern.of(b), pre, layout, dev, limit)
 
 
 def _plan_groups(a, b, method, params, dev):

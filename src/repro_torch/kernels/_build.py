@@ -40,6 +40,8 @@ SIGNATURES = {
     # ... as SPA, then steps, block_cols, h, keys, vals, stream
     "repro_hash_launch": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _I,
                           _P, _P, _P),
+    # idx_x, idx_y, seg_ptr, x, y, n_out, out, stream
+    "repro_fused_stream_launch": (_P, _P, _P, _P, _P, _I, _P, _P),
 }
 
 _LOCK = threading.Lock()

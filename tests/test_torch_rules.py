@@ -67,11 +67,12 @@ def test_spgemm_without_device_needs_a_card():
         cached_plan(a, a)
 
 
-@pytest.mark.parametrize("kernel", ["spa", "spars", "hash"])
+@pytest.mark.parametrize("kernel", ["spa", "spars", "hash", "fused"])
 def test_cpu_tensor_with_cuda_device_raises(kernel):
     """A kernel entry asked to run on the card never runs a CPU tensor
     through the plain version instead."""
-    from repro_torch.kernels import hash_spgemm, spa_spgemm, spars_spgemm
+    from repro_torch.kernels import fused_stream, hash_spgemm, spa_spgemm, \
+        spars_spgemm
 
     z = torch.zeros((16, 2), dtype=torch.int32)
     v = torch.zeros((16, 2), dtype=torch.float32)
@@ -80,6 +81,9 @@ def test_cpu_tensor_with_cuda_device_raises(kernel):
     with pytest.raises(ValueError, match="device"):
         if kernel == "spa":
             spa_spgemm(z, v, n, z, v, n, m=16, block_cols=16, device="cuda")
+        elif kernel == "fused":
+            fused_stream(n, n, n[:2], v[:, 0].contiguous(),
+                         v[:, 0].contiguous(), device="cuda")
         elif kernel == "spars":
             spars_spgemm(z, v, n, z, v, n, steps, m=16, block_cols=16,
                          device="cuda")
@@ -89,11 +93,13 @@ def test_cpu_tensor_with_cuda_device_raises(kernel):
 
 
 def test_no_fallback_in_wrappers():
-    """No wrapper catches its kernel's failure: the kernel modules hold no
-    ``try`` at all, and chip_smoke.py catches no phase failure."""
-    kernels = os.path.join(PORT, "kernels")
-    for f in ("spa.py", "spars.py", "hash_spgemm.py", "ops.py"):
-        tree = ast.parse(open(os.path.join(kernels, f)).read())
+    """No wrapper catches its kernel's failure: the kernel modules and the
+    fused engine hold no ``try`` at all, and chip_smoke.py catches no phase
+    failure."""
+    for f in ("kernels/spa.py", "kernels/spars.py", "kernels/hash_spgemm.py",
+              "kernels/fused_stream.py", "kernels/ops.py",
+              "core/fused_stream.py"):
+        tree = ast.parse(open(os.path.join(PORT, f)).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), f
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))

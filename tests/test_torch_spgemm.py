@@ -38,9 +38,11 @@ def test_methods_without_kernel_family_raise(method):
         spgemm(a, b, method, device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(engine="fused"), dict(engine="stream"),
+@pytest.mark.parametrize("kw", [dict(backend="jax"), dict(engine="stream"),
                                 dict(backend="pallas"), dict(backend="host")])
 def test_only_the_cuda_backend_and_naive_engine(kw):
+    """Only the "cuda" backend exists, and its engines are "naive" (the
+    default) and "fused" (tests/test_torch_fused.py)."""
     a, b = adversarial("random")
     with pytest.raises(ValueError, match="backend|engine"):
         spgemm(a, b, device="cpu", **kw)

@@ -23,6 +23,12 @@ KERNEL_METHODS = ("spa", "spars-16/64", "spars-40/40", "h-spa-16/64",
 # compared with atol=0.
 REAL_RTOL = REAL_ATOL = 1e-6
 
+# the fused engine's reference sums each slot through one-hot matmuls over
+# 128-product windows, the port in stream order one product at a time: real
+# values may differ by reassociation, so they are held to the reference's
+# own fused-engine tolerance (tests/test_fused_engine.py)
+FUSED_RTOL, FUSED_ATOL = 1e-5, 1e-6
+
 
 def to_ref(m: CSC) -> RefCSC:
     """The JAX package's CSC of a port CSC, through numpy."""
@@ -92,8 +98,9 @@ ADVERSARIAL = ("random", "empty_cols", "all_dense_cols", "single_row",
                "dup_heavy", "empty", "empty_a", "rect_chain")
 
 
-def assert_same_csc(got: CSC, want: RefCSC, *, exact: bool) -> None:
-    """Identical structure; values equal (exact) or within REAL_*TOL."""
+def assert_same_csc(got: CSC, want: RefCSC, *, exact: bool,
+                    rtol: float = REAL_RTOL, atol: float = REAL_ATOL) -> None:
+    """Identical structure; values equal (exact) or within rtol/atol."""
     assert tuple(got.shape) == tuple(want.shape)
     np.testing.assert_array_equal(_np(got.col_ptr), np.asarray(want.col_ptr))
     nnz = got.nnz
@@ -105,7 +112,7 @@ def assert_same_csc(got: CSC, want: RefCSC, *, exact: bool) -> None:
     if exact:
         np.testing.assert_array_equal(gv, wv)
     else:
-        np.testing.assert_allclose(gv, wv, rtol=REAL_RTOL, atol=REAL_ATOL)
+        np.testing.assert_allclose(gv, wv, rtol=rtol, atol=atol)
 
 
 def check_spgemm_parity(a: CSC, b: CSC, method: str, values: str) -> None:
@@ -152,3 +159,41 @@ def assert_same_groups(port_plan, ref_plan) -> None:
             np.testing.assert_array_equal(_np(p.steps), np.asarray(r.steps))
         np.testing.assert_array_equal(_np(p.b_rows), np.asarray(r.b_rows))
         np.testing.assert_array_equal(_np(p.b_nnz), np.asarray(r.b_nnz))
+
+
+def assert_same_stream(got, want) -> None:
+    """A port ``ProductStream`` equals the reference's, array for array."""
+    assert tuple(got.shape) == tuple(want.shape)
+    for f in ("a_pos", "b_pos", "seg_starts", "c_rows", "c_col_ptr"):
+        g, w = getattr(got, f), np.asarray(getattr(want, f))
+        assert g.dtype == w.dtype, f
+        np.testing.assert_array_equal(g, w, err_msg=f)
+    assert got.n_products == want.n_products and got.nnz == want.nnz
+
+
+def ref_fused(a: CSC, b: CSC, inputs, method: str = "spa") -> list:
+    """The reference's fused function on its own plan of (a, b), forward and
+    backward: for each ``(a_vals, b_vals, w)`` of numpy arrays, the C values
+    ``fn(a_vals, b_vals)`` and the gradients of ``sum(w * fn(a_vals,
+    b_vals))`` with respect to both, as numpy arrays.
+
+    ``fn`` is ``repro.core.pallas_stream.fused_fn`` of a pallas plan, with
+    its Pallas kernel in interpret mode (its default); one ``jax.jit`` serves
+    all ``inputs``, so the kernel is traced once per pattern.
+    """
+    import jax
+    import jax.numpy as jnp
+    from repro.core.pallas_stream import fused_fn
+    from repro.core.planner import plan_spgemm as ref_plan_spgemm
+
+    fn = fused_fn(ref_plan_spgemm(to_ref(a), to_ref(b), method,
+                                  backend="pallas"))
+
+    @jax.jit
+    def forward_backward(x, y, w):
+        c, pullback = jax.vjp(fn, x, y)
+        return (c, *pullback(w))
+
+    return [tuple(np.asarray(t) for t in forward_backward(
+        jnp.asarray(x, jnp.float32), jnp.asarray(y, jnp.float32),
+        jnp.asarray(w, jnp.float32))) for x, y, w in inputs]
