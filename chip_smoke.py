@@ -25,14 +25,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. Backward: ``torch.autograd.grad`` of ``sum(w * plan.stream_apply(x, x,
    engine="fused"))`` on ``cage9`` must equal the dense-matmul gradient in
    f64 on the CPU exactly, with three K1 launches (forward and two grads).
-6. Timing: per matrix and method, the host plan time, the execute time
+6. Batched kernels: K1-b … K4-b (one launch for B value sets, the batch a
+   second grid axis) each against its batched plain version at B = 2 (an
+   integer and a normal value set) on the first group of each kind of
+   every matrix's plans and on every forward view; and, at B = 8, each
+   batched launch's slice b against the unbatched kernel on value set b,
+   bit for bit, on every group of the default method and of
+   ``spars-16/64`` and on every forward view.
+7. Batched path: ``spgemm_batched(A, B)`` for the eleven matrices with
+   B = 8 integer value sets per operand (the JAX package's batched
+   benchmark setting), A's and B's drawn apart, under the five methods and
+   ``engine="fused"``; every element equal to ``scipy.sparse`` A_b@B_b in
+   f64 exactly and bit-identical to a looped execute, ``len(groups)``
+   batched launches per naive execute and 1 per fused one, 1 and 0 host
+   syncs on operands on the card; K1-b … K4-b must launch in this phase.
+8. Timing: per matrix and method, the host plan time, the execute time
    (median of ``--reps``), the host syncs of one execute on operands
    already on the card, each kernel's device time (CUDA events) and
    ``torch.sparse.mm(A, A)`` as ``library_ms``, a yardstick the port never
    calls; per matrix, the fused execute beside them (0 host syncs required)
    with its device time and idle share (``torch.profiler``) and K1's time
-   on each view; per kernel, its time, its plain version's, its bound and a
-   library call's, at its largest main-path group or view.
+   on each view; per matrix, a batched execute per multiply against a
+   looped one, both engines, with the batched execute's device time and
+   idle share; per kernel, its time, its plain version's, its bound and a
+   library call's, at its largest main-path group or view (the batched
+   kernels at B = 8).
 
 The last two lines are the kernels' JSON and the card line; the very last is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -76,8 +93,22 @@ KERNELS = {
     "hash": dict(name="hash_spgemm", route="cuda",
                  source="src/repro_torch/csrc/hash_spgemm.cu",
                  replaces="src/repro/kernels/hash_spgemm.py:30"),
+    "fused_b": dict(name="fused_stream_batched", route="cuda",
+                    source="src/repro_torch/csrc/fused_stream.cu",
+                    replaces="src/repro/core/pallas_stream.py:349"),
+    "spa_b": dict(name="spa_spgemm_batched", route="cuda",
+                  source="src/repro_torch/csrc/spa.cu",
+                  replaces="src/repro/kernels/spa.py:92"),
+    "spars_b": dict(name="spars_spgemm_batched", route="cuda",
+                    source="src/repro_torch/csrc/spars.cu",
+                    replaces="src/repro/kernels/spars.py:124"),
+    "hash_b": dict(name="hash_spgemm_batched", route="cuda",
+                   source="src/repro_torch/csrc/hash_spgemm.cu",
+                   replaces="src/repro/kernels/hash_spgemm.py:147"),
 }
 GROUP_KERNELS = ("spa", "spars", "hash")   # the per-group path's
+BATCH = 8   # value sets per batched call: BENCH_batched.json's config.batch
+SLICE_METHODS = (DEFAULT, "spars-16/64")   # every group kind among them
 BACKWARD_MATRIX = "cage9"   # the backward phase's mid-size matrix
 GUARDED_MATRIX = "iprob"    # 9.0M products, past the default stream guard
 
@@ -136,17 +167,34 @@ def real_valued(a, seed: int):
     return CSC(torch.from_numpy(vals), a.row_indices, a.col_ptr, a.shape)
 
 
-def scipy_square(a):
-    """(indptr, indices, data) of A@A in f64 by scipy, zeros dropped."""
+def scipy_product(a, b):
+    """(indptr, indices, data) of A@B in f64 by scipy, zeros dropped."""
     import scipy.sparse as sps
     from repro_torch.sparse.format import _np
 
-    s = sps.csc_matrix((_np(a.values).astype(np.float64),
-                        _np(a.row_indices), _np(a.col_ptr)), shape=a.shape)
-    c = (s @ s).tocsc()
+    def csc(m):
+        return sps.csc_matrix((_np(m.values).astype(np.float64),
+                               _np(m.row_indices), _np(m.col_ptr)),
+                              shape=m.shape)
+
+    c = (csc(a) @ csc(b)).tocsc()
     c.eliminate_zeros()
     c.sort_indices()
     return c.indptr, c.indices, c.data
+
+
+def batched_stacks(name, a, seed: int):
+    """(A, B) BatchedCSC stacks of ``BATCH`` value sets in {1, 2, 3} on the
+    pattern of Table-1 matrix ``name`` (``a``), on the host: every element
+    and each operand its own values, so C_b = A_b·B_b mixes two stacks."""
+    import torch
+    from repro_torch.sparse import BatchedCSC
+    from repro_torch.sparse.suitesparse import name_seed
+
+    rng = np.random.default_rng([seed, name_seed(name), 5])
+    vals = rng.integers(1, 4, size=(2, BATCH, a.nnz)).astype(np.float32)
+    return tuple(BatchedCSC.from_values(a, torch.from_numpy(v))
+                 for v in vals)
 
 
 def edge_operands(dev):
@@ -232,33 +280,38 @@ def group_operands(plan, a, groups=None):
                       h=g.h)
 
 
-def run_kernel(kind, op):
+def wrapper(kind, op, suffix=""):
+    """The wrapper of group kernel ``kind`` (``suffix`` "_plain" for its
+    plain version) that takes ``op``: the batched one when the values carry
+    a batch axis."""
     from repro_torch import kernels
 
+    batched = "_batched" if op["ab"][1].dim() == 3 else ""
+    return getattr(kernels, f"{kind}_spgemm{batched}{suffix}")
+
+
+def run_kernel(kind, op):
+    fn = wrapper(kind, op)
     if kind == "spa":
-        return (kernels.spa_spgemm(*op["ab"], m=op["m"],
-                                   block_cols=op["block"]),)
+        return (fn(*op["ab"], m=op["m"], block_cols=op["block"]),)
     if kind == "spars":
-        return kernels.spars_spgemm(*op["ab"], op["steps"], m=op["m"],
-                                    block_cols=op["block"])
-    return kernels.hash_spgemm(*op["ab"], op["steps"], m=op["m"], h=op["h"],
-                               block_cols=op["block"])
+        return fn(*op["ab"], op["steps"], m=op["m"], block_cols=op["block"])
+    return fn(*op["ab"], op["steps"], m=op["m"], h=op["h"],
+              block_cols=op["block"])
 
 
 def run_plain(kind, op):
-    from repro_torch import kernels
-
+    fn = wrapper(kind, op, "_plain")
     if kind == "spa":
-        return (kernels.spa_spgemm_plain(*op["ab"], m=op["m"]),)
+        return (fn(*op["ab"], m=op["m"]),)
     if kind == "spars":
-        return kernels.spars_spgemm_plain(*op["ab"], op["steps"], m=op["m"],
-                                          block_cols=op["block"])
-    return kernels.hash_spgemm_plain(*op["ab"], op["steps"], h=op["h"],
-                                     block_cols=op["block"])
+        return fn(*op["ab"], op["steps"], m=op["m"], block_cols=op["block"])
+    return fn(*op["ab"], op["steps"], h=op["h"], block_cols=op["block"])
 
 
 def compare(kind, op, label):
-    """Kernel vs plain on the same tensors; returns max |difference|."""
+    """Kernel vs plain on the same tensors (one value set or a batch);
+    returns max |difference|."""
     import torch
 
     got = run_kernel(kind, op)
@@ -305,6 +358,123 @@ def kernel_phase(plans, mats, dev, seed):
         check(checked[kind] > 0, f"{kind}: no group compared")
         print(f"kernel {KERNELS[kind]['name']}: {checked[kind]} comparisons "
               f"with the plain version, max |diff| {errs[kind]}", flush=True)
+    return errs
+
+
+# ---------------------------------------------------------------------------
+# the batched kernels against their plain versions and the unbatched ones
+# ---------------------------------------------------------------------------
+
+
+def batched_group_operands(plan, a_vals, b_vals, groups=None):
+    """(group, op) of each of ``groups`` (default: all groups of ``plan``)
+    for the value stacks ``a_vals``/``b_vals`` [B, nnz], as the batched
+    executor feeds them to the batched kernels."""
+    import torch
+    from repro_torch.core.planner import BLOCK_COLS
+    from repro_torch.sparse.format import padded_values_batched
+
+    lay = plan.layout
+    av = padded_values_batched(a_vals.to(plan.device, torch.float32),
+                               lay.a_gather, lay.a_mask)
+    bv = b_vals.to(plan.device, torch.float32)
+    for g in lay.groups if groups is None else groups:
+        yield g, dict(ab=(lay.a_rows, av, lay.a_nnz, g.b_rows,
+                          padded_values_batched(bv, g.b_vgather, g.b_vmask),
+                          g.b_nnz),
+                      steps=g.steps, m=plan.shape[0], block=BLOCK_COLS,
+                      h=g.h)
+
+
+def element_op(op, b):
+    """The unbatched operands of value set b of a batched ``op``."""
+    a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz = op["ab"]
+    return dict(op, ab=(a_rows, a_vals[b].contiguous(), a_nnz, b_rows,
+                        b_vals[b].contiguous(), b_nnz))
+
+
+def compare_slices(kind, op, label) -> None:
+    """Slice b of one batched launch against the unbatched kernel on value
+    set b, bit for bit, for every b."""
+    import torch
+
+    got = run_kernel(kind, op)
+    for b in range(op["ab"][1].shape[0]):
+        for g, w in zip(got, run_kernel(kind, element_op(op, b))):
+            check(torch.equal(g[b], w), f"{kind} batched {label}: slice "
+                  f"{b} != the unbatched kernel on value set {b}")
+    torch.cuda.synchronize()
+
+
+def two_value_sets(a, stack, seed):
+    """[2, nnz] on the pattern of ``a``: the stack's first integer value set
+    and a standard normal one (sums that round, so another summation order
+    than the plain version's would show)."""
+    import torch
+
+    return torch.stack([stack.values[0],
+                        real_valued(a, seed).values.to(stack.values.device)])
+
+
+def batched_kernel_phase(plans, fplans, mats, stacks, dev, seed):
+    """K2-b … K4-b against their batched plain versions at B = 2 on the
+    first group of each kind of every matrix's plans, and their slices
+    against the unbatched kernels at B = 8 on every group of
+    ``SLICE_METHODS``; K1-b likewise on every forward view."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import fused_stream
+
+    errs = {k: 0.0 for k in GROUP_KERNELS + ("fused",)}
+    checked = {k: 0 for k in errs}
+    sliced = {k: 0 for k in errs}
+    for name in MATRICES:
+        sa, sb = stacks[name]
+        a2 = two_value_sets(mats[name], sa, seed)
+        b2 = two_value_sets(mats[name], sb, seed + 1)
+        firsts = {}
+        for method in METHODS:
+            for g in plans[name, method].layout.groups:
+                firsts.setdefault(g.kind, (method, g))
+        for kind, (method, g) in firsts.items():
+            (_, op), = batched_group_operands(plans[name, method], a2, b2,
+                                              [g])
+            errs[kind] = max(errs[kind], compare(
+                kind, op, f"{name} {method_name(method)} {len(g.cols)} cols, "
+                "B = 2"))
+            checked[kind] += 1
+        for method in SLICE_METHODS:
+            for g, op in batched_group_operands(plans[name, method],
+                                                sa.values, sb.values):
+                compare_slices(g.kind, op, f"{name} {method_name(method)} "
+                               f"{len(g.cols)} cols")
+                sliced[g.kind] += 1
+        view = fused_stream(fplans[name]["plan"]).forward
+        idx = (view.idx_x, view.idx_y, view.seg_ptr)
+        x, y = a2.to(dev), b2.to(dev)
+        got = kernels.fused_stream_batched(*idx, x, y)
+        torch.cuda.synchronize()
+        want = kernels.fused_stream_batched_plain(*idx, x, y)
+        check(torch.equal(got, want), f"fused_stream_batched {name} B = 2: "
+              "kernel != plain version")
+        errs["fused"] = max(errs["fused"], float(
+            (got.double() - want.double()).abs().max()))
+        checked["fused"] += 1
+        x, y = sa.values.to(dev), sb.values.to(dev)
+        got = kernels.fused_stream_batched(*idx, x, y)
+        for b in range(BATCH):
+            check(torch.equal(got[b], kernels.fused_stream(*idx, x[b], y[b])),
+                  f"fused_stream_batched {name}: slice {b} != K1 on value "
+                  f"set {b}")
+        sliced["fused"] += 1
+    for kind in errs:
+        name = KERNELS[kind + "_b"]["name"]
+        check(checked[kind] > 0 and sliced[kind] > 0,
+              f"{name}: nothing compared")
+        print(f"kernel {name}: {checked[kind]} comparisons with the batched "
+              f"plain version at B = 2, max |diff| {errs[kind]}; "
+              f"{sliced[kind]} launches at B = {BATCH} equal the unbatched "
+              "kernel slice by slice", flush=True)
     return errs
 
 
@@ -591,6 +761,119 @@ def backward_phase(mats, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# the batched path (K1-b … K4-b)
+# ---------------------------------------------------------------------------
+
+BATCHED_RUNS = METHODS + ("fused",)   # the five methods, then the fused engine
+
+
+def run_label(run) -> str:
+    return "engine=fused" if run == "fused" else method_name(run)
+
+
+def batched_call(stacks, run):
+    """``spgemm_batched`` of ``stacks`` as a user calls it for ``run`` (a
+    method of ``METHODS`` or ``"fused"``), and the launches it made."""
+    from repro_torch import kernels
+    from repro_torch.core import spgemm_batched
+
+    args = () if run in (None, "fused") else (run,)
+    engine = "fused" if run == "fused" else None
+    before = kernels.launch_counts()
+    res = spgemm_batched(*stacks, *args, engine=engine)
+    after = kernels.launch_counts()
+    return res, {k: n - before[k] for k, n in after.items() if n > before[k]}
+
+
+def batched_path(stacks):
+    """Drive spgemm_batched for every matrix and run, with the counts set
+    to 0 just before and read just after; returns the results, each call's
+    launches and the counts."""
+    from repro_torch import kernels
+    from repro_torch.core import plan_cache_clear
+
+    plan_cache_clear()
+    kernels.reset_launch_counts()
+    results, launches = {}, {}
+    for name in MATRICES:
+        for run in BATCHED_RUNS:
+            results[name, run], launches[name, run] = batched_call(
+                stacks[name], run)
+    counts = kernels.launch_counts()
+    print(f"batched path: {len(MATRICES)} matrices x {len(BATCHED_RUNS)} "
+          f"runs at B = {BATCH}; launches {json.dumps(counts)}", flush=True)
+    for kind in GROUP_KERNELS + ("fused",):
+        name = KERNELS[kind + "_b"]["name"]
+        check(counts[name] > 0, f"{name} was not launched on the batched "
+              "path")
+        check(counts[KERNELS[kind]["name"]] == 0,
+              f"the batched path launched {KERNELS[kind]['name']}")
+    return results, launches, counts
+
+
+def check_batched_path(results, launches, stacks, fplans, dev):
+    """Every element of every batched result equals scipy A_b@B_b in f64
+    exactly and a looped execute bit for bit; each batched execute made
+    len(groups) (naive) or 1 (fused) launches and, on operands on the card,
+    1 or 0 host syncs."""
+    import torch
+    from repro_torch.core import cached_plan
+    from repro_torch.sparse.format import _np
+
+    syncs = {}
+    for name in MATRICES:
+        sa, sb = stacks[name]
+        expected = [scipy_product(sa[b], sb[b]) for b in range(BATCH)]
+        a_dev, b_dev = sa.to(dev), sb.to(dev)
+        for run in BATCHED_RUNS:
+            label = f"{name} {run_label(run)} batched"
+            fused = run == "fused"
+            engine = "fused" if fused else None
+            plan = cached_plan(sa[0], sb[0],
+                               None if run in (None, "fused") else run)
+            res = results[name, run]
+            check(len(res) == BATCH, f"{label}: {len(res)} results")
+            want = ({"fused_stream_batched": 1} if fused else {})
+            for g in plan.layout.groups if not fused else ():
+                key = KERNELS[g.kind + "_b"]["name"]
+                want[key] = want.get(key, 0) + 1
+            check(launches[name, run] == want, f"{label}: launches "
+                  f"{launches[name, run]}, expected {want}")
+            # iprob's cached plan is guarded, so its looped fused executes
+            # would rebuild the stream each time: they run on the
+            # raised-guard plan of the same pattern, whose stream is equal
+            loop_plan = fplans[name]["plan"] if fused else plan
+            for b, c in enumerate(res):
+                indptr, indices, data = expected[b]
+                check(c.values.device.type == "cuda",
+                      f"{label}: element {b} on {c.values.device}")
+                check(np.array_equal(_np(c.col_ptr), indptr)
+                      and np.array_equal(_np(c.row_indices), indices),
+                      f"{label}: element {b}'s structure differs from scipy")
+                vals = _np(c.values)
+                check(np.isfinite(vals).all()
+                      and np.array_equal(vals.astype(np.float64), data),
+                      f"{label}: element {b}'s values differ from scipy")
+                one = loop_plan.execute(sa[b], sb[b], engine=engine)
+                for f in ("col_ptr", "row_indices", "values"):
+                    check(torch.equal(torch.as_tensor(getattr(c, f)),
+                                      torch.as_tensor(getattr(one, f))),
+                          f"{label}: element {b}'s {f} differs from a "
+                          "looped execute")
+            # 0 syncs needs the stream kept (no views lifted per call)
+            syncs[name, run] = host_syncs(
+                lambda: loop_plan.execute_batched(a_dev, b_dev, engine=engine))
+            check(syncs[name, run] == (0 if fused else 1),
+                  f"{label}: {syncs[name, run]} host syncs on card operands")
+    print(f"batched path: every element of {len(MATRICES)} matrices x "
+          f"{len(BATCHED_RUNS)} runs x B = {BATCH} equals scipy A_b@B_b and "
+          "a looped execute exactly; launches per execute len(groups) "
+          "(naive) or 1 (fused); host syncs 1 (naive) and 0 (fused)",
+          flush=True)
+    return syncs
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -644,24 +927,28 @@ def torch_csr(a, dev):
 
 def group_work(kind, op):
     """(products, bytes) one launch needs: each B entry and each referenced
-    A column read once, the output tiles written once."""
+    A column read once, the output tiles written once.  A batched launch
+    (values [B, n, Z]) reads the shared rows, counts and trip counts once
+    and B values per entry, and writes B tiles."""
     import torch
 
-    a_rows, _, a_nnz, b_rows, _, b_nnz = op["ab"]
+    a_rows, a_vals, a_nnz, b_rows, _, b_nnz = op["ab"]
+    batch = a_vals.shape[0] if a_vals.dim() == 3 else 1
     n_b, zb = b_rows.shape
     live = torch.arange(zb, device=b_rows.device)[None, :] < b_nnz[:, None]
     ks = b_rows[live].long()
     products = int(a_nnz[ks].sum())
     ref_cols = torch.unique(ks)
-    a_bytes = int(a_nnz[ref_cols].sum()) * 8 + len(ref_cols) * 4
-    b_bytes = int(live.sum()) * 8 + n_b * 4
+    per_entry = 4 + 4 * batch   # its row once, its value in every element
+    a_bytes = int(a_nnz[ref_cols].sum()) * per_entry + len(ref_cols) * 4
+    b_bytes = int(live.sum()) * per_entry + n_b * 4
     if kind == "spa":
-        out_bytes = op["m"] * n_b * 4
+        out_bytes = batch * op["m"] * n_b * 4
     elif kind == "spars":
-        out_bytes = 2 * op["m"] * n_b * 4 + 4 * (n_b // op["block"])
+        out_bytes = batch * 2 * op["m"] * n_b * 4 + 4 * (n_b // op["block"])
     else:
-        out_bytes = 2 * op["h"] * n_b * 4 + 4 * (n_b // op["block"])
-    return products, a_bytes + b_bytes + out_bytes
+        out_bytes = batch * 2 * op["h"] * n_b * 4 + 4 * (n_b // op["block"])
+    return batch * products, a_bytes + b_bytes + out_bytes
 
 
 def bound_ms(products, nbytes):
@@ -671,21 +958,18 @@ def bound_ms(products, nbytes):
                                        else "operations")
 
 
-def library_ms(kind, op, reps):
-    """One PyTorch call computing the kernel's function: for SPA, the sparse
-    A times the group's dense B columns; none computes SPARS's flags or
-    HASH's tables."""
+def spa_library_operands(op):
+    """(sparse CSR A, dense B columns) of one SPA launch's operands, for
+    ``torch.sparse.mm``."""
     import torch
 
-    if kind != "spa":
-        return None
     a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz = op["ab"]
     n_a, za = a_rows.shape
     n_b, zb = b_rows.shape
     dev = a_vals.device
     a_live = torch.arange(za, device=dev)[None, :] < a_nnz[:, None]
     a_cols = torch.arange(n_a, device=dev)[:, None].expand(n_a, za)
-    a_coo = torch.sparse_coo_tensor(
+    a_csr = torch.sparse_coo_tensor(
         torch.stack([a_rows[a_live].long(), a_cols[a_live]]), a_vals[a_live],
         (op["m"], n_a)).coalesce().to_sparse_csr()
     b_live = torch.arange(zb, device=dev)[None, :] < b_nnz[:, None]
@@ -693,10 +977,28 @@ def library_ms(kind, op, reps):
     lanes = torch.arange(n_b, device=dev)[:, None].expand(n_b, zb)
     b_dense.index_put_((b_rows[b_live].long(), lanes[b_live]), b_vals[b_live],
                        accumulate=True)
-    want = run_plain("spa", op)[0]
-    got = torch.sparse.mm(a_coo, b_dense)
-    check(torch.allclose(got, want), "library SPA call disagrees")
-    return event_ms(lambda: torch.sparse.mm(a_coo, b_dense), reps)
+    return a_csr, b_dense
+
+
+def library_ms(kind, op, reps):
+    """One PyTorch call computing the kernel's function: for SPA, the sparse
+    A times the group's dense B columns; none computes SPARS's flags or
+    HASH's tables.  For a batched launch, that call once per value set."""
+    import torch
+
+    if kind != "spa":
+        return None
+    if op["ab"][1].dim() == 3:
+        want = run_kernel("spa", op)[0]
+        ops = [element_op(op, b) for b in range(want.shape[0])]
+    else:
+        want = run_plain("spa", op)[0][None]
+        ops = [op]
+    pairs = [spa_library_operands(o) for o in ops]
+    for b, (a_csr, b_dense) in enumerate(pairs):
+        check(torch.allclose(torch.sparse.mm(a_csr, b_dense), want[b]),
+              "library SPA call disagrees")
+    return event_ms(lambda: [torch.sparse.mm(*p) for p in pairs], reps)
 
 
 def execute_ms(fn, reps):
@@ -761,21 +1063,36 @@ def k1_work(view, x, y):
     """(products, bytes) one K1 replay needs: both index vectors (8 B a
     product), each element of x and y that the view gathers read once (in
     the forward view of A·A, x and y are one vector), the offsets and the
-    output, each once."""
+    output, each once.  A batched replay (x [B, n_x]) reads the indices and
+    offsets once and gathers and writes B times."""
     import torch
 
+    batch = x.shape[0] if x.dim() == 2 else 1
     if x.data_ptr() == y.data_ptr():
         gathered = torch.unique(torch.cat([view.idx_x, view.idx_y])).numel()
     else:
         gathered = (torch.unique(view.idx_x).numel()
                     + torch.unique(view.idx_y).numel())
-    nbytes = (8 * view.n_products + 4 * gathered + 4 * (view.n_out + 1)
-              + 4 * view.n_out)
-    return view.n_products, nbytes
+    nbytes = (8 * view.n_products + 4 * (view.n_out + 1)
+              + batch * (4 * gathered + 4 * view.n_out))
+    return batch * view.n_products, nbytes
 
 
 def profiled_device_ms(fn, n=3) -> float:
     """Device time (kernels and copies) per call of ``fn``, from
+    torch.profiler, after one warm-up call."""
+    return sum(device_profile(fn, n).values())
+
+
+def idle_share(device_ms, wall_ms):
+    """The share of ``wall_ms`` the card spent idle; None when the profiler
+    recorded no device event at all (it sometimes drops a window's events,
+    and a kernel did run), rather than an idle share of 1."""
+    return max(0.0, 1 - device_ms / wall_ms) if device_ms > 0 else None
+
+
+def device_profile(fn, n=3) -> dict:
+    """Device time per call of ``fn`` by kernel or copy name, in ms, from
     torch.profiler, after one warm-up call."""
     import torch
     from torch.autograd import DeviceType
@@ -794,8 +1111,8 @@ def profiled_device_ms(fn, n=3) -> float:
                        getattr(e, "self_cuda_time_total", 0.0))
 
     # kernels and copies only: an op's own row repeats its kernels' time
-    return sum(device_us(e) for e in prof.key_averages()
-               if e.device_type != DeviceType.CPU) / 1e3 / n
+    return {e.key: device_us(e) / 1e3 / n for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU}
 
 
 def fused_timing_phase(fplans, mats, dev, reps, naive_ms, libs):
@@ -846,8 +1163,8 @@ def fused_timing_phase(fplans, mats, dev, reps, naive_ms, libs):
             "execute_on_card_ms_median": statistics.median(on_card),
             # of one execute on the card, from the profiler's device time
             "device_ms": device_ms,
-            "device_idle_share": max(
-                0.0, 1 - device_ms / statistics.median(on_card)),
+            "device_idle_share": idle_share(device_ms,
+                                            statistics.median(on_card)),
             "host_syncs": syncs, "k1_device_ms": k1_ms,
             "naive_execute_ms_median": naive_ms[name, DEFAULT],
             "library_ms": libs[name]}), flush=True)
@@ -860,6 +1177,46 @@ def fused_timing_phase(fplans, mats, dev, reps, naive_ms, libs):
         "execute_ms_median": statistics.median(samples),
         "execute_ms_min": min(samples)}), flush=True)
     return biggest
+
+
+def batched_timing_phase(stacks, fplans, dev, reps, syncs):
+    """Per matrix, at B = BATCH with operands on the card: a batched
+    execute per multiply against a looped one (the same plan executed once
+    per value set), for the default method and the fused engine, with the
+    profiler's device time and idle share of one batched execute."""
+    from repro_torch.core import cached_plan
+
+    for name in MATRICES:
+        sa, sb = stacks[name]
+        a_dev, b_dev = sa.to(dev), sb.to(dev)
+        line = {"matrix": name, "batch": BATCH, "operands": "card"}
+        for run, plan in ((DEFAULT, cached_plan(sa[0], sb[0])),
+                          ("fused", fplans[name]["plan"])):
+            engine = "fused" if run == "fused" else None
+
+            def batched():
+                return plan.execute_batched(a_dev, b_dev, engine=engine)
+
+            def looped():
+                return [plan.execute(a_dev[b], b_dev[b], engine=engine)
+                        for b in range(BATCH)]
+
+            t_b = statistics.median(execute_ms(batched, reps))
+            t_l = statistics.median(execute_ms(looped, reps))
+            by_name = device_profile(batched)
+            device_ms = sum(by_name.values())
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+            line["naive" if engine is None else "fused"] = {
+                "batched_ms_per_multiply": t_b / BATCH,
+                "looped_ms_per_multiply": t_l / BATCH,
+                "looped_over_batched": t_l / t_b,
+                "batched_execute_ms": t_b,
+                "device_ms": device_ms,
+                "device_idle_share": idle_share(device_ms, t_b),
+                # the three largest device entries, name cut to 60 chars
+                "device_top_ms": {k[:60]: v for k, v in top},
+                "host_syncs": syncs[name, run]}
+        print(json.dumps(line), flush=True)
 
 
 def kernel_report(biggest, counts, errs, reps):
@@ -910,6 +1267,65 @@ def k1_report(biggest, launches, err, libs, reps):
                 **fwd, grad_views=timed)
 
 
+def batched_kernel_report(biggest, k1_biggest, plans, stacks, counts, errs,
+                          dev, reps):
+    """The rows of K1-b … K4-b: each timed at B = BATCH on its unbatched
+    kernel's largest main-path group or view, with that matrix's value
+    stacks; the plain versions once (at iprob they take seconds); the
+    library call is the unbatched row's, once per value set."""
+    import torch
+    from repro_torch import kernels
+
+    rows = []
+    for kind in GROUP_KERNELS:
+        info = KERNELS[kind + "_b"]
+        _, _, name, method, g, _ = biggest[kind]
+        sa, sb = stacks[name]
+        (_, op), = batched_group_operands(plans[name, method], sa.values,
+                                          sb.values, [g])
+        ms = event_ms(lambda: run_kernel(kind, op), reps)
+        plain = event_ms(lambda: run_plain(kind, op), reps=1, warmup=0)
+        products, nbytes = group_work(kind, op)
+        b_ms, by = bound_ms(products, nbytes)
+        rows.append(dict(
+            info, launches=counts[info["name"]], max_abs_err=errs[kind],
+            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+            library_ms=library_ms(kind, op, reps),
+            at=dict(matrix=name, method=method_name(method), batch=BATCH,
+                    cols=len(g.cols), products=products, bytes=nbytes,
+                    h=g.h)))
+        torch.cuda.synchronize()
+    _, name, view, _, _ = k1_biggest["forward"]
+    sa, sb = stacks[name]
+    x, y = sa.values.to(dev), sb.values.to(dev)
+    idx = (view.idx_x, view.idx_y, view.seg_ptr)
+    ms = event_ms(lambda: kernels.fused_stream_batched(*idx, x, y), reps)
+    plain = event_ms(lambda: kernels.fused_stream_batched_plain(*idx, x, y),
+                     reps=1, warmup=0)
+    products, nbytes = k1_work(view, x, y)
+    b_ms, by = bound_ms(products, nbytes)
+    csrs = [(torch_csr(sa[b], dev), torch_csr(sb[b], dev))
+            for b in range(BATCH)]
+    lib = event_ms(lambda: [torch.sparse.mm(*p) for p in csrs], reps)
+    info = KERNELS["fused_b"]
+    rows.insert(0, dict(
+        info, launches=counts[info["name"]], max_abs_err=errs["fused"],
+        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib,
+        at=dict(matrix=name, view="forward", batch=BATCH,
+                products=products, segments=view.n_out, bytes=nbytes)))
+    torch.cuda.synchronize()
+    return rows
+
+
+def timed(phase, *args):
+    """``phase(*args)``, with a line saying how long it took."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -944,7 +1360,10 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     mats = {name: integer_matrix(name, args.seed) for name in MATRICES}
-    expected = {name: scipy_square(mats[name]) for name in MATRICES}
+    expected = {name: scipy_product(mats[name], mats[name])
+                for name in MATRICES}
+    stacks = {name: batched_stacks(name, mats[name], args.seed)
+              for name in MATRICES}
     print(f"synthesized {len(MATRICES)} Table-1 matrices and scipy A@A in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     torch.zeros(1, device=dev)   # CUDA context up before plan times
@@ -961,18 +1380,27 @@ def main(argv=None) -> int:
 
     fplans = fused_plans(mats, dev)
 
-    errs = kernel_phase(plans, mats, dev, args.seed)
-    k1_err = fused_kernel_phase(fplans, mats, dev, args.seed)
-    counts = main_path(mats, expected)
-    fused_counts = fused_path(mats, expected)
-    backward_phase(mats, dev, args.seed)
-    biggest, naive_ms, libs = timing_phase(plans, mats, plan_ms, dev,
-                                           args.reps)
-    k1_biggest = fused_timing_phase(fplans, mats, dev, args.reps, naive_ms,
-                                    libs)
-    rows = [k1_report(k1_biggest, fused_counts["fused_stream"], k1_err, libs,
-                      args.reps)]
-    rows += kernel_report(biggest, counts, errs, args.reps)
+    errs = timed(kernel_phase, plans, mats, dev, args.seed)
+    k1_err = timed(fused_kernel_phase, fplans, mats, dev, args.seed)
+    b_errs = timed(batched_kernel_phase, plans, fplans, mats, stacks, dev,
+                   args.seed)
+    counts = timed(main_path, mats, expected)
+    fused_counts = timed(fused_path, mats, expected)
+    timed(backward_phase, mats, dev, args.seed)
+    b_results, b_launches, b_counts = timed(batched_path, stacks)
+    b_syncs = timed(check_batched_path, b_results, b_launches, stacks,
+                    fplans, dev)
+    del b_results
+    biggest, naive_ms, libs = timed(timing_phase, plans, mats, plan_ms, dev,
+                                    args.reps)
+    k1_biggest = timed(fused_timing_phase, fplans, mats, dev, args.reps,
+                       naive_ms, libs)
+    timed(batched_timing_phase, stacks, fplans, dev, args.reps, b_syncs)
+    rows = [timed(k1_report, k1_biggest, fused_counts["fused_stream"],
+                  k1_err, libs, args.reps)]
+    rows += timed(kernel_report, biggest, counts, errs, args.reps)
+    rows += timed(batched_kernel_report, biggest, k1_biggest, plans, stacks,
+                  b_counts, b_errs, dev, args.reps)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, build "
           "included", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

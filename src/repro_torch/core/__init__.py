@@ -4,7 +4,9 @@
 runs the plan's per-group SPA / SPARS / HASH kernels on the card;
 ``engine="fused"`` runs the plan's product stream through one K1 launch
 instead, and ``plan.stream_apply(..., engine="fused")`` is its
-differentiable form.
+differentiable form.  ``spgemm_batched(a, b)`` / ``plan.execute_batched``
+run B same-pattern value sets through the same launches (the batched
+kernels K1-b … K4-b).
 """
 
 from repro_torch.core.analysis import (
@@ -25,10 +27,13 @@ from repro_torch.core.api import (
     plan_cache_info,
     plan_cache_resize,
     spgemm,
+    spgemm_batched,
 )
 from repro_torch.core.backends import ExecutionContract, get_backend
-from repro_torch.core.executor import execute, resolve_engine
-from repro_torch.core.fused_stream import FusedStream, fused_fn, fused_stream
+from repro_torch.core.executor import execute, execute_batched, \
+    resolve_engine
+from repro_torch.core.fused_stream import FusedStream, execute_fused_batched, \
+    fused_fn, fused_stream
 from repro_torch.core.planner import (
     ALGORITHMS,
     KernelGroup,
@@ -56,11 +61,14 @@ __all__ = [
     "plan_cache_info",
     "plan_cache_resize",
     "spgemm",
+    "spgemm_batched",
     "ExecutionContract",
     "get_backend",
     "execute",
+    "execute_batched",
     "resolve_engine",
     "FusedStream",
+    "execute_fused_batched",
     "fused_fn",
     "fused_stream",
     "ALGORITHMS",

@@ -10,6 +10,10 @@ executes it against the operand values::
     plan = cached_plan(a, b)                 # symbolic phase, once
     c1 = plan.execute(a_vals_1, b_vals_1)    # numeric phase only
 
+``spgemm_batched(A, B)`` multiplies B same-pattern value sets
+(:class:`~repro_torch.sparse.format.BatchedCSC`) through one execution of
+the same cached plan.
+
 ``device=None`` means the card (``"cuda"``); without one it raises.  Pass
 ``device="cpu"`` to run the kernels' plain versions on the host.
 """
@@ -25,7 +29,7 @@ from repro_torch.core.planner import (
     plan_spgemm,
 )
 from repro_torch.device import resolve_device
-from repro_torch.sparse.format import CSC
+from repro_torch.sparse.format import CSC, BatchedCSC
 
 DEFAULT_METHOD = "h-hash-256/256"
 DEFAULT_BACKEND = "cuda"
@@ -159,3 +163,58 @@ def spgemm(
     """
     plan = cached_plan(a, b, method, backend=backend, device=device)
     return plan.execute(a, b, engine=engine)
+
+
+def _check_plan_overrides(plan, method, backend, device) -> None:
+    """Reject ``plan=`` calls whose explicit arguments conflict with what
+    the held plan was built with."""
+    conflicts = []
+    if method is not None and method != plan.method:
+        conflicts.append(f"method={method!r} (plan has {plan.method!r})")
+    if backend is not None and backend != plan.backend:
+        conflicts.append(f"backend={backend!r} (plan has {plan.backend!r})")
+    if device is not None and resolve_device(device) != plan.device:
+        conflicts.append(f"device={device!r} (plan has {plan.device})")
+    if conflicts:
+        raise ValueError(
+            "arguments conflict with the held plan (a plan carries its own "
+            "method/backend/device): " + "; ".join(conflicts))
+
+
+def spgemm_batched(
+    a: BatchedCSC,
+    b: BatchedCSC,
+    method: str | None = None,
+    *,
+    backend: str | None = None,
+    device=None,
+    engine: str | None = None,
+    plan: SpgemmPlan | None = None,
+) -> list:
+    """B same-pattern multiplies C_b = A_b @ B_b through one plan execution.
+
+    ``a``/``b`` are :class:`~repro_torch.sparse.format.BatchedCSC` stacks
+    (one sparsity pattern each, values ``[B, nnz]``).  The plan comes from
+    the same LRU as :func:`spgemm`, keyed on element 0, and all B value
+    sets run through one set of kernel launches (``plan.execute_batched``).
+    Returns a list of B CSC results, bit-identical to calling
+    :func:`spgemm` per element.  ``engine`` as in :func:`spgemm`.
+
+    With ``plan`` the symbolic phase is skipped (explicit arguments that
+    conflict with it raise) and ``a``/``b`` may also be raw ``[B, nnz]``
+    value stacks aligned with the planned patterns.
+    """
+    if plan is not None:
+        _check_plan_overrides(plan, method, backend, device)
+        return plan.execute_batched(a, b, engine=engine)
+    if not isinstance(a, BatchedCSC) or not isinstance(b, BatchedCSC):
+        raise TypeError(
+            "spgemm_batched operands must be BatchedCSC (use BatchedCSC"
+            ".stack / .from_values, or pass plan= with raw value stacks)")
+    if a.batch != b.batch:
+        raise ValueError(f"batch mismatch: {a.batch} vs {b.batch}")
+    if a.batch < 1:
+        raise ValueError("empty batch")
+    p = cached_plan(a.element(0), b.element(0), method, backend=backend,
+                    device=device)
+    return p.execute_batched(a, b, engine=engine)

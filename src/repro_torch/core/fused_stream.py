@@ -22,11 +22,17 @@ exactly 0.  All index tensors are lifted to the plan's device once, with
 C's structure, and shared by every result: an execution on operands that
 already lie on the card copies nothing from the host and waits for nothing.
 
+**Batch.**  :func:`execute_fused_batched` replays the forward view once
+for B same-pattern value sets (``[B, nnz]`` stacks) in one K1-b launch;
+the B results share C's structure tensors.  The batched gradient (the JAX
+package's ``vmap`` of its custom vjp) is not ported yet.
+
 **Guard.**  A plan whose stream exceeds its ``stream_limit`` keeps no stream.
-:func:`execute_fused` then builds the stream and its forward view for that
-one execution, runs K1 on the plan's device all the same, and keeps nothing
-(``stats["stream_cached"]`` is False).  :func:`fused_fn` and
-``plan.stream_apply`` raise instead, as in the JAX package.
+:func:`execute_fused` and :func:`execute_fused_batched` then build the
+stream and its forward view for that one call, run K1 on the plan's device
+all the same, and keep nothing (``stats["stream_cached"]`` is False).
+:func:`fused_fn` and ``plan.stream_apply`` raise instead, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ from repro_torch.core.device_stream import (
     check_int32_stream,
     stream_seg_ids,
 )
-from repro_torch.core.executor import _values
+from repro_torch.core.executor import _check_batch, _values
 from repro_torch.core.fast import ProductStream, build_product_stream
 from repro_torch.sparse.format import CSC
 
@@ -209,6 +215,27 @@ def fused_fn(plan):
     return memo["fused_fn"]
 
 
+def _forward_of(plan):
+    """(forward view, c_rows, c_col_ptr, cached) of ``plan``: the kept
+    views, or past the guard a stream and view built for this one call."""
+    fs = fused_stream(plan)
+    if fs is not None:
+        return fs.forward, fs.c_rows, fs.c_col_ptr, True
+    s = build_product_stream(plan.a, plan.b)
+    check_int32_stream(plan, s)
+    return (_forward_view(s, plan.device), *_structure(s, plan.device),
+            False)
+
+
+def _fused_stats(stats, plan, view, cached) -> None:
+    if stats is not None:
+        stats.update(engine="fused", backend=plan.backend,
+                     device=str(plan.device),
+                     n_launches=int(view.n_out > 0 and view.n_products > 0),
+                     stream_products=view.n_products, stream_cached=cached,
+                     result_shape=plan.shape)
+
+
 def execute_fused(plan, a_values, b_values, *,
                   stats: dict | None = None) -> CSC:
     """Numeric phase through K1 (the executor's ``"fused"`` engine).
@@ -222,20 +249,41 @@ def execute_fused(plan, a_values, b_values, *,
     plan.a.check_compatible(a_values)
     plan.b.check_compatible(b_values)
     dev = plan.device
-    fs = fused_stream(plan)
-    if fs is not None:
-        view, c_rows, c_col_ptr = fs.forward, fs.c_rows, fs.c_col_ptr
-    else:
-        s = build_product_stream(plan.a, plan.b)
-        check_int32_stream(plan, s)
-        view = _forward_view(s, dev)
-        c_rows, c_col_ptr = _structure(s, dev)
+    view, c_rows, c_col_ptr, cached = _forward_of(plan)
     with torch.no_grad():
         vals = _fused_call(view, _operand(a_values, dev),
                            _operand(b_values, dev))
-    if stats is not None:
-        stats.update(engine="fused", backend=plan.backend, device=str(dev),
-                     n_launches=int(view.n_out > 0 and view.n_products > 0),
-                     stream_products=view.n_products,
-                     stream_cached=fs is not None, result_shape=plan.shape)
+    _fused_stats(stats, plan, view, cached)
     return CSC(vals, c_rows, c_col_ptr, plan.shape)
+
+
+def execute_fused_batched(plan, a_values, b_values, *,
+                          stats: dict | None = None) -> list:
+    """Batched numeric phase through K1-b: B value sets, one launch.
+
+    ``a_values``/``b_values`` are :class:`~repro_torch.sparse.format.
+    BatchedCSC` operands or raw ``[B, nnz]`` stacks.  Returns B CSCs whose
+    values are the rows of one ``[B, nnz_c]`` tensor and which share one
+    ``row_indices``/``col_ptr`` pair; result b is bit-identical to
+    :func:`execute_fused` on value set b.  Past the guard the stream is
+    built once for the whole call.
+    """
+    from repro_torch.kernels import fused_stream_batched
+
+    av = plan.a.batched_values(a_values)
+    bv = plan.b.batched_values(b_values)
+    batch = _check_batch(av, bv)
+    dev = plan.device
+    view, c_rows, c_col_ptr, cached = _forward_of(plan)
+    with torch.no_grad():
+        vals = fused_stream_batched(view.idx_x, view.idx_y, view.seg_ptr,
+                                    _stack(av, dev), _stack(bv, dev))
+    _fused_stats(stats, plan, view, cached)
+    if stats is not None:
+        stats["batch"] = batch
+    return [CSC(vals[b], c_rows, c_col_ptr, plan.shape)
+            for b in range(batch)]
+
+
+def _stack(v, dev) -> torch.Tensor:
+    return v.to(device=dev, dtype=torch.float32).contiguous()

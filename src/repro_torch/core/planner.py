@@ -27,7 +27,8 @@ from repro_torch.core import backends, fast
 from repro_torch.core.analysis import Preprocess, preprocess
 from repro_torch.core.fast import ProductStream, build_product_stream
 from repro_torch.device import resolve_device
-from repro_torch.sparse.format import CSC, ColumnSlots, _np, csc_pad_gather
+from repro_torch.sparse.format import CSC, BatchedCSC, ColumnSlots, _np, \
+    as_tensor, csc_pad_gather
 from repro_torch.sparse.stats import ops_per_column, steps_per_column
 
 # method -> base kwargs; the paper's Section 5.3 configurations that have a
@@ -91,24 +92,53 @@ class Pattern:
     def nnz(self) -> int:
         return int(self.col_ptr[-1])
 
+    def _check_structure(self, operand) -> None:
+        """Shape and nnz of a CSC or BatchedCSC operand (O(1))."""
+        if tuple(operand.shape) != self.shape:
+            raise ValueError(
+                f"operand shape {tuple(operand.shape)} != planned "
+                f"{self.shape}")
+        if operand.nnz != self.nnz:
+            raise ValueError(
+                f"operand nnz {operand.nnz} != planned {self.nnz} "
+                "(sparsity pattern does not match this plan)")
+
     def check_compatible(self, operand) -> None:
         """O(1) check of an execute-time operand (shape and nnz for a CSC,
         length for a raw value vector)."""
         if isinstance(operand, CSC):
-            if tuple(operand.shape) != self.shape:
-                raise ValueError(
-                    f"operand shape {tuple(operand.shape)} != planned "
-                    f"{self.shape}")
-            if operand.nnz != self.nnz:
-                raise ValueError(
-                    f"operand nnz {operand.nnz} != planned {self.nnz} "
-                    "(sparsity pattern does not match this plan)")
+            self._check_structure(operand)
             return
         shape = tuple(operand.shape)
         if len(shape) != 1:
             raise ValueError(f"expected a 1-D value array, got shape {shape}")
         if shape[0] < self.nnz:
             raise ValueError(f"need >= {self.nnz} values, got {shape[0]}")
+
+    def check_batched_compatible(self, operand) -> None:
+        """Batched twin of :meth:`check_compatible`: shape and nnz for a
+        :class:`BatchedCSC`, ``[B, >= nnz]`` for a raw value stack.  A
+        single CSC or a 1-D array is rejected (use ``execute``)."""
+        if isinstance(operand, BatchedCSC):
+            self._check_structure(operand)
+            return
+        # a CSC's shape is (n_rows, n_cols): never read it as [B, nnz]
+        shape = None if isinstance(operand, CSC) else np.shape(operand)
+        if shape is None or len(shape) != 2:
+            raise ValueError(
+                "batched operand must be a BatchedCSC or a [B, nnz] value "
+                f"array, got {'a CSC' if shape is None else tuple(shape)}")
+        if shape[1] < self.nnz:
+            raise ValueError(f"need >= {self.nnz} values per batch element, "
+                             f"got {shape[1]}")
+
+    def batched_values(self, operand) -> torch.Tensor:
+        """The ``[B, nnz]`` value stack (torch, where it lies) of a batched
+        execute-time operand: a :class:`BatchedCSC` with this pattern or a
+        raw ``[B, >= nnz]`` stack."""
+        self.check_batched_compatible(operand)
+        v = operand.values if isinstance(operand, BatchedCSC) else operand
+        return as_tensor(v)[:, : self.nnz]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,6 +264,23 @@ class SpgemmPlan:
         from repro_torch.core.executor import execute
 
         return execute(self, a_values, b_values, stats=stats, engine=engine)
+
+    def execute_batched(self, a_values, b_values, *,
+                        stats: dict | None = None,
+                        engine: str | None = None) -> list:
+        """Batched numeric phase: B same-pattern multiplies through one
+        execution of the plan.
+
+        ``a_values``/``b_values``: :class:`~repro_torch.sparse.format.
+        BatchedCSC` operands or raw ``[B, nnz]`` value stacks aligned with
+        the planned patterns.  Returns the B results as a list of CSC
+        matrices, bit-identical to a Python loop of :meth:`execute`.
+        ``engine`` as in :meth:`execute`.
+        """
+        from repro_torch.core.executor import execute_batched
+
+        return execute_batched(self, a_values, b_values, stats=stats,
+                               engine=engine)
 
 
 def plan_spgemm(

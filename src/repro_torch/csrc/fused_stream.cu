@@ -1,7 +1,8 @@
 // K1 fused product-stream replay for Hopper (sm_90a).
 //
 // Replaces: src/repro/core/pallas_stream.py, _fused_kernel (the Pallas TPU
-// kernel launched by _fused_call).  It computes, for every output slot s,
+// kernel launched by _fused_call) and its vmapped form fused_fn_batched.  It
+// computes, for every output slot s,
 //
 //   out[s] = sum over q in [seg_ptr[s], seg_ptr[s+1]) of x[idx_x[q]] * y[idx_y[q]]
 //
@@ -28,6 +29,12 @@
 // order.  Gathers are real indexed loads.  One thread per slot is
 // latency-bound on long segments (a chain of dependent loads and adds);
 // splitting long segments across a warp is later work.
+//
+// Batch: blockIdx.y is the batch element (vmap's leading grid axis on the
+// TPU).  Element b reads x + b*n_x and y + b*n_y and writes out + b*n_out
+// (int64 offsets); the index vectors and offsets are shared, so every
+// element sums its slots in the same order and its slice equals the
+// unbatched kernel bit for bit (the unbatched launch is batch = 1).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,8 +47,13 @@ __global__ void fused_stream_kernel(const int* __restrict__ idx_x,
                                     const int* __restrict__ idx_y,
                                     const int* __restrict__ seg_ptr,
                                     const float* __restrict__ x,
-                                    const float* __restrict__ y, int n_out,
+                                    const float* __restrict__ y, int n_x,
+                                    int n_y, int n_out,
                                     float* __restrict__ out) {
+  const int64_t elem = blockIdx.y;
+  x += elem * n_x;
+  y += elem * n_y;
+  out += elem * n_out;
   const int s = blockIdx.x * kThreads + threadIdx.x;
   if (s >= n_out) return;
   const int hi = seg_ptr[s + 1];
@@ -56,15 +68,17 @@ __global__ void fused_stream_kernel(const int* __restrict__ idx_x,
 
 extern "C" int repro_fused_stream_launch(const void* idx_x, const void* idx_y,
                                          const void* seg_ptr, const void* x,
-                                         const void* y, int n_out, void* out,
+                                         const void* y, int n_x, int n_y,
+                                         int n_out, int batch, void* out,
                                          void* stream) {
-  if (n_out > 0) {
-    const int grid = (n_out + kThreads - 1) / kThreads;
+  if (n_out > 0 && batch > 0) {
+    const dim3 grid((n_out + kThreads - 1) / kThreads, batch);
     fused_stream_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(idx_x), static_cast<const int*>(idx_y),
         static_cast<const int*>(seg_ptr), static_cast<const float*>(x),
-        static_cast<const float*>(y), n_out, static_cast<float*>(out));
+        static_cast<const float*>(y), n_x, n_y, n_out,
+        static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

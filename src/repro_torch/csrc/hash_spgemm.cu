@@ -1,10 +1,11 @@
 // K4 HASH SpGEMM for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/hash_spgemm.py, _hash_kernel (the Pallas TPU
-// kernel behind hash_spgemm): the SPARS lock-step skeleton with a
-// linear-probed hash table of h slots per lane (Section 3.2).  Same operands
-// as K3; outputs keys (int32, -1 = empty) and vals (f32), both [h, n_b]
-// row-major, slot for slot as the reference lays them out.
+// kernel behind hash_spgemm) and its vmapped form hash_spgemm_batched: the
+// SPARS lock-step skeleton with a linear-probed hash table of h slots per
+// lane (Section 3.2).  Same operands as K3; outputs keys (int32, -1 = empty)
+// and vals (f32), both [h, n_b] row-major, slot for slot as the reference
+// lays them out, or [B, h, n_b] for B value sets of one pattern.
 //
 // What bounds it on this card: bytes.  A step is one multiply and one add, a
 // few probes of the lane's table and three dependent gathers; the least time
@@ -27,6 +28,13 @@
 // segment.  The tables live in the output arrays in device memory (the
 // wrapper fills keys with -1 and vals with 0); tables in shared memory are
 // later work.
+//
+// Batch: blockIdx.y is the batch element (vmap's leading grid axis on the
+// TPU).  Element b reads a_vals + b*n_a*za and b_vals + b*n_b*zb and writes
+// keys and vals + b*h*n_b (int64 offsets).  Probing depends on rows alone,
+// so every element writes the same keys, as the reference returns them, and
+// its slice equals the unbatched kernel bit for bit (the unbatched launch is
+// batch = 1).  A group is one CTA, so the batch axis puts B CTAs in flight.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -38,13 +46,18 @@ constexpr unsigned kHashC = 0x1E3779B1u;  // HASH_C & 0x7FFFFFFF
 
 __global__ void hash_kernel(const int* __restrict__ a_rows,
                             const float* __restrict__ a_vals,
-                            const int* __restrict__ a_nnz, int za,
+                            const int* __restrict__ a_nnz, int n_a, int za,
                             const int* __restrict__ b_rows,
                             const float* __restrict__ b_vals,
                             const int* __restrict__ b_nnz, int n_b, int zb,
                             const int* __restrict__ steps, int block_cols,
                             int h, int* __restrict__ keys,
                             float* __restrict__ vals) {
+  const int64_t elem = blockIdx.y;
+  a_vals += elem * n_a * za;
+  b_vals += elem * n_b * zb;
+  keys += elem * h * n_b;
+  vals += elem * h * n_b;
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n_b) return;
   const int n_steps = steps[lane / block_cols];
@@ -85,17 +98,20 @@ __global__ void hash_kernel(const int* __restrict__ a_rows,
 }  // namespace
 
 extern "C" int repro_hash_launch(const void* a_rows, const void* a_vals,
-                                 const void* a_nnz, int za, const void* b_rows,
-                                 const void* b_vals, const void* b_nnz, int n_b,
-                                 int zb, const void* steps, int block_cols,
-                                 int h, void* keys, void* vals, void* stream) {
-  if (n_b > 0) {
-    const int grid = (n_b + kThreads - 1) / kThreads;
+                                 const void* a_nnz, int n_a, int za,
+                                 const void* b_rows, const void* b_vals,
+                                 const void* b_nnz, int n_b, int zb,
+                                 const void* steps, int block_cols, int h,
+                                 int batch, void* keys, void* vals,
+                                 void* stream) {
+  if (n_b > 0 && batch > 0) {
+    const dim3 grid((n_b + kThreads - 1) / kThreads, batch);
     hash_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(a_rows), static_cast<const float*>(a_vals),
-        static_cast<const int*>(a_nnz), za, static_cast<const int*>(b_rows),
-        static_cast<const float*>(b_vals), static_cast<const int*>(b_nnz), n_b,
-        zb, static_cast<const int*>(steps), block_cols, h,
+        static_cast<const int*>(a_nnz), n_a, za,
+        static_cast<const int*>(b_rows), static_cast<const float*>(b_vals),
+        static_cast<const int*>(b_nnz), n_b, zb,
+        static_cast<const int*>(steps), block_cols, h,
         static_cast<int*>(keys), static_cast<float*>(vals));
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,9 +1,11 @@
 // K2 SPA SpGEMM for Hopper (sm_90a).
 //
 // Replaces: src/repro/kernels/spa.py, _spa_kernel (the Pallas TPU kernel behind
-// spa_spgemm).  Same operands (padded columns: rows/vals [n, Z] and nnz [n] for
-// A and for one group of B columns), same output: the dense accumulator tile
-// out [m, n_b], f32, row-major.
+// spa_spgemm) and its vmapped form spa_spgemm_batched.  Same operands (padded
+// columns: rows/vals [n, Z] and nnz [n] for A and for one group of B columns),
+// same output: the dense accumulator tile out [m, n_b], f32, row-major.  The
+// batched form takes B value sets of one pattern, vals [B, n, Z], and writes
+// out [B, m, n_b].
 //
 // What bounds it on this card: bytes.  Each product is one multiply and one
 // add against an 8-byte A entry read and a 4-byte read-modify-write of an
@@ -28,6 +30,14 @@
 // threads, above the 1024-thread limit, and 8 warps (256 threads) keep
 // enough CTAs in flight to cover the latency of the dependent gathers.
 // Shared-memory accumulators and asynchronous copies are later work.
+//
+// Batch: blockIdx.y is the batch element, as vmap makes the batch a leading
+// grid axis on the TPU.  Element b reads a_vals + b*n_a*za and
+// b_vals + b*n_b*zb and writes out + b*m*n_b (int64 offsets: at iprob the
+// padded A operand alone holds 9.0M slots per element); the index operands
+// are shared.  Each slice runs exactly the unbatched arithmetic, so batched
+// equals looped bit for bit, and the unbatched launch is batch = 1.  The
+// extra grid axis, not a loop inside a thread, multiplies the CTAs in flight.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -38,11 +48,15 @@ constexpr int kWarpsPerBlock = 8;
 
 __global__ void spa_kernel(const int* __restrict__ a_rows,
                            const float* __restrict__ a_vals,
-                           const int* __restrict__ a_nnz, int za,
+                           const int* __restrict__ a_nnz, int n_a, int za,
                            const int* __restrict__ b_rows,
                            const float* __restrict__ b_vals,
                            const int* __restrict__ b_nnz, int n_b, int zb,
-                           float* __restrict__ out) {
+                           int m, float* __restrict__ out) {
+  const int64_t elem = blockIdx.y;
+  a_vals += elem * n_a * za;
+  b_vals += elem * n_b * zb;
+  out += elem * m * n_b;
   const int lane = threadIdx.x & 31;
   const int col = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (col >= n_b) return;  // the whole warp shares col, so it exits together
@@ -64,17 +78,18 @@ __global__ void spa_kernel(const int* __restrict__ a_rows,
 }  // namespace
 
 extern "C" int repro_spa_launch(const void* a_rows, const void* a_vals,
-                                const void* a_nnz, int za, const void* b_rows,
-                                const void* b_vals, const void* b_nnz, int n_b,
-                                int zb, void* out, void* stream) {
-  if (n_b > 0) {
-    const int grid = (n_b + kWarpsPerBlock - 1) / kWarpsPerBlock;
+                                const void* a_nnz, int n_a, int za,
+                                const void* b_rows, const void* b_vals,
+                                const void* b_nnz, int n_b, int zb, int m,
+                                int batch, void* out, void* stream) {
+  if (n_b > 0 && batch > 0) {
+    const dim3 grid((n_b + kWarpsPerBlock - 1) / kWarpsPerBlock, batch);
     spa_kernel<<<grid, 32 * kWarpsPerBlock, 0,
                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(a_rows), static_cast<const float*>(a_vals),
-        static_cast<const int*>(a_nnz), za, static_cast<const int*>(b_rows),
-        static_cast<const float*>(b_vals), static_cast<const int*>(b_nnz), n_b,
-        zb, static_cast<float*>(out));
+        static_cast<const int*>(a_nnz), n_a, za,
+        static_cast<const int*>(b_rows), static_cast<const float*>(b_vals),
+        static_cast<const int*>(b_nnz), n_b, zb, m, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

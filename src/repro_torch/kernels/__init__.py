@@ -8,20 +8,43 @@
 - ops.py          group-level wrappers + spgemm_cuda
 - _build.py       nvcc build of csrc/ and the ctypes binding
 
-Each wrapper launches its kernel for CUDA tensors (or raises), runs its plain
-PyTorch version for CPU tensors, and counts its launches in ``n_launches``.
-Nothing is compiled when this package is imported.
+Each kernel has an unbatched wrapper and a ``*_batched`` one (K1-b … K4-b:
+B same-pattern value sets in one launch, the batch the kernel's second
+grid axis).  Each wrapper launches its kernel for CUDA tensors (or raises),
+runs its plain PyTorch version for CPU tensors, and counts its launches in
+``n_launches``.  Nothing is compiled when this package is imported.
 """
 
-from repro_torch.kernels.fused_stream import fused_stream, \
-    fused_stream_plain
-from repro_torch.kernels.hash_spgemm import hash_spgemm, hash_spgemm_plain
+from repro_torch.kernels.fused_stream import (
+    fused_stream,
+    fused_stream_batched,
+    fused_stream_batched_plain,
+    fused_stream_plain,
+)
+from repro_torch.kernels.hash_spgemm import (
+    hash_spgemm,
+    hash_spgemm_batched,
+    hash_spgemm_batched_plain,
+    hash_spgemm_plain,
+)
 from repro_torch.kernels.ops import spgemm_cuda
-from repro_torch.kernels.spa import spa_spgemm, spa_spgemm_plain
-from repro_torch.kernels.spars import spars_spgemm, spars_spgemm_plain
+from repro_torch.kernels.spa import (
+    spa_spgemm,
+    spa_spgemm_batched,
+    spa_spgemm_batched_plain,
+    spa_spgemm_plain,
+)
+from repro_torch.kernels.spars import (
+    spars_spgemm,
+    spars_spgemm_batched,
+    spars_spgemm_batched_plain,
+    spars_spgemm_plain,
+)
 
 #: every kernel wrapper of this package (each carries ``n_launches``)
-KERNELS = (fused_stream, spa_spgemm, spars_spgemm, hash_spgemm)
+KERNELS = (fused_stream, spa_spgemm, spars_spgemm, hash_spgemm,
+           fused_stream_batched, spa_spgemm_batched, spars_spgemm_batched,
+           hash_spgemm_batched)
 
 
 def reset_launch_counts() -> None:
@@ -36,14 +59,22 @@ def launch_counts() -> dict:
 __all__ = [
     "KERNELS",
     "fused_stream",
+    "fused_stream_batched",
+    "fused_stream_batched_plain",
     "fused_stream_plain",
     "hash_spgemm",
+    "hash_spgemm_batched",
+    "hash_spgemm_batched_plain",
     "hash_spgemm_plain",
     "launch_counts",
     "reset_launch_counts",
     "spa_spgemm",
+    "spa_spgemm_batched",
+    "spa_spgemm_batched_plain",
     "spa_spgemm_plain",
     "spars_spgemm",
+    "spars_spgemm_batched",
+    "spars_spgemm_batched_plain",
     "spars_spgemm_plain",
     "spgemm_cuda",
 ]

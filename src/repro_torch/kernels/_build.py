@@ -30,18 +30,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# entry point -> argument types (pointers and the stream as void*, sizes int)
+# entry point -> argument types (pointers and the stream as void*, sizes
+# int); each takes the batch, the extent of its grid's second axis (1 for
+# the unbatched wrappers)
+_A_B = (_P, _P, _P, _I, _I, _P, _P, _P, _I, _I)  # a_* n_a za, b_* n_b zb
 SIGNATURES = {
-    # a_rows, a_vals, a_nnz, za, b_rows, b_vals, b_nnz, n_b, zb, out, stream
-    "repro_spa_launch": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P),
-    # ... as SPA, then steps, block_cols, acc, flags, stream
-    "repro_spars_launch": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P,
-                           _P, _P),
-    # ... as SPA, then steps, block_cols, h, keys, vals, stream
-    "repro_hash_launch": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I, _I,
-                          _P, _P, _P),
-    # idx_x, idx_y, seg_ptr, x, y, n_out, out, stream
-    "repro_fused_stream_launch": (_P, _P, _P, _P, _P, _I, _P, _P),
+    # A and B operands, m, batch, out, stream
+    "repro_spa_launch": _A_B + (_I, _I, _P, _P),
+    # A and B operands, steps, block_cols, m, batch, acc, flags, stream
+    "repro_spars_launch": _A_B + (_P, _I, _I, _I, _P, _P, _P),
+    # A and B operands, steps, block_cols, h, batch, keys, vals, stream
+    "repro_hash_launch": _A_B + (_P, _I, _I, _I, _P, _P, _P),
+    # idx_x, idx_y, seg_ptr, x, y, n_x, n_y, n_out, batch, out, stream
+    "repro_fused_stream_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                  _P),
 }
 
 _LOCK = threading.Lock()

@@ -2,7 +2,8 @@
 
 K2-K4 take the padded-column operands of the JAX package's kernels
 (``rows`` int32 / ``vals`` f32 ``[n, Z]``, ``nnz`` int32 ``[n]`` for A and for
-one B group), K1 index and value vectors.  A wrapper raises on anything its
+one B group), K1 index and value vectors; the batched wrappers take a
+leading batch axis on the values only.  A wrapper raises on anything its
 kernel does not take: another dtype, shape or device, or a non-contiguous
 tensor.
 """
@@ -38,28 +39,50 @@ def check_tensors(named: dict, is_value, device=None) -> torch.device:
     return dev
 
 
+#: the most value sets one launch takes: the batch is every kernel's
+#: second grid axis, and gridDim.y is at most 65535
+MAX_BATCH = 65535
+
+
+def check_batch(batch: int) -> None:
+    if not 1 <= batch <= MAX_BATCH:
+        raise ValueError(f"a batch of {batch} value sets: one launch takes "
+                         f"1 to {MAX_BATCH} (the grid's second axis)")
+
+
 def check_operands(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, *extra,
-                   block_cols: int, device=None) -> torch.device:
+                   block_cols: int, device=None,
+                   batched: bool = False) -> torch.device:
     """Validate one launch's operands; return the device they all lie on.
 
     ``extra`` holds further int32 index tensors (the per-block ``steps``).
     ``device``, when given, is where the caller requires them to lie: a
-    tensor elsewhere raises rather than running anywhere else.
+    tensor elsewhere raises rather than running anywhere else.  ``batched``
+    operands carry a leading batch axis on the values (``a_vals [B, n_a,
+    za]``, ``b_vals [B, n_b, zb]``); the index operands are shared.
     """
     named = dict(a_rows=a_rows, a_vals=a_vals, a_nnz=a_nnz, b_rows=b_rows,
                  b_vals=b_vals, b_nnz=b_nnz)
     named.update({f"extra{i}": t for i, t in enumerate(extra)})
     dev = check_tensors(named, lambda name: name.endswith("vals"), device)
-    if a_rows.dim() != 2 or a_vals.shape != a_rows.shape \
-            or a_nnz.shape != a_rows.shape[:1]:
-        raise ValueError(
-            f"A operand shapes {tuple(a_rows.shape)}, {tuple(a_vals.shape)}, "
-            f"{tuple(a_nnz.shape)} are not [n_a, za], [n_a, za], [n_a]")
-    if b_rows.dim() != 2 or b_vals.shape != b_rows.shape \
-            or b_nnz.shape != b_rows.shape[:1]:
-        raise ValueError(
-            f"B operand shapes {tuple(b_rows.shape)}, {tuple(b_vals.shape)}, "
-            f"{tuple(b_nnz.shape)} are not [n_b, zb], [n_b, zb], [n_b]")
+    lead: tuple = ()
+    if batched:
+        if a_vals.dim() != 3 or b_vals.dim() != 3 \
+                or a_vals.shape[0] != b_vals.shape[0]:
+            raise ValueError(
+                f"batched value operands {tuple(a_vals.shape)}, "
+                f"{tuple(b_vals.shape)} are not [B, n_a, za], [B, n_b, zb]")
+        check_batch(a_vals.shape[0])
+        lead = (a_vals.shape[0],)
+    for x, rows, vals, nnz in (("a", a_rows, a_vals, a_nnz),
+                               ("b", b_rows, b_vals, b_nnz)):
+        if rows.dim() != 2 or tuple(vals.shape) != lead + tuple(rows.shape) \
+                or nnz.shape != rows.shape[:1]:
+            dims = f"n_{x}, z{x}"
+            raise ValueError(
+                f"{x.upper()} operand shapes {tuple(rows.shape)}, "
+                f"{tuple(vals.shape)}, {tuple(nnz.shape)} are not [{dims}], "
+                f"[{'B, ' * batched}{dims}], [n_{x}]")
     if block_cols < 1 or b_rows.shape[0] % block_cols:
         raise ValueError(
             f"n_b={b_rows.shape[0]} is not a multiple of block_cols="

@@ -1,13 +1,15 @@
 """K4: HASH lock-step SpGEMM, Section 3.2 (``csrc/hash_spgemm.cu``).
 
 The counterpart of the JAX package's Pallas HASH kernel
-(``repro/kernels/hash_spgemm.py::hash_spgemm``): the SPARS skeleton with a
-linear-probed table of ``h`` slots per lane, hash ``(r * HASH_C) mod h``,
-empty key -1, at most ``h`` probes, slot 0 when none is found.  Outputs
-``keys`` int32 and ``vals`` f32, both ``[h, n_b]``, slot for slot as the
-reference fills them.  On a CUDA tensor :func:`hash_spgemm` launches the
-hand-written kernel (one thread per lane) or raises; on a CPU tensor it
-runs :func:`hash_spgemm_plain`.
+(``repro/kernels/hash_spgemm.py::hash_spgemm``) and of its vmapped form
+(``hash_spgemm_batched``): the SPARS skeleton with a linear-probed table of
+``h`` slots per lane, hash ``(r * HASH_C) mod h``, empty key -1, at most
+``h`` probes, slot 0 when none is found.  Outputs ``keys`` int32 and
+``vals`` f32, both ``[h, n_b]`` (``[B, h, n_b]`` batched: probing depends on
+rows alone, so every element's keys are equal), slot for slot as the
+reference fills them.  On a CUDA tensor the wrappers launch the
+hand-written kernel (one thread per lane, the batch a second grid axis) or
+raise; on a CPU tensor they run :func:`hash_spgemm_batched_plain`.
 """
 
 from __future__ import annotations
@@ -25,6 +27,33 @@ EMPTY = -1
 HASH_C31 = HASH_C & 0x7FFFFFFF
 
 
+def _check(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, h,
+           block_cols, device, batched):
+    if h < 1 or h & (h - 1):
+        raise ValueError(f"h={h} must be a power of two")
+    dev = check_operands(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
+                         block_cols=block_cols, device=device,
+                         batched=batched)
+    check_steps(steps, b_rows.shape[0], block_cols)
+    return dev
+
+
+def _launch(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, h,
+            block_cols, batch, dev):
+    """One K4 launch over ``batch`` value sets; (keys, vals) [batch, h,
+    n_b]."""
+    n_b, zb = b_rows.shape
+    keys = torch.full((batch, h, n_b), EMPTY, dtype=torch.int32, device=dev)
+    vals = torch.zeros((batch, h, n_b), dtype=torch.float32, device=dev)
+    _build.launch(
+        "repro_hash_launch", a_rows.data_ptr(), a_vals.data_ptr(),
+        a_nnz.data_ptr(), *a_rows.shape, b_rows.data_ptr(),
+        b_vals.data_ptr(), b_nnz.data_ptr(), n_b, zb, steps.data_ptr(),
+        block_cols, h, batch, keys.data_ptr(), vals.data_ptr(),
+        stream_handle(dev))
+    return keys, vals
+
+
 def hash_spgemm(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, *,
                 m: int, h: int, block_cols: int = 128, device=None):
     """Per-lane hash tables (keys [h, n_b] int32, vals [h, n_b] f32).
@@ -33,27 +62,44 @@ def hash_spgemm(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, *,
     signature and not used.
     """
     del m
-    if h < 1 or h & (h - 1):
-        raise ValueError(f"h={h} must be a power of two")
-    dev = check_operands(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
-                         block_cols=block_cols, device=device)
-    n_b, zb = b_rows.shape
-    check_steps(steps, n_b, block_cols)
+    dev = _check(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, h,
+                 block_cols, device, batched=False)
     if dev.type == "cpu":
         return hash_spgemm_plain(a_rows, a_vals, a_nnz, b_rows, b_vals,
                                  b_nnz, steps, h=h, block_cols=block_cols)
-    keys = torch.full((h, n_b), EMPTY, dtype=torch.int32, device=dev)
-    vals = torch.zeros((h, n_b), dtype=torch.float32, device=dev)
-    _build.launch(
-        "repro_hash_launch", a_rows.data_ptr(), a_vals.data_ptr(),
-        a_nnz.data_ptr(), a_rows.shape[1], b_rows.data_ptr(),
-        b_vals.data_ptr(), b_nnz.data_ptr(), n_b, zb, steps.data_ptr(),
-        block_cols, h, keys.data_ptr(), vals.data_ptr(), stream_handle(dev))
+    keys, vals = _launch(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
+                         h, block_cols, 1, dev)
     hash_spgemm.n_launches += 1
-    return keys, vals
+    return keys[0], vals[0]
 
 
 hash_spgemm.n_launches = 0
+
+
+def hash_spgemm_batched(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
+                        *, m: int, h: int, block_cols: int = 128,
+                        device=None):
+    """Per-lane hash tables (keys, vals) [B, h, n_b] for B same-pattern
+    value sets in one launch.
+
+    Only the values carry the batch axis (``a_vals [B, n_a, za]``,
+    ``b_vals [B, n_b, zb]``); rows, nnz and the trip counts are shared.
+    Slice b equals :func:`hash_spgemm` on value set b bit for bit.
+    """
+    del m
+    dev = _check(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, h,
+                 block_cols, device, batched=True)
+    if dev.type == "cpu":
+        return hash_spgemm_batched_plain(a_rows, a_vals, a_nnz, b_rows,
+                                         b_vals, b_nnz, steps, h=h,
+                                         block_cols=block_cols)
+    out = _launch(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, h,
+                  block_cols, a_vals.shape[0], dev)
+    hash_spgemm_batched.n_launches += 1
+    return out
+
+
+hash_spgemm_batched.n_launches = 0
 
 
 def hash_slot(rows: torch.Tensor, h: int) -> torch.Tensor:
@@ -65,35 +111,47 @@ def hash_slot(rows: torch.Tensor, h: int) -> torch.Tensor:
 
 def hash_spgemm_plain(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
                       *, h: int, block_cols: int = 128):
+    """The kernel's plain PyTorch version for one value set."""
+    keys, vals = hash_spgemm_batched_plain(
+        a_rows, a_vals[None], a_nnz, b_rows, b_vals[None], b_nnz, steps, h=h,
+        block_cols=block_cols)
+    return keys[0], vals[0]
+
+
+def hash_spgemm_batched_plain(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz,
+                              steps, *, h: int, block_cols: int = 128):
     """The kernel's plain PyTorch version, probe for probe.
 
-    Loops over steps and vectorizes over lanes.  Each lane probes its own
-    table; a probe round stops once every lane found its slot (the
-    remaining rounds of the reference leave every lane where it is).
+    Loops over steps and vectorizes over (batch, lane).  Each lane of each
+    batch element probes its own table, as the kernel's thread does; a
+    probe round stops once every lane found its slot (the remaining rounds
+    of the reference leave every lane where it is).
     """
+    batch = a_vals.shape[0]
     n_b = b_rows.shape[0]
     dev = a_vals.device
-    keys = torch.full((h, n_b), EMPTY, dtype=torch.int32, device=dev)
-    vals = torch.zeros((h, n_b), dtype=torch.float32, device=dev)
+    keys = torch.full((batch, h, n_b), EMPTY, dtype=torch.int32, device=dev)
+    vals = torch.zeros((batch, h, n_b), dtype=torch.float32, device=dev)
+    elem = torch.arange(batch, device=dev)[:, None]
     ls = LockStep(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
                   block_cols)
     for s in range(ls.n_steps):
         lanes = torch.nonzero(ls.active(s), as_tuple=True)[0]
         if len(lanes) == 0:
             break
-        rows, prod = ls.fetch(lanes)
-        pos = hash_slot(rows, h)
+        rows, prod = ls.fetch(lanes)                # [L], [B, L]
+        pos = hash_slot(rows, h).expand(batch, -1)  # [B, L]
         slot = torch.zeros_like(pos)        # the fallback: slot 0
         todo = torch.ones_like(pos, dtype=torch.bool)
         for _ in range(h):
-            key = keys[pos, lanes].long()
+            key = keys[elem, pos, lanes].long()
             hit = todo & ((key == rows) | (key == EMPTY))
             slot = torch.where(hit, pos, slot)
             todo = todo & ~hit
             if not bool(todo.any()):
                 break
             pos = torch.where(todo, (pos + 1) & (h - 1), pos)
-        vals[slot, lanes] = vals[slot, lanes] + prod
-        keys[slot, lanes] = rows.to(torch.int32)
+        vals[elem, slot, lanes] = vals[elem, slot, lanes] + prod
+        keys[elem, slot, lanes] = rows.to(torch.int32)
         ls.advance(lanes)
     return keys, vals

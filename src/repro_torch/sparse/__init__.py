@@ -6,6 +6,8 @@ kernel results are torch tensors on the device the caller chose.
 
 from repro_torch.sparse.format import (
     CSC,
+    BatchedCSC,
+    BatchedCSCBuilder,
     CSCBuilder,
     ColumnSlots,
     csc_equal,
@@ -15,6 +17,7 @@ from repro_torch.sparse.format import (
     csc_to_dense,
     csc_to_padded_columns,
     padded_values,
+    padded_values_batched,
     validate_csc,
 )
 from repro_torch.sparse.generate import (
@@ -38,6 +41,8 @@ from repro_torch.sparse.suitesparse import (
 
 __all__ = [
     "CSC",
+    "BatchedCSC",
+    "BatchedCSCBuilder",
     "CSCBuilder",
     "ColumnSlots",
     "csc_equal",
@@ -47,6 +52,7 @@ __all__ = [
     "csc_to_dense",
     "csc_to_padded_columns",
     "padded_values",
+    "padded_values_batched",
     "validate_csc",
     "random_density_csc",
     "random_powerlaw_csc",

@@ -15,6 +15,10 @@ Design notes
   accumulator tiles, per-lane hash tables) on the device with torch ops; no
   tile is copied to the host, and one execution reads one number back (the
   result's nnz).
+* :class:`BatchedCSC` holds B value sets of one pattern (values ``[B,
+  nnz]``); :func:`padded_values_batched` pads all of them with one gather,
+  and :class:`BatchedCSCBuilder` compacts batched tiles into B results, each
+  with its own structure, reading all B nnz in one host sync.
 """
 
 from __future__ import annotations
@@ -79,12 +83,104 @@ class CSC:
 
     def to(self, device) -> "CSC":
         """This matrix with its values (and any tensor structure) on ``device``."""
+        return CSC(self.values.to(device), _move(self.row_indices, device),
+                   _move(self.col_ptr, device), self.shape)
 
-        def move(x):
-            return x.to(device) if isinstance(x, torch.Tensor) else x
 
-        return CSC(self.values.to(device), move(self.row_indices),
-                   move(self.col_ptr), self.shape)
+def _move(x, device):
+    """A structure array on ``device`` (host numpy stays where it is)."""
+    return x.to(device) if isinstance(x, torch.Tensor) else x
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedCSC:
+    """B same-pattern CSC matrices: one structure, stacked values.
+
+    values[b, p]    value of the p-th stored element in batch element b
+                    (torch tensor ``[B, capacity]``)
+    row_indices[p]  its row (shared by every batch element)
+    col_ptr[j]      shared column offsets; col_ptr[n] = nnz
+    shape           (n_rows, n_cols) of each element
+
+    The operand of the batched path: the plan is built once for the shared
+    pattern and all B value sets run through one set of kernel launches.
+    A plain frozen dataclass, as :class:`CSC` is.
+    """
+
+    values: torch.Tensor
+    row_indices: Structure
+    col_ptr: Structure
+    shape: Tuple[int, int]
+
+    @property
+    def batch(self) -> int:
+        return int(self.values.shape[0])
+
+    @property
+    def n_rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def n_cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.col_ptr[-1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @classmethod
+    def stack(cls, mats) -> "BatchedCSC":
+        """Stack same-pattern CSC matrices (structure verified, O(nnz))."""
+        mats = list(mats)
+        if not mats:
+            raise ValueError("need at least one matrix to stack")
+        head = mats[0]
+        nnz = head.nnz
+        cp = _np(head.col_ptr)
+        ri = _np(head.row_indices)[:nnz]
+        for m in mats[1:]:
+            if (tuple(m.shape) != tuple(head.shape)
+                    or not np.array_equal(_np(m.col_ptr), cp)
+                    or not np.array_equal(_np(m.row_indices)[: m.nnz], ri)):
+                raise ValueError(
+                    "cannot stack: sparsity patterns differ (BatchedCSC "
+                    "requires one shared pattern)")
+        vals = torch.stack([as_tensor(m.values)[:nnz] for m in mats])
+        return cls(vals, ri.astype(np.int32), cp.astype(np.int32),
+                   tuple(head.shape))
+
+    @classmethod
+    def from_values(cls, pattern: CSC, values) -> "BatchedCSC":
+        """Bind a ``[B, nnz]`` value stack to an existing pattern."""
+        v = as_tensor(values)
+        if v.dim() != 2 or v.shape[0] < 1 or v.shape[1] < pattern.nnz:
+            raise ValueError(
+                f"values must be [B >= 1, >= {pattern.nnz}], got "
+                f"{tuple(v.shape)}")
+        return cls(v, pattern.row_indices, pattern.col_ptr,
+                   tuple(pattern.shape))
+
+    def element(self, b: int) -> CSC:
+        """The b-th matrix as a plain CSC (structure arrays shared)."""
+        return CSC(self.values[b], self.row_indices, self.col_ptr,
+                   self.shape)
+
+    def __getitem__(self, b: int) -> CSC:
+        return self.element(b)
+
+    def unstack(self) -> list:
+        return [self.element(b) for b in range(self.batch)]
+
+    def to(self, device) -> "BatchedCSC":
+        """This stack with its values (and any tensor structure) on
+        ``device``."""
+        return BatchedCSC(self.values.to(device),
+                          _move(self.row_indices, device),
+                          _move(self.col_ptr, device), self.shape)
 
 
 def csc_from_numpy(values, row_indices, col_ptr, shape) -> CSC:
@@ -159,6 +255,19 @@ def padded_values(values: torch.Tensor, gather: torch.Tensor,
     return torch.where(mask, values[gather], 0)
 
 
+def padded_values_batched(values: torch.Tensor, gather: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Batched :func:`padded_values`: ``[B, nnz] -> [B, n_cols, Z]`` in one
+    gather; row b equals ``padded_values(values[b], gather, mask)``."""
+    if values.dim() != 2:
+        raise ValueError(
+            f"expected [B, nnz] values, got shape {tuple(values.shape)}")
+    if values.shape[1] == 0:
+        return torch.zeros((values.shape[0],) + tuple(gather.shape),
+                           dtype=values.dtype, device=gather.device)
+    return torch.where(mask, values[:, gather], 0)
+
+
 def csc_to_padded_columns(m: CSC, pad_to: int | None = None):
     """Ragged->rectangular view for lock-step kernels, as tensors on the
     values' device: (rows [n_cols, Z] int32, vals [n_cols, Z], nnz [n_cols]
@@ -194,98 +303,151 @@ class ColumnSlots:
                    int(spare))
 
 
-class CSCBuilder:
-    """Column-sliced CSC assembly from per-group kernel outputs, on the device.
+class BatchedCSCBuilder:
+    """Column-sliced assembly of B CSC results from batched kernel outputs,
+    on the device.
 
-    The executor produces results group by group — dense ``[m, L]``
-    accumulator tiles (SPA/SPARS) or ``[H, L]`` hash tables (HASH).  Each
-    group is compacted where it lies, with torch ops and no host sync: its
-    kept entries, ordered by row, are written into their columns' slots
-    and their counts recorded.
-    :meth:`build` reads the total once and gathers the slots into one CSC
-    on the same device.  ``tile_shapes`` records every tile seen.
+    The executor produces results group by group — dense ``[B, m, L]``
+    accumulator tiles (SPA/SPARS) or ``[B, H, L]`` hash tables (HASH), one
+    launch for all B value sets.  Each group is compacted where it lies,
+    with torch ops and no host sync: every element's kept entries, ordered
+    by row, are written into its own copy of the columns' slots and its own
+    counts recorded, so elements may keep different entries (a product that
+    cancels in one value set drops from that element only).
+    :meth:`build` reads all B totals in one host sync and gathers each
+    element's slots into its CSC on the same device.  ``tile_shapes``
+    records every tile seen.
+
+    Each element owns ``slots.total`` entry slots and ``slots.spare`` spare
+    ones for the discarded cells of one unbatched tile, so the staging holds
+    B times the plan's slots and the plan's ``c_slots`` stay sized for one
+    value set.
     """
 
     dtype = torch.float32   # the kernels' value type
 
-    def __init__(self, shape, slots: ColumnSlots):
+    def __init__(self, batch: int, shape, slots: ColumnSlots):
+        if batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        self.batch = int(batch)
         self.shape = tuple(int(s) for s in shape)
         self.device = slots.start.device
-        n = self.shape[1]
         self.slots = slots
-        self.tile_shapes: list = []  # (kind, (rows, cols)) per compacted tile
-        size = slots.total + slots.spare
+        self.tile_shapes: list = []  # (kind, shape) per compacted tile
+        size = (self.batch, slots.total + slots.spare)
         self._rows = torch.empty(size, dtype=torch.int32, device=self.device)
         self._vals = torch.empty(size, dtype=self.dtype, device=self.device)
-        self._counts = torch.zeros(n, dtype=torch.int64, device=self.device)
+        self._counts = torch.zeros((self.batch, self.shape[1]),
+                                   dtype=torch.int64, device=self.device)
 
     @property
     def peak_tile_elems(self) -> int:
         """Largest intermediate tile compacted so far, in elements."""
-        return max((s[0] * s[1] for _, s in self.tile_shapes), default=0)
+        return max((int(np.prod(s)) for _, s in self.tile_shapes), default=0)
 
     def _scatter(self, cols, keep, rows, vals) -> None:
-        """Write ``rows``/``vals`` [L, R] where ``keep``; column ``cols[i]``
-        takes lane i's kept entries in ascending R order.
+        """Write ``rows``/``vals`` [B, L, R] where ``keep``; in element b,
+        column ``cols[i]`` takes lane i's kept entries in ascending R order.
 
-        Lanes are the first axis so that the rank is a scan along the last
-        one: PyTorch scans an outer axis with one thread per lane, walking
+        Lanes come before cells so that the rank is a scan along the last
+        axis: PyTorch scans an outer axis with one thread per lane, walking
         all R cells in sequence.
         """
-        if keep.numel() > self.slots.spare:
-            raise ValueError(f"a tile of {keep.numel()} cells exceeds the "
+        cells = keep.shape[1] * keep.shape[2]
+        if cells > self.slots.spare:
+            raise ValueError(f"a tile of {cells} cells exceeds the "
                              f"{self.slots.spare} spare slots")
-        rank = torch.cumsum(keep, dim=1) - 1
-        spare = torch.arange(keep.numel(), device=keep.device).view(
-            keep.shape)
-        dest = torch.where(keep, self.slots.start[cols][:, None] + rank,
-                           self.slots.total + spare).reshape(-1)
-        self._rows[dest] = rows.to(torch.int32).reshape(-1)
-        self._vals[dest] = vals.to(self.dtype).reshape(-1)
-        self._counts[cols] = keep.sum(dim=1)
+        dev = keep.device
+        rank = torch.cumsum(keep, dim=2) - 1
+        spare = torch.arange(cells, device=dev).view(keep.shape[1:])
+        elem = torch.arange(self.batch, device=dev)[:, None, None] \
+            * self._rows.shape[1]
+        dest = elem + torch.where(
+            keep, self.slots.start[cols][:, None] + rank,
+            self.slots.total + spare)
+        self._rows.view(-1)[dest.reshape(-1)] = \
+            rows.to(torch.int32).expand(keep.shape).reshape(-1)
+        self._vals.view(-1)[dest.reshape(-1)] = vals.to(self.dtype).reshape(-1)
+        self._counts[:, cols] = keep.sum(dim=2)
+
+    def _check_tile(self, tile, cols, what) -> None:
+        if tile.dim() != 3 or tile.shape[0] != self.batch \
+                or tile.shape[2] != len(cols):
+            raise ValueError(
+                f"{what} of shape {tuple(tile.shape)} is not [B={self.batch}"
+                f", *, {len(cols)}] for {len(cols)} cols")
+
+    def add_dense_tile(self, cols: torch.Tensor, tiles: torch.Tensor) -> None:
+        """Compact a dense [B, m, L] accumulator tile; tiles[b, :, i] is
+        element b's C column cols[i].  Keeps |v| > 0, rows ascending in
+        each column."""
+        self._check_tile(tiles, cols, "tile")
+        self.tile_shapes.append(("dense", tuple(tiles.shape)))
+        lanes = tiles.transpose(1, 2)
+        rows = torch.arange(tiles.shape[1], device=tiles.device)
+        self._scatter(cols, lanes.abs() > 0, rows, lanes)
+
+    def add_hash_tables(self, cols: torch.Tensor, keys: torch.Tensor,
+                        vals: torch.Tensor) -> None:
+        """Compact per-lane hash tables keys/vals [B, H, L]; lane i of
+        element b holds its C column cols[i].  Keeps slots with key >= 0
+        and |v| > 0, sorted by row within each lane."""
+        self._check_tile(keys, cols, "tables")
+        self.tile_shapes.append(("hash", tuple(keys.shape)))
+        m = self.shape[0]
+        keys, vals = keys.transpose(1, 2), vals.transpose(1, 2)
+        occupied = (keys >= 0) & (vals.abs() > 0)
+        # free slots sort after every row; a stable sort keeps equal keys
+        # in slot order
+        rows, order = torch.sort(torch.where(occupied, keys.long(), m),
+                                 dim=2, stable=True)
+        self._scatter(cols, rows < m, rows, vals.gather(2, order))
+
+    def build(self) -> list:
+        """The B assembled CSC results, in batch order."""
+        m, n = self.shape
+        dev = self.device
+        col_ptr = torch.zeros((self.batch, n + 1), dtype=torch.int64,
+                              device=dev)
+        torch.cumsum(self._counts, 1, out=col_ptr[:, 1:])
+        nnz = col_ptr[:, -1].tolist()   # the one host sync of an execution
+        out = []
+        for b, nnz_b in enumerate(nnz):
+            # entry p of column j sits at slot start[j] + (p - col_ptr[j])
+            col = torch.repeat_interleave(torch.arange(n, device=dev),
+                                          self._counts[b], output_size=nnz_b)
+            src = (self.slots.start[col] + torch.arange(nnz_b, device=dev)
+                   - col_ptr[b, col])
+            out.append(CSC(self._vals[b, src], self._rows[b, src],
+                           col_ptr[b].to(torch.int32), (m, n)))
+        return out
+
+
+class CSCBuilder(BatchedCSCBuilder):
+    """Column-sliced CSC assembly from per-group kernel outputs, on the
+    device: the one-value-set case of :class:`BatchedCSCBuilder`, taking
+    dense ``[m, L]`` tiles and ``[H, L]`` hash tables and building one CSC
+    with one host sync (the result's nnz)."""
+
+    def __init__(self, shape, slots: ColumnSlots):
+        super().__init__(1, shape, slots)
 
     def add_dense_tile(self, cols: torch.Tensor, tile: torch.Tensor) -> None:
         """Compact a dense [m, L] accumulator tile; tile[:, i] is C column
         cols[i].  Keeps |v| > 0, rows ascending in each column."""
-        if tile.shape[1] != len(cols):
-            raise ValueError(
-                f"tile has {tile.shape[1]} columns for {len(cols)} cols")
-        self.tile_shapes.append(("dense", tuple(tile.shape)))
-        lanes = tile.T
-        rows = torch.arange(tile.shape[0], device=tile.device)
-        self._scatter(cols, lanes.abs() > 0, rows.expand(lanes.shape), lanes)
+        super().add_dense_tile(cols, tile[None])
+        self.tile_shapes[-1] = ("dense", tuple(tile.shape))
 
     def add_hash_tables(self, cols: torch.Tensor, keys: torch.Tensor,
                         vals: torch.Tensor) -> None:
         """Compact per-lane hash tables keys/vals [H, L]; lane i holds C
         column cols[i].  Keeps slots with key >= 0 and |v| > 0, sorted by
         row within each lane."""
-        if keys.shape[1] != len(cols):
-            raise ValueError(
-                f"tables hold {keys.shape[1]} lanes for {len(cols)} cols")
-        self.tile_shapes.append(("hash", tuple(keys.shape)))
-        m = self.shape[0]
-        keys, vals = keys.T, vals.T
-        occupied = (keys >= 0) & (vals.abs() > 0)
-        # free slots sort after every row; a stable sort keeps equal keys
-        # in slot order
-        rows, order = torch.sort(torch.where(occupied, keys.long(), m),
-                                 dim=1, stable=True)
-        self._scatter(cols, rows < m, rows, vals.gather(1, order))
+        super().add_hash_tables(cols, keys[None], vals[None])
+        self.tile_shapes[-1] = ("hash", tuple(keys.shape))
 
     def build(self) -> CSC:
-        m, n = self.shape
-        dev = self.device
-        col_ptr = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-        torch.cumsum(self._counts, 0, out=col_ptr[1:])
-        nnz = int(col_ptr[-1])       # the one host sync of an execution
-        # entry p of column j sits at slot start[j] + (p - col_ptr[j])
-        col = torch.repeat_interleave(torch.arange(n, device=dev),
-                                      self._counts, output_size=nnz)
-        src = (self.slots.start[col] + torch.arange(nnz, device=dev)
-               - col_ptr[col])
-        return CSC(self._vals[src], self._rows[src], col_ptr.to(torch.int32),
-                   (m, n))
+        return super().build()[0]
 
 
 def validate_csc(m: CSC, *, sorted_rows: bool = False) -> None:

@@ -1,7 +1,10 @@
 """The CUDA kernels on the card: each against its plain PyTorch version on
 the same CUDA tensors, and spgemm() on the card against spgemm() on the
 CPU, on the per-group path and on the fused path (K1, forward and
-backward).  Every test needs a card (marker ``gpu``) and skips without one.
+backward); the batched kernels K1-b … K4-b against their plain versions
+and, slice by slice, against the unbatched kernels, and the batched
+executes' host waits.  Every test needs a card (marker ``gpu``) and skips
+without one.
 
 On the card these run without the JAX-importing conftest, which that
 machine cannot import::
@@ -22,10 +25,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels
-from repro_torch.core import cached_plan, fused_stream, plan_spgemm, spgemm
+from repro_torch.core import cached_plan, fused_stream, plan_spgemm, spgemm, \
+    spgemm_batched
 from repro_torch.core.analysis import hash_table_size
 from repro_torch.sparse import generate
-from repro_torch.sparse.format import _np, csc_to_padded_columns
+from repro_torch.sparse.format import BatchedCSC, _np, csc_to_padded_columns
 from repro_torch.sparse.stats import ops_per_column, steps_per_column
 
 pytestmark = pytest.mark.gpu
@@ -209,3 +213,130 @@ def test_fused_execute_never_waits_for_the_card(cuda):
     got = guarded.execute(a, a, engine="fused", stats=stats)
     assert not stats["stream_cached"] and stats["n_launches"] == 1
     assert torch.equal(got.values, plan.execute(a, a, engine="fused").values)
+
+
+BATCH = 3
+
+
+def _batched_operands(dev, seed=9):
+    """The padded operands of :func:`_operands` with B = 3 normal value sets
+    of the same pattern for A and (other ones) for B."""
+    op = _operands(dev)
+    ar, av, an, br, bv, bn = op["ab"]
+    rng = np.random.default_rng(seed)
+
+    def stack(v):
+        vals = rng.standard_normal((BATCH,) + tuple(v.shape))
+        return torch.from_numpy(vals.astype(np.float32)).to(dev) * (v != 0)
+
+    return dict(op, ab=(ar, stack(av).contiguous(), an, br,
+                        stack(bv).contiguous(), bn))
+
+
+def _run_batched(kind, op, plain=False):
+    """(outputs,) of the batched kernel (or its plain version) of ``kind``
+    on ``op``."""
+    if kind == "spa":
+        fn = (kernels.spa_spgemm_batched_plain if plain
+              else kernels.spa_spgemm_batched)
+        return (fn(*op["ab"], m=op["m"], **({} if plain else dict(
+            block_cols=op["block"]))),)
+    if kind == "spars":
+        fn = (kernels.spars_spgemm_batched_plain if plain
+              else kernels.spars_spgemm_batched)
+        return fn(*op["ab"], op["steps"], m=op["m"], block_cols=op["block"])
+    fn = (kernels.hash_spgemm_batched_plain if plain
+          else kernels.hash_spgemm_batched)
+    kw = {} if plain else dict(m=op["m"])
+    return fn(*op["ab"], op["steps"], h=op["h"], block_cols=op["block"], **kw)
+
+
+def _run_single(kind, op, b):
+    """(outputs,) of the unbatched kernel of ``kind`` on value set b."""
+    ar, av, an, br, bv, bn = op["ab"]
+    ab = (ar, av[b].contiguous(), an, br, bv[b].contiguous(), bn)
+    if kind == "spa":
+        return (kernels.spa_spgemm(*ab, m=op["m"], block_cols=op["block"]),)
+    if kind == "spars":
+        return kernels.spars_spgemm(*ab, op["steps"], m=op["m"],
+                                    block_cols=op["block"])
+    return kernels.hash_spgemm(*ab, op["steps"], m=op["m"], h=op["h"],
+                               block_cols=op["block"])
+
+
+@pytest.mark.parametrize("kind", ["spa", "spars", "hash"])
+def test_batched_kernel_equals_plain(cuda, kind):
+    op = _batched_operands(cuda)
+    wrapper = getattr(kernels, {"spa": "spa_spgemm_batched",
+                                "spars": "spars_spgemm_batched",
+                                "hash": "hash_spgemm_batched"}[kind])
+    before = wrapper.n_launches
+    got = _run_batched(kind, op)
+    torch.cuda.synchronize()
+    assert wrapper.n_launches == before + 1
+    want = _run_batched(kind, op, plain=True)
+    for g, w in zip(got, want):
+        assert g.shape[0] == BATCH and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind", ["spa", "spars", "hash"])
+def test_batched_kernel_slices_equal_unbatched(cuda, kind):
+    """Slice b of one batched launch is the unbatched kernel on value set
+    b, bit for bit; HASH's keys are equal across the batch."""
+    op = _batched_operands(cuda)
+    got = _run_batched(kind, op)
+    for b in range(BATCH):
+        for g, w in zip(got, _run_single(kind, op, b)):
+            assert torch.equal(g[b], w)
+    if kind == "hash":
+        assert all(torch.equal(got[0][b], got[0][0]) for b in range(BATCH))
+
+
+def test_fused_batched_kernel_equals_plain_and_slices(cuda):
+    a, _ = _fused_operands(cuda)
+    view = fused_stream(plan_spgemm(a, a)).forward
+    rng = np.random.default_rng(10)
+    x, y = (torch.from_numpy(rng.standard_normal((BATCH, a.nnz)).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    before = kernels.fused_stream_batched.n_launches
+    got = kernels.fused_stream_batched(view.idx_x, view.idx_y, view.seg_ptr,
+                                       x, y)
+    torch.cuda.synchronize()
+    assert kernels.fused_stream_batched.n_launches == before + 1
+    assert torch.equal(got, kernels.fused_stream_batched_plain(
+        view.idx_x, view.idx_y, view.seg_ptr, x, y))
+    for b in range(BATCH):
+        assert torch.equal(got[b], kernels.fused_stream(
+            view.idx_x, view.idx_y, view.seg_ptr, x[b], y[b]))
+
+
+@pytest.mark.parametrize("engine", [None, "fused"])
+def test_batched_execute_waits_once_or_never(cuda, engine):
+    """A batched execute on operands already on the card waits for the card
+    once (naive: all B nnz in one read) or never (fused), whatever B; its
+    results equal a loop of executes and the same call on the CPU."""
+    a = generate.random_powerlaw_csc(600, 8.0, seed=5)
+    rng = np.random.default_rng(11)
+    stacks = [BatchedCSC.from_values(a, torch.from_numpy(
+        rng.integers(1, 4, (4, a.nnz)).astype(np.float32)))
+        for _ in range(2)]
+    a_dev, b_dev = (s.to(cuda) for s in stacks)
+    plan = cached_plan(a, a)
+    plan.execute_batched(a_dev, b_dev, engine=engine)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        got = plan.execute_batched(a_dev, b_dev, engine=engine)
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert len(syncs) == (0 if engine else 1), [str(w.message)
+                                                for w in syncs]
+    on_cpu = spgemm_batched(*stacks, device="cpu", engine=engine)
+    for b, c in enumerate(got):
+        want = plan.execute(a_dev[b], b_dev[b], engine=engine)
+        for f in ("col_ptr", "row_indices", "values"):
+            assert np.array_equal(_np(getattr(c, f)), _np(getattr(want, f)))
+            assert np.array_equal(_np(getattr(c, f)),
+                                  _np(getattr(on_cpu[b], f)))

@@ -67,29 +67,48 @@ def test_spgemm_without_device_needs_a_card():
         cached_plan(a, a)
 
 
-@pytest.mark.parametrize("kernel", ["spa", "spars", "hash", "fused"])
+def test_spgemm_batched_without_device_needs_a_card():
+    """The batched entry point runs on the card by default too."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None runs on it")
+    from repro_torch.core import spgemm_batched
+    from repro_torch.sparse import BatchedCSC, random_uniform_csc
+
+    a = random_uniform_csc(16, 2, seed=0)
+    s = BatchedCSC.from_values(a, torch.ones((2, a.nnz)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        spgemm_batched(s, s)
+
+
+@pytest.mark.parametrize("kernel", ["spa", "spars", "hash", "fused",
+                                    "spa_batched", "spars_batched",
+                                    "hash_batched", "fused_batched"])
 def test_cpu_tensor_with_cuda_device_raises(kernel):
     """A kernel entry asked to run on the card never runs a CPU tensor
     through the plain version instead."""
-    from repro_torch.kernels import fused_stream, hash_spgemm, spa_spgemm, \
-        spars_spgemm
+    from repro_torch import kernels
 
     z = torch.zeros((16, 2), dtype=torch.int32)
     v = torch.zeros((16, 2), dtype=torch.float32)
     n = torch.zeros(16, dtype=torch.int32)
     steps = torch.zeros(1, dtype=torch.int32)
+    if kernel.endswith("_batched"):
+        v = v[None]
+    name = kernel.split("_")[0]
+    fn = getattr(kernels, ("fused_stream" if name == "fused"
+                           else f"{name}_spgemm")
+                 + ("_batched" if kernel.endswith("_batched") else ""))
     with pytest.raises(ValueError, match="device"):
-        if kernel == "spa":
-            spa_spgemm(z, v, n, z, v, n, m=16, block_cols=16, device="cuda")
-        elif kernel == "fused":
-            fused_stream(n, n, n[:2], v[:, 0].contiguous(),
-                         v[:, 0].contiguous(), device="cuda")
-        elif kernel == "spars":
-            spars_spgemm(z, v, n, z, v, n, steps, m=16, block_cols=16,
-                         device="cuda")
+        if name == "spa":
+            fn(z, v, n, z, v, n, m=16, block_cols=16, device="cuda")
+        elif name == "fused":
+            x = v[..., 0].contiguous()
+            fn(n, n, n[:2], x, x, device="cuda")
+        elif name == "spars":
+            fn(z, v, n, z, v, n, steps, m=16, block_cols=16, device="cuda")
         else:
-            hash_spgemm(z, v, n, z, v, n, steps, m=16, h=4, block_cols=16,
-                        device="cuda")
+            fn(z, v, n, z, v, n, steps, m=16, h=4, block_cols=16,
+               device="cuda")
 
 
 def test_no_fallback_in_wrappers():

@@ -8,7 +8,7 @@ import numpy as np
 import torch
 
 from repro.sparse.format import CSC as RefCSC
-from repro_torch.convert import csc_from_reference
+from repro_torch.convert import batched_csc_from_reference, csc_from_reference
 from repro_torch.sparse import generate as tgen
 from repro_torch.sparse.format import CSC, _np, csc_from_dense
 
@@ -197,3 +197,67 @@ def ref_fused(a: CSC, b: CSC, inputs, method: str = "spa") -> list:
     return [tuple(np.asarray(t) for t in forward_backward(
         jnp.asarray(x, jnp.float32), jnp.asarray(y, jnp.float32),
         jnp.asarray(w, jnp.float32))) for x, y, w in inputs]
+
+
+def value_stack(m: CSC, batch: int, values: str, seed: int) -> np.ndarray:
+    """``[batch, nnz]`` f32 value sets for the pattern of ``m``, each row
+    different: integers in {-3..3} \\ {0} ("int", exact in f32 at the
+    tests' sizes) or standard normal ("real")."""
+    rng = np.random.default_rng(seed)
+    if values == "int":
+        v = rng.integers(1, 4, (batch, m.nnz)) * rng.choice([-1, 1],
+                                                          (batch, m.nnz))
+    else:
+        v = rng.standard_normal((batch, m.nnz))
+    return v.astype(np.float32)
+
+
+def batched_pair(a: CSC, b: CSC, values: str, batch: int):
+    """((A, B) port BatchedCSCs on the CPU, (A, B) JAX-package BatchedCSCs)
+    of different value stacks, A's from seed 1 and B's from seed 2: mixed
+    operands even where ``a is b``."""
+    from repro.sparse.format import BatchedCSC as RefBatchedCSC
+
+    port, ref = [], []
+    for m, seed in ((a, 1), (b, 2)):
+        v = value_stack(m, batch, values, seed)
+        r = to_ref(m)
+        port.append(batched_csc_from_reference(v, r.row_indices, r.col_ptr,
+                                               r.shape, device="cpu"))
+        ref.append(RefBatchedCSC.from_values(r, v))
+    return tuple(port), tuple(ref)
+
+
+def check_batched_parity(a: CSC, b: CSC, method: str, values: str,
+                         batch: int = 2) -> None:
+    """B multiplies through both packages' batched per-group paths,
+    compared element by element.
+
+    The reference runs ``execute_batched`` of a pallas plan (its Pallas
+    kernels vmapped, in interpret mode); the port ``spgemm_batched`` with
+    ``device="cpu"`` (the batched kernels' plain versions), then
+    ``execute_batched`` of the cached plan for its stats.  Structure must
+    be identical, values exact on integer values and within
+    ``REAL_RTOL``/``REAL_ATOL`` otherwise; both must launch the same groups
+    and report the same tiles.
+    """
+    from repro.core.planner import plan_spgemm as ref_plan_spgemm
+    from repro_torch.core import cached_plan, spgemm_batched
+
+    (pa, pb), (ra, rb) = batched_pair(a, b, values, batch)
+    ref_plan = ref_plan_spgemm(ra[0], rb[0], method, backend="pallas")
+    ref_stats: dict = {}
+    want = ref_plan.execute_batched(ra, rb, stats=ref_stats)
+
+    got = spgemm_batched(pa, pb, method, device="cpu")
+    assert len(got) == len(want) == batch
+    for g, w in zip(got, want):
+        assert_same_csc(g, w, exact=values == "int")
+    port_plan = cached_plan(pa[0], pb[0], method, device="cpu")
+    port_stats: dict = {}
+    again = port_plan.execute_batched(pa, pb, stats=port_stats)
+    for key in ("n_launches", "tile_shapes", "peak_tile_elems", "batch"):
+        assert port_stats[key] == ref_stats[key], key
+    assert_same_groups(port_plan, ref_plan)
+    for g, w in zip(again, got):
+        np.testing.assert_array_equal(_np(g.values), _np(w.values))
