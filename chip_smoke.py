@@ -50,6 +50,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    idle share; per kernel, its time, its plain version's, its bound and a
    library call's, at its largest main-path group or view (the batched
    kernels at B = 8).
+9. Sparse FFN set-up: granite-20b's FFN at full width (d_model 6144, d_ff
+   24576), weights from ``--seed`` through the port's ``init_params``,
+   converted by ``SparseFFN.from_params`` at keep_density 0.9 (the dense
+   path) and 0.25 (the bsr path), each path asserted; per matrix the
+   pruned weight from ``prune_blocks`` and an integer-valued SparseMatmul
+   (values in {-2 ... 2}) on the same kept blocks.
+10. BSR kernels: K5 and K5-b each against its plain version, bit for bit,
+   on real and integer values, at B = 1 and B = 8: the full-width gate and
+   down matrices of the bsr path on a 128-column slice of x, and edge cases
+   (all block-rows empty, some empty, max_nb padding, 8x16 and 16x16
+   blocks, a ragged column tile); each batched slice against K5.
+11. Sparse FFN path: a prefill x [2048, 6144] and a batch xs [8, 128, 6144]
+   through ``SparseFFN`` at both densities, with the counts set to 0 just
+   before: three K5 launches per prefill and three K5-b per batch on the
+   bsr path, none on the dense path; every output within 1e-5 normwise of
+   the f64 FFN on the pruned weights; then each SparseMatmul on its own at
+   both shapes, exactly equal to the f64 product of its pruned weight on
+   integer values and within 1e-5 normwise on real ones.
+12. Sparse FFN timing: per density the conversion s, the forward's median
+   ms, its device span and idle share by CUDA events, each matmul's device
+   ms, the flop savings and the error against the unpruned FFN; the K5 /
+   K5-b rows: each kernel against its plain version, bit for bit, on gate's
+   and down's operands of the bsr path (prefill for K5, batch for K5-b),
+   and timed on gate's beside ``torch.matmul`` of the pruned weight (and,
+   for K5-b, the BSR-tensor product).
 
 The last two lines are the kernels' JSON and the card line; the very last is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -59,6 +84,7 @@ the repository beside it, the script exits non-zero before any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -105,6 +131,12 @@ KERNELS = {
     "hash_b": dict(name="hash_spgemm_batched", route="cuda",
                    source="src/repro_torch/csrc/hash_spgemm.cu",
                    replaces="src/repro/kernels/hash_spgemm.py:147"),
+    "bsr": dict(name="bsr_spmm", route="cuda",
+                source="src/repro_torch/csrc/bsr_spmm.cu",
+                replaces="src/repro/kernels/bsr_spmm.py:26"),
+    "bsr_b": dict(name="bsr_spmm_batched", route="cuda",
+                  source="src/repro_torch/csrc/bsr_spmm.cu",
+                  replaces="src/repro/models/sparse_ffn.py:264"),
 }
 GROUP_KERNELS = ("spa", "spars", "hash")   # the per-group path's
 BATCH = 8   # value sets per batched call: BENCH_batched.json's config.batch
@@ -878,12 +910,27 @@ def check_batched_path(results, launches, stacks, fplans, dev):
 # ---------------------------------------------------------------------------
 
 
-def event_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` per call, by CUDA events."""
+def event_ms(fn, reps: int, warmup: int = 1,
+             per_call: bool = False) -> float:
+    """Mean device time of ``fn`` per call, by CUDA events around a loop of
+    ``reps`` calls; with ``per_call``, the median over ``reps`` calls of the
+    time from an event just before one call to one just after it (the
+    card's busy time plus any gap between the call's kernels)."""
     import torch
 
     for _ in range(warmup):
         fn()
+    if per_call:
+        samples = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            samples.append(start.elapsed_time(stop))
+        return statistics.median(samples)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1317,12 +1364,443 @@ def batched_kernel_report(biggest, k1_biggest, plans, stacks, counts, errs,
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the sparse FFN serving policy (K5, K5-b) at granite-20b's full FFN width
+# ---------------------------------------------------------------------------
+
+FFN_ARCH = "granite-20b"
+FFN_KEEPS = {0.9: "dense", 0.25: "bsr"}   # keep_density -> the policy's path
+FFN_T_DENSITY = 0.75   # SparseFFN.from_params' own switch
+FFN_BLOCK = 8          # bm = bk, the reference's default
+FFN_MATRICES = ("gate", "up", "down")
+PREFILL_TOKENS = 2048  # one prefill of 2048 tokens
+FFN_BATCH, FFN_BATCH_TOKENS = 8, 128   # 8 sequences of 128 tokens: K5-b
+FFN_TOL = 1e-5         # normwise relative error against f64, real values
+BSR_SLICE = 128        # columns of x in the kernel phase's full-width cases
+
+
+def rel_err(got, want) -> float:
+    """Normwise relative error of ``got`` against the f64 ``want``."""
+    return float((got.double() - want).norm() / want.norm())
+
+
+def int_values(shape, gen, dev):
+    """f32 values in {-2 ... 2} on the card: at granite's widths every sum
+    of products stays below 2^24 (at most 4 * 24576), so f32 holds it
+    exactly in any order."""
+    import torch
+
+    return torch.randint(-2, 3, shape, generator=gen, device=dev,
+                         dtype=torch.int8).float()
+
+
+def ffn_setup(dev, seed):
+    """granite-20b's FFN at full width from ``seed``: the params through the
+    port's ``init_params`` (``fan_in``, as ``ffn_table``), the real-valued
+    activations of the prefill [T, D] and the batch [B, T, D], and per
+    keep_density the SparseFFN as a user converts it (timed), each matrix's
+    pruned weight from ``prune_blocks`` (the oracle's), and an
+    integer-valued SparseMatmul on the same kept blocks."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import SparseFFN, SparseMatmul, ffn_table, \
+        init_params, prune_blocks
+
+    cfg = get_config(FFN_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(ffn_table(cfg), gen, device=dev)
+    host = {name: params[name]["w"].T.cpu().numpy() for name in FFN_MATRICES}
+    d = cfg.d_model
+    data = dict(cfg=cfg, params=params, gen=gen, ffns={}, pruned={},
+                ints={}, conversion_s={}, acts=dict(
+                    prefill=torch.randn((PREFILL_TOKENS, d), generator=gen,
+                                        device=dev),
+                    batched=torch.randn((FFN_BATCH, FFN_BATCH_TOKENS, d),
+                                        generator=gen, device=dev)))
+    for keep, path in FFN_KEEPS.items():
+        t0 = time.perf_counter()
+        sp = SparseFFN.from_params(params, keep_density=keep,
+                                   t_density=FFN_T_DENSITY, device=dev)
+        torch.cuda.synchronize()
+        data["conversion_s"][keep] = time.perf_counter() - t0
+        data["ffns"][keep] = sp
+        for name in FFN_MATRICES:
+            m = getattr(sp, name)
+            label = f"{FFN_ARCH} {name} keep {keep}"
+            check(m.path == path, f"{label}: path {m.path}, not {path}")
+            w_p, density = prune_blocks(host[name], FFN_BLOCK, FFN_BLOCK,
+                                        keep)
+            check(density == m.density, f"{label}: density {m.density} vs "
+                  f"prune_blocks' {density}")
+            data["pruned"][keep, name] = w_p
+            vals = int_values(w_p.shape, gen, dev).cpu().numpy()
+            w_int = np.where(w_p != 0, vals, np.float32(0))
+            mi = SparseMatmul.from_dense(
+                w_int, bm=FFN_BLOCK, bk=FFN_BLOCK, keep_density=keep,
+                t_density=FFN_T_DENSITY, device=dev)
+            check(mi.path == path and mi.density == density
+                  and (path == "dense" or (
+                      torch.equal(mi.block_nnz, m.block_nnz)
+                      and torch.equal(mi.block_idx, m.block_idx))),
+                  f"{label}: the integer-valued weight pruned to other "
+                  "blocks")
+            data["ints"][keep, name] = (mi, w_int)
+    print(f"sparse FFN: {FFN_ARCH} (d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}) converted at keep_density "
+          f"{json.dumps({str(k): v for k, v in FFN_KEEPS.items()})} in "
+          f"{json.dumps({str(k): v for k, v in data['conversion_s'].items()})}"
+          " s", flush=True)
+    return data
+
+
+def bsr_ops(m):
+    return m.block_idx, m.block_nnz, m.blocks
+
+
+EDGE_K = 320   # columns of the edge cases' weights (rows of their x)
+
+
+def bsr_edge_cases(dev):
+    """(label, BSR operands, N) of the K5 edge cases, each weight
+    [192, EDGE_K]: every block-row empty,
+    a few block-rows empty, one block-row far longer than the rest (the
+    others padded to its max_nb), 8x16 and 16x16 blocks, and a column count
+    that is not a multiple of the kernel's 128-column tile."""
+    import torch
+    from repro_torch.kernels import bsr_from_dense
+    from repro_torch.models import prune_blocks
+
+    rng = np.random.default_rng(5)
+
+    def ops(w, bm, bk):
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in bsr_from_dense(w, bm, bk))
+
+    w = rng.standard_normal((192, EDGE_K)).astype(np.float32)
+    empty_rows = w.copy()
+    empty_rows[16:48] *= 1e-3
+    empty_rows, _ = prune_blocks(empty_rows, 8, 8, 0.3)
+    long_row = np.zeros_like(w)
+    long_row[8:16] = w[8:16]
+    long_row[100:108, :16] = w[100:108, :16]
+    yield "all_empty", ops(np.zeros_like(w), 8, 8), 256
+    yield "empty_block_rows", ops(empty_rows, 8, 8), 256
+    yield "max_nb_padding", ops(long_row, 8, 8), 256
+    yield "blocks_8x16", ops(prune_blocks(w, 8, 16, 0.4)[0], 8, 16), 256
+    yield "blocks_16x16", ops(prune_blocks(w, 16, 16, 0.4)[0], 16, 16), 200
+
+
+def compare_bsr(ops, xs, label):
+    """K5 on xs[0] and K5-b on xs [B, K, N] against their plain versions
+    on the same tensors, exactly; the batched slices against K5; returns
+    (max |difference| of K5, of K5-b)."""
+    import torch
+    from repro_torch import kernels
+
+    bn = xs.shape[2]
+    got = kernels.bsr_spmm(*ops, xs[0], bn=bn)
+    torch.cuda.synchronize()
+    want = kernels.bsr_spmm_plain(*ops, xs[0])
+    check(got.shape == want.shape and torch.equal(got, want),
+          f"bsr_spmm {label}: kernel != plain version")
+    got_b = kernels.bsr_spmm_batched(*ops, xs, bn=bn)
+    torch.cuda.synchronize()
+    want_b = kernels.bsr_spmm_batched_plain(*ops, xs)
+    check(got_b.shape == want_b.shape and torch.equal(got_b, want_b),
+          f"bsr_spmm_batched {label} B = {xs.shape[0]}: kernel != plain "
+          "version")
+    for b in range(xs.shape[0]):
+        check(torch.equal(got_b[b], got if b == 0 else kernels.bsr_spmm(
+            *ops, xs[b], bn=bn)), f"bsr_spmm_batched {label}: slice {b} != "
+            "bsr_spmm")
+    return (float((got - want).abs().max()) if got.numel() else 0.0,
+            float((got_b - want_b).abs().max()) if got_b.numel() else 0.0)
+
+
+def bsr_kernel_phase(data, dev):
+    """K5 and K5-b against their plain versions, bit for bit, on real and
+    integer values: the full-width gate and down matrices of the bsr path
+    on a 128-column slice of x (B = 1 and B = 8), and the edge cases."""
+    import torch
+
+    keep = next(k for k, path in FFN_KEEPS.items() if path == "bsr")
+    gen = data["gen"]
+    errs, n = [0.0, 0.0], 0
+    cases = []
+    for name in ("gate", "down"):
+        m = getattr(data["ffns"][keep], name)
+        mi, _ = data["ints"][keep, name]
+        k_dim = m.shape[1]
+        cases.append((f"{name} keep {keep}, real", bsr_ops(m), torch.randn(
+            (FFN_BATCH, k_dim, BSR_SLICE), generator=gen, device=dev)))
+        cases.append((f"{name} keep {keep}, integer", bsr_ops(mi), int_values(
+            (FFN_BATCH, k_dim, BSR_SLICE), gen, dev)))
+    for label, ops, n_cols in bsr_edge_cases(dev):
+        k_dim = EDGE_K
+        for kind, xs in (("real", torch.randn((FFN_BATCH, k_dim, n_cols),
+                                              generator=gen, device=dev)),
+                         ("integer", int_values((FFN_BATCH, k_dim, n_cols),
+                                                gen, dev))):
+            cases.append((f"{label}, {kind}", ops, xs))
+    for label, ops, xs in cases:
+        for batch in (1, FFN_BATCH):
+            e = compare_bsr(ops, xs[:batch], label)
+            errs = [max(a, b) for a, b in zip(errs, e)]
+            n += 1
+    for name, err in zip(("bsr_spmm", "bsr_spmm_batched"), errs):
+        print(f"kernel {name}: {n} comparisons with the plain version "
+              f"(B = 1 and {FFN_BATCH}), max |diff| {err}", flush=True)
+
+
+def ffn_path(data):
+    """Drive SparseFFN as a user serves with it, at full width: one prefill
+    [T, D] and one batch [B, T, D] per keep_density, with the counts set to
+    0 just before and read just after; each call's launches must be three
+    K5 (prefill) or three K5-b (batch) on the bsr path and none on the
+    dense path."""
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    out, launches = {}, {}
+    for keep, sp in data["ffns"].items():
+        for shape, x in data["acts"].items():
+            before = kernels.launch_counts()
+            out[keep, shape] = sp(x)
+            after = kernels.launch_counts()
+            launches[keep, shape] = {k: v - before[k] for k, v in after.items()
+                                     if v > before[k]}
+    counts = kernels.launch_counts()
+    print(f"sparse FFN path: {FFN_ARCH} prefill {PREFILL_TOKENS} tokens and "
+          f"a batch of {FFN_BATCH} x {FFN_BATCH_TOKENS} at keep_density "
+          f"{sorted(FFN_KEEPS)}; launches "
+          f"{json.dumps({f'{k} {s}': v for (k, s), v in launches.items()})}",
+          flush=True)
+    for (keep, shape), got in launches.items():
+        name = "bsr_spmm" if shape == "prefill" else "bsr_spmm_batched"
+        want = {name: 3} if FFN_KEEPS[keep] == "bsr" else {}
+        check(got == want, f"sparse FFN keep {keep} {shape}: launches {got}, "
+              f"expected {want}")
+    for name in ("bsr_spmm", "bsr_spmm_batched"):
+        check(counts[name] > 0, f"{name} was not launched on the FFN path")
+    return out, counts
+
+
+def pruned_params64(data, keep, dev):
+    """The pruned FFN params in f64 on the card (``ffn_table``'s
+    orientation), for the oracle."""
+    import torch
+
+    return {name: {"w": torch.from_numpy(data["pruned"][keep, name]).to(
+        dev, torch.float64).T} for name in FFN_MATRICES}
+
+
+def check_ffn_path(data, out, dev):
+    """Every FFN output of the path is finite, of its input's shape, and
+    within FFN_TOL normwise of ``ffn`` on the pruned weights in f64."""
+    from repro_torch.models import ffn
+
+    errs = {}
+    for keep in FFN_KEEPS:
+        p64 = pruned_params64(data, keep, dev)
+        for shape, x in data["acts"].items():
+            got = out[keep, shape]
+            label = f"sparse FFN keep {keep} {shape}"
+            check(got.shape == x.shape and got.isfinite().all(),
+                  f"{label}: shape {tuple(got.shape)} or non-finite values")
+            errs[keep, shape] = rel_err(got, ffn(p64, x.double()))
+            check(errs[keep, shape] <= FFN_TOL, f"{label}: normwise error "
+                  f"{errs[keep, shape]} against the f64 pruned FFN")
+        del p64
+    print("sparse FFN path: every output within "
+          f"{FFN_TOL} of the f64 pruned-dense FFN; errors "
+          f"{json.dumps({f'{k} {s}': v for (k, s), v in errs.items()})}",
+          flush=True)
+    return errs
+
+
+def check_ffn_matmuls(data, dev):
+    """Each SparseMatmul on its own, prefill width and batched: on integer
+    weights and activations every output equals the f64 product of the
+    pruned weight exactly; on real ones it is within FFN_TOL normwise."""
+    import torch
+
+    gen = data["gen"]
+    errs = {}
+    for keep, path in FFN_KEEPS.items():
+        for name in FFN_MATRICES:
+            m = getattr(data["ffns"][keep], name)
+            mi, w_int = data["ints"][keep, name]
+            k_dim = m.shape[1]
+            label = f"{FFN_ARCH} {name} keep {keep} ({path})"
+            w64 = torch.from_numpy(data["pruned"][keep, name]).to(
+                dev, torch.float64)
+            for shape in ((k_dim, PREFILL_TOKENS),
+                          (FFN_BATCH, k_dim, FFN_BATCH_TOKENS)):
+                run = m if len(shape) == 2 else m.batched
+                x = torch.randn(shape, generator=gen, device=dev)
+                errs[keep, name, len(shape)] = e = rel_err(
+                    run(x), w64 @ x.double())
+                check(e <= FFN_TOL, f"{label} {shape}: normwise error {e}")
+            w64 = torch.from_numpy(w_int).to(dev, torch.float64)
+            for shape in ((k_dim, PREFILL_TOKENS),
+                          (FFN_BATCH, k_dim, FFN_BATCH_TOKENS)):
+                run = mi if len(shape) == 2 else mi.batched
+                x = int_values(shape, gen, dev)
+                check(torch.equal(run(x).double(), w64 @ x.double()),
+                      f"{label} {shape}: integer values differ from the f64 "
+                      "product")
+            del w64
+    print(f"sparse FFN matmuls: {len(errs)} real-valued products within "
+          f"{FFN_TOL} normwise (largest {max(errs.values())}), every "
+          "integer-valued one equal to the f64 product", flush=True)
+    return errs
+
+
+def ffn_operands(sp, inp):
+    """(name, SparseMatmul, operand) of the three matmuls that ``sp(inp)``
+    runs, on the operands it gives them: x^T and h = silu(gate) * up,
+    [D, T] and [F, T] for a prefill, [B, D, T] and [B, F, T] for a
+    batch."""
+    import torch
+
+    xt = (inp.transpose(1, 2) if inp.dim() == 3 else inp.T).contiguous()
+    h = torch.nn.functional.silu(matmul(sp.gate, xt)) * matmul(sp.up, xt)
+    return list(zip(FFN_MATRICES, (sp.gate, sp.up, sp.down), (xt, xt, h)))
+
+
+def matmul(m, a):
+    """``m`` on ``a [K, N]``, or batched on ``a [B, K, N]``, as SparseFFN
+    calls it."""
+    return m.batched(a) if a.dim() == 3 else m(a)
+
+
+def ffn_timing_phase(data, reps):
+    """Per keep_density: conversion s, the FFN forward (prefill and batch,
+    median of ``reps``, ending in a synchronize), its device span and idle
+    share by CUDA events, each matmul's device time (CUDA events: K5 / K5-b
+    on the bsr path, the f32 matmul on the dense path), the flop savings
+    and the relative error against the unpruned FFN."""
+    from repro_torch.models import ffn
+
+    cfg, params = data["cfg"], data["params"]
+    x, xs = data["acts"]["prefill"], data["acts"]["batched"]
+    unpruned = {"prefill": ffn(params, x), "batched": ffn(params, xs)}
+    dense_flops = 3 * 2 * cfg.d_model * cfg.d_ff
+    lines = {}
+    for keep, sp in data["ffns"].items():
+        line = {"arch": FFN_ARCH, "keep_density": keep,
+                "path": sp.gate.path, "density": sp.gate.density,
+                "conversion_s": data["conversion_s"][keep]}
+        for shape, inp in (("prefill", x), ("batched", xs)):
+            forward = statistics.median(execute_ms(lambda: sp(inp), reps))
+            span = event_ms(lambda: sp(inp), reps, per_call=True)
+            y = sp(inp)
+            mats = ffn_operands(sp, inp)
+            line[shape] = {
+                "shape": list(inp.shape),
+                "forward_ms_median": forward,
+                "device_span_ms": span,
+                "device_idle_share": max(0.0, 1 - span / forward),
+                "rel_err_vs_unpruned": float(
+                    (y - unpruned[shape]).norm() / unpruned[shape].norm()),
+                "matmul_device_ms": {
+                    name: event_ms(lambda: matmul(m, a), reps)
+                    for name, m, a in mats}}
+            del mats
+        line["flop_savings"] = dense_flops / sp.flops_per_token
+        lines[keep] = line
+        print(json.dumps(line), flush=True)
+    return lines
+
+
+def bsr_work(m, x):
+    """(multiply-adds, bytes) one K5 launch needs on ``x [K, N]`` (or
+    ``[B, K, N]``): the kept blocks, their indices and the counts read
+    once, x read once and the output written once; bm * bk multiply-adds
+    per kept block, column and activation set."""
+    batch = x.shape[0] if x.dim() == 3 else 1
+    kept = int(m.block_nnz.sum())
+    bm, bk = m.blocks.shape[2:]
+    n = x.shape[-1]
+    nbytes = (kept * (bm * bk + 1) * 4 + m.block_nnz.numel() * 4
+              + x.numel() * 4 + batch * m.shape[0] * n * 4)
+    return batch * kept * bm * bk * n, nbytes
+
+
+def bsr_kernel_report(data, counts, dev, reps):
+    """The rows of K5 and K5-b.  Each kernel is held against its plain
+    version, bit for bit, on the operands the FFN path gives it on the bsr
+    path: gate's x^T and down's h, [D, T] and [F, T] for K5 (the prefill),
+    [B, D, T] and [B, F, T] for K5-b (the batch); the row's max_abs_err is
+    the larger of the two.  Each is timed on gate's operand, the plain
+    version once.  The library call is ``torch.matmul`` of the pruned dense
+    weight (f32, full precision); the K5-b row also times the BSR-tensor
+    product ``w.to_sparse_bsr((8, 8)) @ x`` once per activation set (at the
+    prefill's N = 2048 that product asks for more than the card's memory
+    beside the FFN).  The port never calls either."""
+    import torch
+    from repro_torch import kernels
+
+    keep = next(k for k, path in FFN_KEEPS.items() if path == "bsr")
+    sp = data["ffns"][keep]
+    m = sp.gate
+    w = torch.from_numpy(data["pruned"][keep, "gate"]).to(dev)
+    w_bsr = w.to_sparse_bsr((FFN_BLOCK, FFN_BLOCK))
+    rows = []
+    for kind, shape in (("bsr", "prefill"), ("bsr_b", "batched")):
+        info = KERNELS[kind]
+        fn, plain = ((kernels.bsr_spmm, kernels.bsr_spmm_plain)
+                     if kind == "bsr" else (kernels.bsr_spmm_batched,
+                                            kernels.bsr_spmm_batched_plain))
+        operands = {name: (bsr_ops(mat), a) for name, mat, a
+                    in ffn_operands(sp, data["acts"][shape])
+                    if name in ("gate", "down")}
+        err = 0.0
+        for name, (ops, a) in operands.items():
+            got, want = fn(*ops, a), plain(*ops, a)
+            check(torch.equal(got, want), f"{info['name']} on {name}'s "
+                  f"{shape} operand {list(a.shape)}: kernel != plain version")
+            err = max(err, float((got - want).abs().max()))
+            del got, want
+        ops, x = operands["gate"]
+        del operands
+        want = fn(*ops, x).double()
+        check(rel_err(w @ x, want) <= FFN_TOL,
+              f"{info['name']}: torch.matmul disagrees")
+        lib_bsr_ms = None
+        if x.dim() == 3:
+            check(rel_err(torch.stack([w_bsr @ xb for xb in x]), want)
+                  <= FFN_TOL, f"{info['name']}: the BSR-tensor product "
+                  "disagrees")
+            lib_bsr_ms = event_ms(lambda: [w_bsr @ xb for xb in x], reps)
+        ms = event_ms(lambda: fn(*ops, x), reps)
+        plain_ms = event_ms(lambda: plain(*ops, x), reps=1, warmup=0)
+        products, nbytes = bsr_work(m, x)
+        b_ms, by = bound_ms(products, nbytes)
+        rows.append(dict(
+            info, launches=counts[info["name"]], max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+            library_ms=event_ms(lambda: w @ x, reps),
+            library_bsr_tensor_ms=lib_bsr_ms,
+            at=dict(arch=FFN_ARCH, matrix="gate", keep_density=keep,
+                    shape=list(m.shape), x=list(x.shape),
+                    kept_blocks=int(m.block_nnz.sum()),
+                    max_nb=m.blocks.shape[1], multiply_adds=products,
+                    bytes=nbytes, compared_on=["gate", "down"])))
+        del want, x
+        torch.cuda.synchronize()
+    return rows
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line saying how long it took."""
+    import torch
+
     t0 = time.perf_counter()
     out = phase(*args)
-    print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"phase {phase.__name__}: {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the "
+          "card", flush=True)
     return out
 
 
@@ -1344,7 +1822,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
-    from repro_torch.core import plan_spgemm
+    from repro_torch.core import plan_cache_clear, plan_spgemm
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -1401,6 +1879,24 @@ def main(argv=None) -> int:
     rows += timed(kernel_report, biggest, counts, errs, args.reps)
     rows += timed(batched_kernel_report, biggest, k1_biggest, plans, stacks,
                   b_counts, b_errs, dev, args.reps)
+
+    # the FFN phases hold granite-20b's FFN at full width: the earlier
+    # phases' plans and operands go first
+    del plans, fplans, mats, expected, stacks, biggest, k1_biggest
+    plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"freed the earlier phases: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated on the "
+          "card", flush=True)
+    ffn_data = timed(ffn_setup, dev, args.seed)
+    timed(bsr_kernel_phase, ffn_data, dev)
+    ffn_out, ffn_counts = timed(ffn_path, ffn_data)
+    timed(check_ffn_path, ffn_data, ffn_out, dev)
+    del ffn_out
+    timed(check_ffn_matmuls, ffn_data, dev)
+    timed(ffn_timing_phase, ffn_data, args.reps)
+    rows += timed(bsr_kernel_report, ffn_data, ffn_counts, dev, args.reps)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, build "
           "included", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

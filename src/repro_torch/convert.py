@@ -1,17 +1,18 @@
 """Carry operands across from the JAX package.
 
-A ``repro.sparse.format.CSC`` (or ``BatchedCSC``) is handed over as its
-numpy arrays, so that both packages multiply the same matrices (or value
-stacks); this module imports nothing of the JAX package.
+A ``repro.sparse.format.CSC`` (or ``BatchedCSC``), FFN params or a
+``repro.models.sparse_ffn.SparseMatmul`` are handed over as their numpy
+arrays, so that both packages compute on the same matrices (or value
+stacks, or weights); this module imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
-
-from repro_torch.device import resolve_device
 import torch
 
+from repro_torch.device import resolve_device
+from repro_torch.models.sparse_ffn import SPGEMM_LATER, SparseMatmul
 from repro_torch.sparse.format import CSC, BatchedCSC, csc_from_numpy
 
 
@@ -43,3 +44,55 @@ def batched_csc_from_reference(values, row_indices, col_ptr, shape,
     return BatchedCSC(torch.from_numpy(vals).to(resolve_device(device)),
                       np.asarray(row_indices)[:nnz].astype(np.int32),
                       cp.astype(np.int32), tuple(int(s) for s in shape))
+
+
+def ffn_params_from_reference(p, device=None) -> dict:
+    """The port's FFN params (nested dicts of f32 tensors on ``device``,
+    default the card) of the JAX package's FFN params given as numpy
+    arrays (``{"gate"/"up"/"down": {"w": [d_in, d_out]}}``)."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node, np.float32)).to(dev)
+
+    return walk(p)
+
+
+def sparse_matmul_from_reference(path, dense_w, block_idx, block_nnz, blocks,
+                                 shape, density, device=None) -> SparseMatmul:
+    """The port's SparseMatmul of a JAX-package one given as its fields in
+    numpy (``dense_w`` on the dense path, the padded BSR arrays on the bsr
+    path, None for the others), on ``device`` (default the card).
+
+    The BSR indices are checked here, on the host: the kernel trusts them.
+    """
+    if path == "spgemm":
+        raise ValueError(SPGEMM_LATER)
+    dev = resolve_device(device)
+    shape = tuple(int(s) for s in shape)
+    if path == "dense":
+        w = np.asarray(dense_w, np.float32)
+        if w.shape != shape:
+            raise ValueError(f"dense_w {w.shape} is not {shape}")
+        return SparseMatmul("dense", torch.from_numpy(w.copy()).to(dev),
+                            None, None, None, shape, float(density))
+    if path != "bsr":
+        raise ValueError(f"unknown path {path!r}; 'dense' or 'bsr'")
+    bi = np.asarray(block_idx, np.int32)
+    bn = np.asarray(block_nnz, np.int32)
+    blk = np.asarray(blocks, np.float32)
+    n_rb, max_nb, bm, bk = blk.shape
+    n_cb = shape[1] // bk
+    live = np.arange(max_nb)[None, :] < bn[:, None]
+    if bi.shape != (n_rb, max_nb) or bn.shape != (n_rb,) \
+            or shape != (n_rb * bm, n_cb * bk) or (bn > max_nb).any() \
+            or (bn < 0).any() or (bi[live] < 0).any() \
+            or (bi[live] >= n_cb).any():
+        raise ValueError(
+            f"BSR arrays {bi.shape}, {bn.shape}, {blk.shape} do not hold a "
+            f"{shape} weight in {bm}x{bk} blocks")
+    return SparseMatmul("bsr", None, *(torch.from_numpy(a.copy()).to(dev)
+                                       for a in (bi, bn, blk)),
+                        shape, float(density))

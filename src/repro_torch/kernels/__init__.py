@@ -4,17 +4,26 @@
 - spa.py          K2 SPA SpGEMM: one warp per C column
 - spars.py        K3 SPARS lock-step SpGEMM: one thread per lane
 - hash_spgemm.py  K4 HASH lock-step SpGEMM: one thread per lane and table
+- bsr_spmm.py     K5 padded-BSR x dense: one thread per output column of a
+                  block-row; and the host converter bsr_from_dense
 - ref.py          plain-torch oracles for the tests
 - ops.py          group-level wrappers + spgemm_cuda
 - _build.py       nvcc build of csrc/ and the ctypes binding
 
-Each kernel has an unbatched wrapper and a ``*_batched`` one (K1-b … K4-b:
-B same-pattern value sets in one launch, the batch the kernel's second
-grid axis).  Each wrapper launches its kernel for CUDA tensors (or raises),
+Each kernel has an unbatched wrapper and a ``*_batched`` one (K1-b … K5-b:
+B same-pattern value sets in one launch, the batch a grid axis of the
+kernel).  Each wrapper launches its kernel for CUDA tensors (or raises),
 runs its plain PyTorch version for CPU tensors, and counts its launches in
 ``n_launches``.  Nothing is compiled when this package is imported.
 """
 
+from repro_torch.kernels.bsr_spmm import (
+    bsr_from_dense,
+    bsr_spmm,
+    bsr_spmm_batched,
+    bsr_spmm_batched_plain,
+    bsr_spmm_plain,
+)
 from repro_torch.kernels.fused_stream import (
     fused_stream,
     fused_stream_batched,
@@ -42,9 +51,9 @@ from repro_torch.kernels.spars import (
 )
 
 #: every kernel wrapper of this package (each carries ``n_launches``)
-KERNELS = (fused_stream, spa_spgemm, spars_spgemm, hash_spgemm,
+KERNELS = (fused_stream, spa_spgemm, spars_spgemm, hash_spgemm, bsr_spmm,
            fused_stream_batched, spa_spgemm_batched, spars_spgemm_batched,
-           hash_spgemm_batched)
+           hash_spgemm_batched, bsr_spmm_batched)
 
 
 def reset_launch_counts() -> None:
@@ -58,6 +67,11 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS",
+    "bsr_from_dense",
+    "bsr_spmm",
+    "bsr_spmm_batched",
+    "bsr_spmm_batched_plain",
+    "bsr_spmm_plain",
     "fused_stream",
     "fused_stream_batched",
     "fused_stream_batched_plain",

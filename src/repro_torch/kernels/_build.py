@@ -44,6 +44,9 @@ SIGNATURES = {
     # idx_x, idx_y, seg_ptr, x, y, n_x, n_y, n_out, batch, out, stream
     "repro_fused_stream_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                                   _P),
+    # block_idx, block_nnz, blocks, n_rb, max_nb, bm, bk, x, k_dim, n,
+    # batch, out, stream
+    "repro_bsr_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P),
 }
 
 _LOCK = threading.Lock()

@@ -1,0 +1,176 @@
+"""K5: padded-BSR × dense (``csrc/bsr_spmm.cu``), and the host converter.
+
+The counterpart of the JAX package's Pallas BSR kernel
+(``repro/kernels/bsr_spmm.py::bsr_spmm``) and of its vmapped form in
+``repro/models/sparse_ffn.py`` (``SparseMatmul.batched``, K5-b): a weight in
+padded BSR (``block_idx [n_rb, max_nb]`` int32, ``block_nnz [n_rb]`` int32,
+``blocks [n_rb, max_nb, bm, bk]`` f32) times dense activations ``x [K, N]``
+(``[B, K, N]`` batched) gives ``[n_rb * bm, N]`` (``[B, n_rb * bm, N]``).  On
+a CUDA tensor the wrappers launch the hand-written kernel (one thread per
+output column of a block-row, the batch a third grid axis) or raise; on a
+CPU tensor they run :func:`bsr_spmm_batched_plain`.  :func:`bsr_from_dense`
+is the reference's host converter, copied (less its ``threshold``, which no
+caller sets).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._checks import check_batch, check_tensors, \
+    stream_handle
+
+#: the kernel's column tile (one CTA, one thread per column) and the largest
+#: bk it stages (``kStage / kRows`` in ``csrc/bsr_spmm.cu``)
+TILE_COLS = 128
+MAX_BK = 256
+#: column tiles are the grid's second axis, at most 65535 of them
+MAX_COLS = 65535 * TILE_COLS
+
+
+def _check(block_idx, block_nnz, blocks, x, bn, device,
+           batched: bool = False) -> torch.device:
+    named = dict(block_idx=block_idx, block_nnz=block_nnz, blocks=blocks, x=x)
+    dev = check_tensors(named, lambda name: name in ("blocks", "x"), device)
+    if block_idx.dim() != 2 or blocks.dim() != 4 \
+            or tuple(blocks.shape[:2]) != tuple(block_idx.shape) \
+            or tuple(block_nnz.shape) != tuple(block_idx.shape[:1]):
+        raise ValueError(
+            f"BSR operand shapes {tuple(block_idx.shape)}, "
+            f"{tuple(block_nnz.shape)}, {tuple(blocks.shape)} are not "
+            "[n_rb, max_nb], [n_rb], [n_rb, max_nb, bm, bk]")
+    bm, bk = blocks.shape[2:]
+    if not 1 <= bk <= MAX_BK or bm < 1:
+        raise ValueError(f"blocks of {bm}x{bk}: the kernel takes bm >= 1 and "
+                         f"1 <= bk <= {MAX_BK}")
+    want = 3 if batched else 2
+    if x.dim() != want:
+        raise ValueError(f"x must be {'[B, K, N]' if batched else '[K, N]'}"
+                         f", got shape {tuple(x.shape)}")
+    if batched:
+        check_batch(x.shape[0])
+    k_dim, n = x.shape[-2:]
+    if k_dim % bk:
+        raise ValueError(f"x has K = {k_dim} rows, not a multiple of bk = "
+                         f"{bk}")
+    if bn < 1 or n % bn:
+        raise ValueError(f"N = {n} columns is not a multiple of bn = {bn}")
+    if n > MAX_COLS:
+        raise ValueError(f"N = {n} columns: one launch takes at most "
+                         f"{MAX_COLS}")
+    return dev
+
+
+def _launch(block_idx, block_nnz, blocks, xs, dev) -> torch.Tensor:
+    """``out [B, n_rb * bm, N]`` for the ``B = xs.shape[0]`` activation
+    sets ``xs``, one K5 launch if there is any output."""
+    n_rb, max_nb, bm, bk = blocks.shape
+    batch, k_dim, n = xs.shape
+    out = torch.empty((batch, n_rb * bm, n), dtype=torch.float32, device=dev)
+    if out.numel():
+        _build.launch(
+            "repro_bsr_launch", block_idx.data_ptr(), block_nnz.data_ptr(),
+            blocks.data_ptr(), n_rb, max_nb, bm, bk, xs.data_ptr(), k_dim, n,
+            batch, out.data_ptr(), stream_handle(dev))
+    return out
+
+
+def bsr_spmm(block_idx, block_nnz, blocks, x, *, bn: int = 128,
+             device=None) -> torch.Tensor:
+    """``[n_rb * bm, N]`` = BSR(A) @ x for ``x [K, N]`` f32.
+
+    ``N`` must be a multiple of ``bn`` (the reference's contract; the
+    kernel's own tile is :data:`TILE_COLS` columns, masked at the edge).
+    The BSR indices come from :func:`bsr_from_dense` and are trusted: every
+    ``block_idx[i, nb] * bk + bk <= K`` for ``nb < block_nnz[i] <= max_nb``
+    (the card does not check).  ``device``, when given, is where the
+    operands must lie.
+    """
+    dev = _check(block_idx, block_nnz, blocks, x, bn, device)
+    if dev.type == "cpu":
+        return bsr_spmm_plain(block_idx, block_nnz, blocks, x)
+    out = _launch(block_idx, block_nnz, blocks, x[None], dev)
+    bsr_spmm.n_launches += out.numel() > 0
+    return out[0]
+
+
+bsr_spmm.n_launches = 0
+
+
+def bsr_spmm_batched(block_idx, block_nnz, blocks, xs, *, bn: int = 128,
+                     device=None) -> torch.Tensor:
+    """``[B, n_rb * bm, N]`` for B activation sets ``xs [B, K, N]`` against
+    one BSR weight, in one launch: slice b is :func:`bsr_spmm` of
+    ``xs[b]``, bit for bit."""
+    dev = _check(block_idx, block_nnz, blocks, xs, bn, device, batched=True)
+    if dev.type == "cpu":
+        return bsr_spmm_batched_plain(block_idx, block_nnz, blocks, xs)
+    out = _launch(block_idx, block_nnz, blocks, xs, dev)
+    bsr_spmm_batched.n_launches += out.numel() > 0
+    return out
+
+
+bsr_spmm_batched.n_launches = 0
+
+
+def bsr_spmm_plain(block_idx, block_nnz, blocks, x) -> torch.Tensor:
+    """The kernel's plain PyTorch version for one activation set."""
+    return bsr_spmm_batched_plain(block_idx, block_nnz, blocks, x[None])[0]
+
+
+def bsr_spmm_batched_plain(block_idx, block_nnz, blocks, xs) -> torch.Tensor:
+    """The kernel's plain PyTorch version, in the kernel's per-element order.
+
+    Step (nb, kk) adds ``blocks[i, nb, :, kk] * x[block_idx[i, nb] * bk +
+    kk]`` into every block-row i with ``nb < block_nnz[i]``, vectorized over
+    those block-rows, the rows of the block, the columns and the batch; the
+    steps run nb outer, kk inner, so each output element sums its products
+    from 0 in the kernel's order.  Padded blocks are never touched.
+    Block-rows are visited most-blocks first, so the live ones at step nb
+    are a prefix.
+    """
+    batch, _, n = xs.shape
+    n_rb, _, bm, bk = blocks.shape
+    out = torch.zeros((batch, n_rb, bm, n), dtype=torch.float32,
+                      device=xs.device)
+    if n_rb:
+        nnz_sorted, order = torch.sort(block_nnz.long(), descending=True,
+                                       stable=True)
+        counts = nnz_sorted.cpu()
+        n_steps = int(counts[0])
+        # live[nb] = number of block-rows with more than nb blocks
+        live = torch.searchsorted(-counts, -torch.arange(n_steps),
+                                  right=False).tolist()
+        for nb in range(n_steps):
+            rows = order[: live[nb]]
+            x_row = block_idx[rows, nb].long() * bk          # [n_live]
+            w = blocks[rows, nb]                              # [n_live, bm, bk]
+            acc = out[:, rows]                                # [B, n_live, bm, N]
+            for kk in range(bk):
+                acc = acc + w[None, :, :, kk, None] * xs[:, x_row + kk, None]
+            out[:, rows] = acc
+    return out.reshape(batch, n_rb * bm, n)
+
+
+def bsr_from_dense(w, bm: int, bk: int):
+    """Host-side converter: dense [M, K] -> padded BSR, dropping all-zero
+    blocks. Returns (block_idx, block_nnz, blocks) as numpy arrays."""
+    w = np.asarray(w)
+    m, k = w.shape
+    if m % bm or k % bk:
+        raise ValueError(f"a {w.shape} weight does not split into {bm}x{bk} "
+                         "blocks")
+    n_rb, n_cb = m // bm, k // bk
+    tiles = w.reshape(n_rb, bm, n_cb, bk).transpose(0, 2, 1, 3)
+    keep = np.abs(tiles).max(axis=(2, 3)) > 0.0             # [n_rb, n_cb]
+    max_nb = max(int(keep.sum(1).max()), 1)
+    block_idx = np.zeros((n_rb, max_nb), np.int32)
+    block_nnz = keep.sum(1).astype(np.int32)
+    blocks = np.zeros((n_rb, max_nb, bm, bk), w.dtype)
+    for i in range(n_rb):
+        cols = np.nonzero(keep[i])[0]
+        block_idx[i, : len(cols)] = cols
+        blocks[i, : len(cols)] = tiles[i, cols]
+    return block_idx, block_nnz, blocks

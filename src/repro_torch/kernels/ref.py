@@ -1,11 +1,12 @@
 """Plain-torch oracles for the kernels (tests use them; the main path never
 does).
 
-All kernels operate on *padded-column* operands (rectangular views of CSC
+The SpGEMM kernels operate on *padded-column* operands (rectangular views of CSC
 from ``sparse.csc_to_padded_columns``): ``rows [n_cols, Z]``,
 ``vals [n_cols, Z]``, ``nnz [n_cols]``, padding slots masked by
 ``z >= nnz[col]``.  These are the JAX package's ``kernels/ref.py`` in torch,
 including what ``spars_ref`` leaves out (see ``kernels.spars``).
+:func:`bsr_spmm_ref` is the BSR kernel's einsum oracle.
 """
 
 from __future__ import annotations
@@ -58,3 +59,23 @@ def hash_tables_to_dense(table_keys, table_vals, m: int) -> torch.Tensor:
     out = torch.zeros((m, lanes), dtype=table_vals.dtype,
                       device=table_vals.device)
     return out.index_put_((rows, cols), vals, accumulate=True)
+
+
+def bsr_spmm_ref(block_idx, block_nnz, blocks, x) -> torch.Tensor:
+    """Block-sparse (padded BSR) @ dense.
+
+    block_idx [n_rb, max_nb] : block-column index of each stored block
+    block_nnz [n_rb]         : valid blocks per block-row
+    blocks [n_rb, max_nb, bm, bk]
+    x [K, N] with K = n_cb * bk
+    returns [n_rb * bm, N]
+    """
+    n_rb, max_nb, bm, bk = blocks.shape
+    k_dim, n = x.shape
+    xb = x.reshape(k_dim // bk, bk, n)
+    gathered = xb[block_idx.long()]     # [n_rb, max_nb, bk, N]
+    mask = (torch.arange(max_nb, device=x.device)[None, :]
+            < block_nnz[:, None])
+    prod = torch.einsum("rnik,rnkj->rij", blocks * mask[..., None, None],
+                        gathered)
+    return prod.reshape(n_rb * bm, n)

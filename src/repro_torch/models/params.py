@@ -1,0 +1,74 @@
+"""Declarative parameters: one table drives init and shapes.
+
+A *table* is a nested dict whose leaves are ``Leaf(shape, axes, init)``:
+  shape : tuple of ints
+  axes  : tuple of logical axis names (len == len(shape)); None = replicated
+  init  : "normal:<std>" | "zeros" | "ones" | "fan_in"
+
+The port of the JAX package's ``repro/models/params.py`` as far as one FFN
+needs it: :func:`init_params` draws every leaf from one explicit
+``torch.Generator``.  The sharding half (``partition_specs``,
+``stack_tables``) and the SSM inits wait for the slices that use them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    shape: tuple
+    axes: tuple
+    init: str = "fan_in"
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
+                             "in length")
+
+
+def _init_leaf(leaf: Leaf, generator, device):
+    shape, kind = leaf.shape, leaf.init
+    if kind == "zeros":
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    if kind == "ones":
+        return torch.ones(shape, dtype=torch.float32, device=device)
+    if kind.startswith("normal:"):
+        std = float(kind.split(":")[1])
+    elif kind == "fan_in":
+        std = 1.0 / math.sqrt(max(shape[0], 1))
+    else:
+        raise ValueError(kind)
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device) * std
+
+
+def init_params(table, generator: torch.Generator, device=None):
+    """The table's tensors, f32, on ``device`` (default the card).
+
+    Leaves are drawn in sorted-key order (the order ``jax.tree_util``
+    flattens a dict), one after another from ``generator``, which must lie
+    on ``device``.  The numbers differ from the JAX package's for the same
+    seed: tests carry weights across as numpy arrays instead.
+    """
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, Leaf):
+            return _init_leaf(node, generator, dev)
+        return {k: walk(node[k]) for k in sorted(node)}
+
+    return walk(table)
+
+
+def linear(d_in, d_out, ax_in, ax_out, *, bias=False, init="fan_in"):
+    t = {"w": Leaf((d_in, d_out), (ax_in, ax_out), init)}
+    if bias:
+        t["b"] = Leaf((d_out,), (ax_out,), "zeros")
+    return t

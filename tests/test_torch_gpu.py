@@ -3,7 +3,9 @@ the same CUDA tensors, and spgemm() on the card against spgemm() on the
 CPU, on the per-group path and on the fused path (K1, forward and
 backward); the batched kernels K1-b … K4-b against their plain versions
 and, slice by slice, against the unbatched kernels, and the batched
-executes' host waits.  Every test needs a card (marker ``gpu``) and skips
+executes' host waits; K5 and K5-b (the BSR kernel) against their plain
+versions and each other, and the sparse FFN on the card against the same
+FFN on the CPU.  Every test needs a card (marker ``gpu``) and skips
 without one.
 
 On the card these run without the JAX-importing conftest, which that
@@ -340,3 +342,89 @@ def test_batched_execute_waits_once_or_never(cuda, engine):
             assert np.array_equal(_np(getattr(c, f)), _np(getattr(want, f)))
             assert np.array_equal(_np(getattr(c, f)),
                                   _np(getattr(on_cpu[b], f)))
+
+
+def _bsr_operands(dev, bm=8, bk=8, seed=12):
+    """A [24 bm, 40 bk] weight pruned to about a third of its blocks (some
+    block-rows empty, so max_nb pads the rest) and x [B = 3, 40 bk, 256]."""
+    from repro_torch.models import prune_blocks
+
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=(24 * bm, 40 * bk)).astype(np.float32)
+    w[2 * bm: 4 * bm] *= 1e-3
+    w, _ = prune_blocks(w, bm, bk, 0.3)
+    ops = tuple(torch.from_numpy(a).to(dev)
+                for a in kernels.bsr_from_dense(w, bm, bk))
+    xs = torch.from_numpy(rng.normal(size=(3, 40 * bk, 256)).astype(
+        np.float32)).to(dev)
+    return w, ops, xs
+
+
+@pytest.mark.parametrize("bm,bk", [(8, 8), (8, 16), (16, 16)])
+def test_bsr_kernel_equals_plain(cuda, bm, bk):
+    w, ops, xs = _bsr_operands(cuda, bm, bk)
+    assert not ops[1][2:4].any() and (ops[1] < ops[0].shape[1]).any()
+    before = kernels.bsr_spmm.n_launches
+    got = kernels.bsr_spmm(*ops, xs[0])
+    torch.cuda.synchronize()
+    assert kernels.bsr_spmm.n_launches == before + 1
+    assert got.shape == (w.shape[0], 256)
+    assert torch.equal(got, kernels.bsr_spmm_plain(*ops, xs[0]))
+    want = torch.from_numpy(w).double() @ xs[0].cpu().double()
+    assert float((got.cpu().double() - want).norm() / want.norm()) <= 1e-5
+
+
+@pytest.mark.parametrize("bm,bk", [(8, 8), (16, 16)])
+def test_bsr_batched_kernel_equals_plain_and_slices(cuda, bm, bk):
+    _, ops, xs = _bsr_operands(cuda, bm, bk, seed=13)
+    before = kernels.bsr_spmm_batched.n_launches
+    got = kernels.bsr_spmm_batched(*ops, xs)
+    torch.cuda.synchronize()
+    assert kernels.bsr_spmm_batched.n_launches == before + 1
+    assert torch.equal(got, kernels.bsr_spmm_batched_plain(*ops, xs))
+    for b in range(xs.shape[0]):
+        assert torch.equal(got[b], kernels.bsr_spmm(*ops, xs[b]))
+
+
+def test_bsr_wrapper_rejects_bad_cuda_operands(cuda):
+    _, (bi, bnnz, blocks), xs = _bsr_operands(cuda)
+    x = xs[0]
+    for args, kw in (((bi, bnnz, blocks, x.double()), {}),
+                     ((bi.long(), bnnz, blocks, x), {}),
+                     ((bi, bnnz, blocks, x.cpu()), {}),
+                     ((bi, bnnz, blocks, x[:, ::2]), {}),
+                     ((bi, bnnz, blocks, x), {"bn": 96}),
+                     ((bi, bnnz, blocks, x.cpu()), {"device": "cuda"})):
+        with pytest.raises((TypeError, ValueError)):
+            kernels.bsr_spmm(*args, **kw)
+    with pytest.raises(ValueError):
+        kernels.bsr_spmm(bi.cpu(), bnnz.cpu(), blocks.cpu(), x.cpu(),
+                         device="cuda")
+
+
+@pytest.mark.parametrize("keep", [0.9, 0.25])
+def test_sparse_ffn_on_card_equals_cpu(cuda, keep):
+    """smoke(granite-20b) widths: the FFN on the card (K5 / K5-b, or the
+    dense matmul) equals the same FFN on the CPU within 1e-5 (the dense
+    path's matmul sums in another order on the card)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import SparseFFN, ffn_table, init_params, smoke
+
+    cfg = smoke(ARCHS["granite-20b"])
+    p = init_params(ffn_table(cfg), torch.Generator().manual_seed(14),
+                    device="cpu")
+    x = torch.randn((3, 16, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(15))
+    on_cpu = SparseFFN.from_params(p, keep_density=keep, device="cpu")
+    on_card = SparseFFN.from_params(p, keep_density=keep, device=cuda)
+    path = on_card.gate.path
+    assert path == ("dense" if keep > 0.75 else "bsr")
+    kernels.reset_launch_counts()
+    got3 = on_card(x.to(cuda))
+    got2 = on_card(x[0].to(cuda))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["bsr_spmm_batched"] == counts["bsr_spmm"] == (
+        3 if path == "bsr" else 0)
+    for got, want in ((got3, on_cpu(x)), (got2, on_cpu(x[0]))):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)

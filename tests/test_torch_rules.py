@@ -42,7 +42,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
-            "repro_torch.convert, repro_torch.sparse\n"
+            "repro_torch.convert, repro_torch.sparse, repro_torch.models, "
+            "repro_torch.configs\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
@@ -82,7 +83,8 @@ def test_spgemm_batched_without_device_needs_a_card():
 
 @pytest.mark.parametrize("kernel", ["spa", "spars", "hash", "fused",
                                     "spa_batched", "spars_batched",
-                                    "hash_batched", "fused_batched"])
+                                    "hash_batched", "fused_batched", "bsr",
+                                    "bsr_batched"])
 def test_cpu_tensor_with_cuda_device_raises(kernel):
     """A kernel entry asked to run on the card never runs a CPU tensor
     through the plain version instead."""
@@ -96,11 +98,16 @@ def test_cpu_tensor_with_cuda_device_raises(kernel):
         v = v[None]
     name = kernel.split("_")[0]
     fn = getattr(kernels, ("fused_stream" if name == "fused"
+                           else "bsr_spmm" if name == "bsr"
                            else f"{name}_spgemm")
                  + ("_batched" if kernel.endswith("_batched") else ""))
     with pytest.raises(ValueError, match="device"):
         if name == "spa":
             fn(z, v, n, z, v, n, m=16, block_cols=16, device="cuda")
+        elif name == "bsr":
+            blocks = torch.zeros((16, 2, 8, 8))
+            fn(z, n, blocks, torch.zeros(v.shape[:-1] + (8,)), bn=8,
+               device="cuda")
         elif name == "fused":
             x = v[..., 0].contiguous()
             fn(n, n, n[:2], x, x, device="cuda")
@@ -112,12 +119,13 @@ def test_cpu_tensor_with_cuda_device_raises(kernel):
 
 
 def test_no_fallback_in_wrappers():
-    """No wrapper catches its kernel's failure: the kernel modules and the
-    fused engine hold no ``try`` at all, and chip_smoke.py catches no phase
-    failure."""
+    """No wrapper catches its kernel's failure: the kernel modules, the
+    fused engine and the sparse FFN hold no ``try`` at all, and
+    chip_smoke.py catches no phase failure."""
     for f in ("kernels/spa.py", "kernels/spars.py", "kernels/hash_spgemm.py",
-              "kernels/fused_stream.py", "kernels/ops.py",
-              "core/fused_stream.py"):
+              "kernels/fused_stream.py", "kernels/bsr_spmm.py",
+              "kernels/ops.py", "core/fused_stream.py",
+              "models/sparse_ffn.py"):
         tree = ast.parse(open(os.path.join(PORT, f)).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), f
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
