@@ -11,8 +11,12 @@ with integer values, already on the card.  Per matrix one JSON line gives the
 quartiles of ``plan.execute`` (host clock, ending in a synchronize), the
 device time per execute from ``torch.profiler``, the device's idle share
 (1 - device time / median execute time; the profiled executes themselves
-run slower) and the ops with the most self device time and self host
-time.
+run slower), the ops with the most self device time and self host time,
+and per kernel kind (spa, spars, hash) the device time of the plan's groups'
+kernels summed over one execute, by CUDA events (mean of ``--reps``
+launches of each group, output allocation included, queued behind a
+device-side wait so that the host's launch overhead does not count), which
+holds where the profiler drops kernel records.
 """
 
 from __future__ import annotations
@@ -27,6 +31,40 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def group_kernel_ms(plan, a, reps: int) -> dict:
+    """Per kernel kind, the summed device time of one launch of each of the
+    plan's groups on A's values, as the executor feeds them."""
+    import torch
+    from repro_torch.core.planner import BLOCK_COLS
+    from repro_torch.kernels import ops
+    from repro_torch.sparse.format import padded_values
+
+    lay = plan.layout
+    vals = a.values.to(plan.device, torch.float32)
+    a_arrs = (lay.a_rows, padded_values(vals, lay.a_gather, lay.a_mask),
+              lay.a_nnz)
+    out: dict = {}
+    for g in lay.groups:
+        b_vals = padded_values(vals, g.b_vgather, g.b_vmask)
+        run = getattr(ops, f"run_{g.kind}")
+
+        def launch():
+            run(g, a_arrs, b_vals, m=plan.shape[0], block_cols=BLOCK_COLS)
+
+        launch()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(5_000_000)   # ~2.5 ms: the loop queues behind it
+        start.record()
+        for _ in range(reps):
+            launch()
+        stop.record()
+        torch.cuda.synchronize()
+        out[g.kind] = out.get(g.kind, 0.0) + start.elapsed_time(stop) / reps
+    return out
 
 
 def main(argv=None) -> int:
@@ -86,6 +124,7 @@ def main(argv=None) -> int:
         top_dev = sorted(events, key=device_us, reverse=True)[:10]
         top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
                          reverse=True)[:10]
+        kernel_ms = group_kernel_ms(plan, a, args.reps)
         q = statistics.quantiles(samples, n=4)
         print(json.dumps({
             "label": args.label, "matrix": name, "method": args.method,
@@ -93,6 +132,7 @@ def main(argv=None) -> int:
             "execute_ms": {"q1": q[0], "median": q[1], "q3": q[2]},
             "device_ms": device_ms,
             "device_idle_share": max(0.0, 1 - device_ms / q[1]),
+            "kernel_ms": kernel_ms,
             "top_device_ms": [(e.key[:60], device_us(e) / 1e3 / n_prof)
                               for e in top_dev],
             "top_host_ms": [(e.key[:60], e.self_cpu_time_total / 1e3 / n_prof)

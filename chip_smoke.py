@@ -10,9 +10,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. Kernel phase: K2 SPA, K3 SPARS and K4 HASH each against its plain
    PyTorch version on the same CUDA tensors — the first and last group of
    each kind in the main path's plans, on the integer values and on
-   real-valued (normal) values of the same patterns, plus edge cases —
-   exactly equal; K1 (the fused stream replay) likewise on the forward and
-   both gradient views of every matrix's product stream, plus edge cases.
+   real-valued (normal) values of the same patterns, plus edge cases, and
+   K2's own edge cases (a B column of 3000 entries, an A column of 2500
+   named by every B column, m off and past the slice height, unsorted A
+   rows, empty columns, one CTA's worth of columns) — exactly equal; K1
+   (the fused stream replay) likewise on the forward and both gradient
+   views of every matrix's product stream, plus edge cases.
 3. Main path: C = A·A through ``repro_torch.core.spgemm`` for eleven of the
    paper's Table-1 matrices (synthesized from their published statistics,
    integer values in {1, 2, 3} from ``--seed``) under the default method and
@@ -28,10 +31,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. Batched kernels: K1-b … K4-b (one launch for B value sets, the batch a
    second grid axis) each against its batched plain version at B = 2 (an
    integer and a normal value set) on the first group of each kind of
-   every matrix's plans and on every forward view; and, at B = 8, each
-   batched launch's slice b against the unbatched kernel on value set b,
-   bit for bit, on every group of the default method and of
-   ``spars-16/64`` and on every forward view.
+   every matrix's plans and on every forward view, and K2-b at B = 3 on
+   K2's edge cases; and, at B = 8, each batched launch's slice b against
+   the unbatched kernel on value set b, bit for bit, on every group of the
+   default method and of ``spars-16/64``, on every forward view and on
+   K2's edge cases.
 7. Batched path: ``spgemm_batched(A, B)`` for the eleven matrices with
    B = 8 integer value sets per operand (the JAX package's batched
    benchmark setting), A's and B's drawn apart, under the five methods and
@@ -49,7 +53,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    looped one, both engines, with the batched execute's device time and
    idle share; per kernel, its time, its plain version's, its bound and a
    library call's, at its largest main-path group or view (the batched
-   kernels at B = 8).
+   kernels at B = 8), K2 and K2-b also against their plain versions there
+   on real values.  Device times are CUDA events around a loop queued
+   behind a device-side wait (``event_ms``); K2's and K2-b's rows add
+   their and their library call's host-paced times.
 9. Sparse FFN set-up: granite-20b's FFN at full width (d_model 6144, d_ff
    24576), weights from ``--seed`` through the port's ``init_params``,
    converted by ``SparseFFN.from_params`` at keep_density 0.9 (the dense
@@ -289,6 +296,64 @@ def edge_operands(dev):
     return out
 
 
+# K2's own edge cases (slices of 512 rows, CTAs of 8 columns), as (m, A
+# column lengths, B column lengths, shape): "arrow": every short A column
+# holds row m - 1, "hub": every B column names A column 0
+SPA_CASES = {
+    # iprob's shape: one B column of 3000 entries over A columns of 3 rows,
+    # each holding the arrow row m - 1
+    "long_b_column": (3001, [3] * 3000 + [3000], [3000] + [4] * 127, "arrow"),
+    # one A column of 2500 entries named by every B column
+    "long_a_column": (2600, [2500] + [3] * 399, [20] * 64, "hub"),
+    "m_not_a_multiple_of_the_slice": (1000, [30] * 300, [40] * 32, None),
+    "m_below_one_slice": (5, [3] * 20, [10] * 16, None),
+    "m_past_four_slices": (2300, [400] * 100, [60] * 16, None),
+    "empty_a_and_b_columns": (300, [0, 5, 0, 0, 17, 0] * 10,
+                              [0, 3, 0, 12, 0, 0, 60, 0], None),
+    "one_cta_of_columns_and_padding": (400, [60] * 200,
+                                       [150, 7, 0, 90] + [0] * 4, None),
+}
+
+
+def spa_edge_operands(dev, batch=None):
+    """Per K2 edge case and value kind ("int": values in {1, 2, 3}, "real":
+    standard normal), padded operands with A's rows unsorted and padding
+    slots holding rows and values that must never be read; ``batch`` value
+    sets of one pattern when given."""
+    import torch
+
+    out = {}
+    for name, (m, a_lens, b_lens, shape) in SPA_CASES.items():
+        for kind in ("int", "real"):
+            rng = np.random.default_rng(len(name))
+            n_a, n_b = len(a_lens), len(b_lens)
+            za, zb = max(a_lens), max(b_lens)
+            lead = () if batch is None else (batch,)
+
+            def vals(dims):
+                if kind == "int":
+                    return rng.integers(1, 4, dims).astype(np.float32)
+                return rng.standard_normal(dims).astype(np.float32)
+
+            a_rows = rng.integers(0, m, (n_a, za)).astype(np.int32)
+            for k, n in enumerate(a_lens):
+                a_rows[k, :n] = rng.choice(m, n, replace=False)
+                if shape == "arrow" and 0 < n < za \
+                        and m - 1 not in a_rows[k, :n]:
+                    a_rows[k, rng.integers(n)] = m - 1
+            b_rows = rng.integers(0, n_a, (n_b, zb)).astype(np.int32)
+            for c, n in enumerate(b_lens):
+                b_rows[c, :n] = np.sort(rng.choice(n_a, n, replace=False))
+                if shape == "hub" and n and 0 not in b_rows[c, :n]:
+                    b_rows[c, :n] = np.sort(np.r_[0, b_rows[c, 1:n]])
+            ops = (a_rows, vals(lead + (n_a, za)), np.array(a_lens, np.int32),
+                   b_rows, vals(lead + (n_b, zb)), np.array(b_lens, np.int32))
+            out[f"{name} {kind}"] = dict(
+                ab=tuple(torch.from_numpy(x).to(dev) for x in ops), m=m,
+                block=n_b)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -386,6 +451,9 @@ def kernel_phase(plans, mats, dev, seed):
         for kind in GROUP_KERNELS:
             errs[kind] = max(errs[kind], compare(kind, op, name))
             checked[kind] += 1
+    for name, op in spa_edge_operands(dev).items():
+        errs["spa"] = max(errs["spa"], compare("spa", op, name))
+        checked["spa"] += 1
     for kind in GROUP_KERNELS:
         check(checked[kind] > 0, f"{kind}: no group compared")
         print(f"kernel {KERNELS[kind]['name']}: {checked[kind]} comparisons "
@@ -499,6 +567,11 @@ def batched_kernel_phase(plans, fplans, mats, stacks, dev, seed):
                   f"fused_stream_batched {name}: slice {b} != K1 on value "
                   f"set {b}")
         sliced["fused"] += 1
+    for name, op in spa_edge_operands(dev, batch=3).items():
+        errs["spa"] = max(errs["spa"], compare("spa", op, f"{name}, B = 3"))
+        checked["spa"] += 1
+        compare_slices("spa", op, name)
+        sliced["spa"] += 1
     for kind in errs:
         name = KERNELS[kind + "_b"]["name"]
         check(checked[kind] > 0 and sliced[kind] > 0,
@@ -506,7 +579,8 @@ def batched_kernel_phase(plans, fplans, mats, stacks, dev, seed):
         print(f"kernel {name}: {checked[kind]} comparisons with the batched "
               f"plain version at B = 2, max |diff| {errs[kind]}; "
               f"{sliced[kind]} launches at B = {BATCH} equal the unbatched "
-              "kernel slice by slice", flush=True)
+              "kernel slice by slice (K2-b's edge cases at B = 3 in both)",
+              flush=True)
     return errs
 
 
@@ -910,12 +984,21 @@ def check_batched_path(results, launches, stacks, fplans, dev):
 # ---------------------------------------------------------------------------
 
 
-def event_ms(fn, reps: int, warmup: int = 1,
-             per_call: bool = False) -> float:
+# about 2.5 ms on the card: time for the host to queue a timed loop
+QUEUE_CYCLES = 5_000_000
+
+
+def event_ms(fn, reps: int, warmup: int = 1, per_call: bool = False,
+             queued: bool = True) -> float:
     """Mean device time of ``fn`` per call, by CUDA events around a loop of
-    ``reps`` calls; with ``per_call``, the median over ``reps`` calls of the
-    time from an event just before one call to one just after it (the
-    card's busy time plus any gap between the call's kernels)."""
+    ``reps`` calls.  ``queued``: the loop is queued behind a device-side
+    wait (``torch.cuda._sleep``), so the card runs the calls back to back
+    and a call shorter than its host-side launch (a Python wrapper's checks
+    take tens of microseconds) is timed by the card, not by the host's pace;
+    not ``queued``, the host's pace counts as well.  With ``per_call``, the
+    median over ``reps`` calls of the time from an event just before one
+    call to one just after it (the card's busy time plus any gap between
+    the call's kernels)."""
     import torch
 
     for _ in range(warmup):
@@ -933,6 +1016,9 @@ def event_ms(fn, reps: int, warmup: int = 1,
         return statistics.median(samples)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -1027,7 +1113,7 @@ def spa_library_operands(op):
     return a_csr, b_dense
 
 
-def library_ms(kind, op, reps):
+def library_ms(kind, op, reps, queued=True):
     """One PyTorch call computing the kernel's function: for SPA, the sparse
     A times the group's dense B columns; none computes SPARS's flags or
     HASH's tables.  For a batched launch, that call once per value set."""
@@ -1045,7 +1131,8 @@ def library_ms(kind, op, reps):
     for b, (a_csr, b_dense) in enumerate(pairs):
         check(torch.allclose(torch.sparse.mm(a_csr, b_dense), want[b]),
               "library SPA call disagrees")
-    return event_ms(lambda: [torch.sparse.mm(*p) for p in pairs], reps)
+    return event_ms(lambda: [torch.sparse.mm(*p) for p in pairs], reps,
+                    queued=queued)
 
 
 def execute_ms(fn, reps):
@@ -1266,7 +1353,21 @@ def batched_timing_phase(stacks, fplans, dev, reps, syncs):
         print(json.dumps(line), flush=True)
 
 
-def kernel_report(biggest, counts, errs, reps):
+def host_paced(kind, op, reps) -> dict:
+    """K2's and K2-b's time and their library call's with the host's pace
+    counted as well (``event_ms(queued=False)``), as this script timed every
+    kernel before it queued its loops."""
+    if kind != "spa":
+        return {}
+    return dict(ms_host_paced=event_ms(lambda: run_kernel(kind, op), reps,
+                                       queued=False),
+                library_ms_host_paced=library_ms(kind, op, reps,
+                                                 queued=False))
+
+
+def kernel_report(biggest, plans, mats, counts, errs, seed, reps):
+    """The rows of K2-K4, each timed at its largest main-path group; K2 also
+    held against its plain version there on real values."""
     import torch
 
     rows = []
@@ -1274,13 +1375,21 @@ def kernel_report(biggest, counts, errs, reps):
         info = KERNELS[kind]
         check(kind in biggest, f"{kind}: no main-path group to time")
         products, nbytes, name, method, g, op = biggest[kind]
+        err = errs[kind]
+        if kind == "spa":
+            (_, real_op), = group_operands(
+                plans[name, method], real_valued(mats[name], seed), [g])
+            err = max(err, compare(kind, real_op, f"{name} "
+                                   f"{method_name(method)} timed group, "
+                                   "real values"))
         ms = event_ms(lambda: run_kernel(kind, op), reps)
         plain = event_ms(lambda: run_plain(kind, op), reps=2)
         b_ms, by = bound_ms(products, nbytes)
         rows.append(dict(
-            info, launches=counts[info["name"]], max_abs_err=errs[kind],
+            info, launches=counts[info["name"]], max_abs_err=err,
             ms=ms, plain_ms=plain, bound_ms=b_ms,
             bound_by=by, library_ms=library_ms(kind, op, reps),
+            **host_paced(kind, op, reps),
             at=dict(matrix=name, method=method_name(method),
                     cols=len(g.cols), products=products, bytes=nbytes,
                     h=g.h)))
@@ -1315,11 +1424,12 @@ def k1_report(biggest, launches, err, libs, reps):
 
 
 def batched_kernel_report(biggest, k1_biggest, plans, stacks, counts, errs,
-                          dev, reps):
+                          dev, seed, reps):
     """The rows of K1-b … K4-b: each timed at B = BATCH on its unbatched
     kernel's largest main-path group or view, with that matrix's value
     stacks; the plain versions once (at iprob they take seconds); the
-    library call is the unbatched row's, once per value set."""
+    library call is the unbatched row's, once per value set.  K2-b is also
+    held against its plain version there on B = BATCH real value sets."""
     import torch
     from repro_torch import kernels
 
@@ -1330,14 +1440,25 @@ def batched_kernel_report(biggest, k1_biggest, plans, stacks, counts, errs,
         sa, sb = stacks[name]
         (_, op), = batched_group_operands(plans[name, method], sa.values,
                                           sb.values, [g])
+        err = errs[kind]
+        if kind == "spa":
+            rng = np.random.default_rng([seed, 2])
+            ra, rb = (torch.from_numpy(rng.standard_normal(
+                tuple(s.values.shape)).astype(np.float32)) for s in (sa, sb))
+            (_, real_op), = batched_group_operands(plans[name, method], ra,
+                                                   rb, [g])
+            err = max(err, compare(kind, real_op, f"{name} "
+                                   f"{method_name(method)} timed group, "
+                                   f"B = {BATCH} real value sets"))
         ms = event_ms(lambda: run_kernel(kind, op), reps)
         plain = event_ms(lambda: run_plain(kind, op), reps=1, warmup=0)
         products, nbytes = group_work(kind, op)
         b_ms, by = bound_ms(products, nbytes)
         rows.append(dict(
-            info, launches=counts[info["name"]], max_abs_err=errs[kind],
+            info, launches=counts[info["name"]], max_abs_err=err,
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
             library_ms=library_ms(kind, op, reps),
+            **host_paced(kind, op, reps),
             at=dict(matrix=name, method=method_name(method), batch=BATCH,
                     cols=len(g.cols), products=products, bytes=nbytes,
                     h=g.h)))
@@ -1876,9 +1997,10 @@ def main(argv=None) -> int:
     timed(batched_timing_phase, stacks, fplans, dev, args.reps, b_syncs)
     rows = [timed(k1_report, k1_biggest, fused_counts["fused_stream"],
                   k1_err, libs, args.reps)]
-    rows += timed(kernel_report, biggest, counts, errs, args.reps)
+    rows += timed(kernel_report, biggest, plans, mats, counts, errs,
+                  args.seed, args.reps)
     rows += timed(batched_kernel_report, biggest, k1_biggest, plans, stacks,
-                  b_counts, b_errs, dev, args.reps)
+                  b_counts, b_errs, dev, args.seed, args.reps)
 
     # the FFN phases hold granite-20b's FFN at full width: the earlier
     # phases' plans and operands go first

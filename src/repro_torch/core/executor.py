@@ -18,8 +18,13 @@ the stream fixes the result's nnz at plan time.
 :func:`execute_batched` runs B same-pattern value sets through one
 execution: every group launches once for all B (the batched kernels K2-b …
 K4-b) and one host wait reads all B nnz; under ``"fused"`` one K1-b launch
-and no wait.  Launch counts do not depend on B, and each result is
-bit-identical to a looped :func:`execute`.
+and no wait.  Launch counts do not depend on B up to ``MAX_BATCH`` value
+sets; a larger batch runs as consecutive executions of at most that many
+(the batch is a grid axis of every kernel).  Each result is bit-identical
+to a looped :func:`execute`.
+
+An A with no rows makes C an empty ``0 x n`` CSC: every execution of such a
+plan returns it without a launch.
 """
 
 from __future__ import annotations
@@ -107,17 +112,23 @@ def _execute_groups(plan: SpgemmPlan, a_values, b_values, *,
 
 def _execute_groups_batched(plan: SpgemmPlan, a_values, b_values, *,
                             stats: dict | None = None) -> list:
+    from repro_torch.kernels._checks import batch_chunks
+
     av = plan.a.batched_values(a_values)
     bv = plan.b.batched_values(b_values)
     batch = _check_batch(av, bv)
     dev = plan.device
-    out = _run_groups(plan, av.to(device=dev, dtype=torch.float32),
-                      bv.to(device=dev, dtype=torch.float32),
-                      BatchedCSCBuilder(batch, plan.shape,
-                                        plan.layout.c_slots),
-                      batched=True, stats=stats)
+    parts = batch_chunks(av.to(device=dev, dtype=torch.float32),
+                         bv.to(device=dev, dtype=torch.float32))
+    out = []
+    for a_part, b_part in parts:
+        out += _run_groups(plan, a_part, b_part,
+                           BatchedCSCBuilder(len(a_part), plan.shape,
+                                             plan.layout.c_slots),
+                           batched=True, stats=stats)
     if stats is not None:
         stats["batch"] = batch
+        stats["n_launches"] *= len(parts)
     return out
 
 
@@ -125,17 +136,21 @@ def _run_groups(plan: SpgemmPlan, av, bv, builder, *, batched: bool,
                 stats: dict | None):
     """Gather, launch and compact every group of the plan: one kernel
     launch per group, for one value set (``av``/``bv`` f32 ``[nnz]``) or
-    for B (``[B, nnz]``, the batched kernels)."""
+    for B (``[B, nnz]``, the batched kernels).  With ``m == 0`` C has no
+    cells: no group launches (K3 would step on an empty A column's padding
+    row 0) and the builder gives the empty ``0 x n`` result."""
     from repro_torch.kernels import ops as kops  # kernels import core
 
     lay = plan.layout
     m = plan.shape[0]
+    groups = lay.groups if m else ()
     pad = padded_values_batched if batched else padded_values
     run = {"spa": kops.run_spa_batched if batched else kops.run_spa,
            "spars": kops.run_spars_batched if batched else kops.run_spars,
            "hash": kops.run_hash_batched if batched else kops.run_hash}
-    a_arrs = (lay.a_rows, pad(av, lay.a_gather, lay.a_mask), lay.a_nnz)
-    for g in lay.groups:
+    if groups:
+        a_arrs = (lay.a_rows, pad(av, lay.a_gather, lay.a_mask), lay.a_nnz)
+    for g in groups:
         out = run[g.kind](g, a_arrs, pad(bv, g.b_vgather, g.b_vmask), m=m,
                           block_cols=BLOCK_COLS)
         if g.kind == "hash":
@@ -147,6 +162,6 @@ def _run_groups(plan: SpgemmPlan, av, bv, builder, *, batched: bool,
         stats["engine"] = "naive"
         stats["tile_shapes"] = list(builder.tile_shapes)
         stats["peak_tile_elems"] = builder.peak_tile_elems
-        stats["n_launches"] = len(lay.groups)   # independent of the batch
+        stats["n_launches"] = len(groups)   # independent of the batch
         stats["result_shape"] = plan.shape
     return c

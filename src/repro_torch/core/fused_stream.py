@@ -259,7 +259,8 @@ def execute_fused(plan, a_values, b_values, *,
 
 def execute_fused_batched(plan, a_values, b_values, *,
                           stats: dict | None = None) -> list:
-    """Batched numeric phase through K1-b: B value sets, one launch.
+    """Batched numeric phase through K1-b: B value sets, one launch (past
+    ``MAX_BATCH`` value sets, one launch for each ``MAX_BATCH``).
 
     ``a_values``/``b_values`` are :class:`~repro_torch.sparse.format.
     BatchedCSC` operands or raw ``[B, nnz]`` stacks.  Returns B CSCs whose
@@ -269,20 +270,23 @@ def execute_fused_batched(plan, a_values, b_values, *,
     built once for the whole call.
     """
     from repro_torch.kernels import fused_stream_batched
+    from repro_torch.kernels._checks import batch_chunks
 
     av = plan.a.batched_values(a_values)
     bv = plan.b.batched_values(b_values)
     batch = _check_batch(av, bv)
     dev = plan.device
     view, c_rows, c_col_ptr, cached = _forward_of(plan)
+    parts = batch_chunks(_stack(av, dev), _stack(bv, dev))
     with torch.no_grad():
-        vals = fused_stream_batched(view.idx_x, view.idx_y, view.seg_ptr,
-                                    _stack(av, dev), _stack(bv, dev))
+        vals = [fused_stream_batched(view.idx_x, view.idx_y, view.seg_ptr,
+                                     x, y) for x, y in parts]
     _fused_stats(stats, plan, view, cached)
     if stats is not None:
         stats["batch"] = batch
-    return [CSC(vals[b], c_rows, c_col_ptr, plan.shape)
-            for b in range(batch)]
+        stats["n_launches"] *= len(parts)
+    return [CSC(v, c_rows, c_col_ptr, plan.shape) for part in vals
+            for v in part]
 
 
 def _stack(v, dev) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``) and their wrappers.
 
 - fused_stream.py K1 fused product-stream replay: one thread per output slot
-- spa.py          K2 SPA SpGEMM: one warp per C column
+- spa.py          K2 SPA SpGEMM: a CTA per 8 C columns x 512 rows
 - spars.py        K3 SPARS lock-step SpGEMM: one thread per lane
 - hash_spgemm.py  K4 HASH lock-step SpGEMM: one thread per lane and table
 - bsr_spmm.py     K5 padded-BSR x dense: one thread per output column of a

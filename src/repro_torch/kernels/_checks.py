@@ -39,9 +39,16 @@ def check_tensors(named: dict, is_value, device=None) -> torch.device:
     return dev
 
 
-#: the most value sets one launch takes: the batch is every kernel's
-#: second grid axis, and gridDim.y is at most 65535
+#: the most value sets one launch takes: the batch is a grid axis of every
+#: kernel (y, or z for K5-b), and each is at most 65535; the executors and
+#: ``SparseMatmul.batched`` split a larger batch (:func:`batch_chunks`)
 MAX_BATCH = 65535
+
+
+def batch_chunks(*stacks) -> list:
+    """The value stacks cut along their leading batch axis into parts of at
+    most ``MAX_BATCH`` value sets: a list of aligned tuples, one a launch."""
+    return list(zip(*(torch.split(s, MAX_BATCH) for s in stacks)))
 
 
 def check_batch(batch: int) -> None:

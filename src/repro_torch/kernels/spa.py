@@ -5,9 +5,9 @@ The counterpart of the JAX package's Pallas SPA kernel
 (``spa_spgemm_batched``): same padded-column operands, same dense
 ``[m, n_b]`` accumulator output (``[B, m, n_b]`` batched), same summation
 order within every output cell.  On a CUDA tensor the wrappers launch the
-hand-written kernel (one warp per C column, the batch a second grid axis)
-or raise; on a CPU tensor they run :func:`spa_spgemm_batched_plain`, the
-plain PyTorch version.
+hand-written kernel (a CTA per 8 C columns x 512 rows, every cell with
+one owner, the batch a second grid axis) or raise; on a CPU tensor they
+run :func:`spa_spgemm_batched_plain`, the plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -19,9 +19,10 @@ from repro_torch.kernels._checks import check_operands, stream_handle
 
 
 def _launch(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, m, batch, dev):
-    """One K2 launch over ``batch`` value sets; output [batch, m, n_b]."""
+    """One K2 launch over ``batch`` value sets; output [batch, m, n_b], every
+    cell written by the kernel."""
     n_b, zb = b_rows.shape
-    out = torch.zeros((batch, m, n_b), dtype=torch.float32, device=dev)
+    out = torch.empty((batch, m, n_b), dtype=torch.float32, device=dev)
     _build.launch(
         "repro_spa_launch", a_rows.data_ptr(), a_vals.data_ptr(),
         a_nnz.data_ptr(), *a_rows.shape, b_rows.data_ptr(),

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels._checks import batch_chunks
 from repro_torch.kernels.bsr_spmm import bsr_from_dense, bsr_spmm, \
     bsr_spmm_batched
 
@@ -123,13 +124,16 @@ class SparseMatmul:
         The weight pattern is static (pruned at conversion time), so a batch
         of activations is the same-pattern regime of batched SpGEMM: the BSR
         structure is shared and only the activations carry the batch axis,
-        one K5-b launch instead of B.
+        one K5-b launch instead of B (past ``MAX_BATCH`` activations, one
+        launch for each ``MAX_BATCH``).
         """
         if self.path == "dense":
             return _dense_matmul(self.dense_w, xs)   # broadcasts over B
         n = xs.shape[2]
-        return bsr_spmm_batched(self.block_idx, self.block_nnz, self.blocks,
-                                xs, bn=bn or min(128, n))
+        parts = [bsr_spmm_batched(self.block_idx, self.block_nnz,
+                                  self.blocks, x, bn=bn or min(128, n))
+                 for x, in batch_chunks(xs)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     @property
     def flops_per_col(self) -> int:

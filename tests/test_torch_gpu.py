@@ -76,6 +76,82 @@ def test_spa_kernel_equals_plain(cuda):
     assert torch.equal(got, want)
 
 
+# K2's edge cases (columns, slices of 512 rows, CTAs of 8 columns), as (m,
+# A column lengths, B column lengths, shape): A's rows are drawn without
+# order, the padding slots hold rows and values that must never be read;
+# "arrow": every short A column holds row m - 1, "hub": every B column
+# names A column 0
+SPA_CASES = {
+    # iprob's shape: one B column of 3000 entries over A columns of 3 rows,
+    # each holding the arrow row m - 1
+    "long_b_column": (3001, [3] * 3000 + [3000], [3000] + [4] * 127, "arrow"),
+    # one A column of 2500 entries named by every B column
+    "long_a_column": (2600, [2500] + [3] * 399, [20] * 64, "hub"),
+    "m_not_a_multiple_of_the_slice": (1000, [30] * 300, [40] * 32, None),
+    "m_below_one_slice": (5, [3] * 20, [10] * 16, None),
+    "m_past_four_slices": (2300, [400] * 100, [60] * 16, None),
+    "empty_a_and_b_columns": (300, [0, 5, 0, 0, 17, 0] * 10,
+                              [0, 3, 0, 12, 0, 0, 60, 0], None),
+    "one_cta_of_columns_and_padding": (400, [60] * 200,
+                                       [150, 7, 0, 90] + [0] * 4, None),
+}
+
+
+def _spa_operands(dev, case, integer, batch=None):
+    """Padded K2 operands of SPA_CASES[case]: A's rows unsorted, padding
+    slots filled with rows and values that are never read."""
+    m, a_lens, b_lens, shape = SPA_CASES[case]
+    rng = np.random.default_rng(len(case))
+    n_a, n_b = len(a_lens), len(b_lens)
+    za, zb = max(a_lens), max(b_lens)
+    lead = () if batch is None else (batch,)
+
+    def vals(dims):
+        if integer:
+            return rng.integers(1, 4, dims).astype(np.float32)
+        return rng.standard_normal(dims).astype(np.float32)
+
+    a_rows = rng.integers(0, m, (n_a, za)).astype(np.int32)
+    for k, n in enumerate(a_lens):
+        a_rows[k, :n] = rng.choice(m, n, replace=False)
+        if shape == "arrow" and 0 < n < za and m - 1 not in a_rows[k, :n]:
+            a_rows[k, rng.integers(n)] = m - 1
+    b_rows = rng.integers(0, n_a, (n_b, zb)).astype(np.int32)
+    for c, n in enumerate(b_lens):
+        b_rows[c, :n] = np.sort(rng.choice(n_a, n, replace=False))
+        if shape == "hub" and n and 0 not in b_rows[c, :n]:
+            b_rows[c, :n] = np.sort(np.r_[0, b_rows[c, 1:n]])
+    ops = (a_rows, vals(lead + (n_a, za)), np.array(a_lens, np.int32),
+           b_rows, vals(lead + (n_b, zb)), np.array(b_lens, np.int32))
+    return tuple(torch.from_numpy(x).to(dev) for x in ops), m
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case", sorted(SPA_CASES))
+def test_spa_kernel_edge_cases_equal_plain(cuda, case, integer):
+    ab, m = _spa_operands(cuda, case, integer)
+    before = kernels.spa_spgemm.n_launches
+    got = kernels.spa_spgemm(*ab, m=m, block_cols=ab[3].shape[0])
+    torch.cuda.synchronize()
+    assert kernels.spa_spgemm.n_launches == before + 1
+    assert torch.equal(got, kernels.spa_spgemm_plain(*ab, m=m))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case", sorted(SPA_CASES))
+def test_spa_batched_kernel_edge_cases_equal_plain_and_slices(cuda, case,
+                                                              integer):
+    ab, m = _spa_operands(cuda, case, integer, batch=3)
+    got = kernels.spa_spgemm_batched(*ab, m=m, block_cols=ab[3].shape[0])
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.spa_spgemm_batched_plain(*ab, m=m))
+    ar, av, an, br, bv, bn = ab
+    for b in range(3):
+        assert torch.equal(got[b], kernels.spa_spgemm(
+            ar, av[b].contiguous(), an, br, bv[b].contiguous(), bn, m=m,
+            block_cols=br.shape[0]))
+
+
 def test_spars_kernel_equals_plain(cuda):
     op = _operands(cuda)
     before = kernels.spars_spgemm.n_launches
@@ -127,6 +203,52 @@ def test_execute_waits_for_the_card_once(cuda, method):
     syncs = [w for w in caught
              if "called a synchronizing CUDA operation" in str(w.message)]
     assert len(syncs) == 1, [str(w.message) for w in syncs]
+
+
+@pytest.mark.parametrize("method", (None,) + METHODS)
+def test_zero_row_a_gives_the_empty_csc_on_card(cuda, method):
+    """C of a 0 x n A is the empty 0 x n CSC, with no launch: K3 would step
+    on the padding row of an empty A column."""
+    from repro_torch.sparse.format import csc_from_dense
+
+    b = np.zeros((6, 5), np.float32)
+    b[[0, 2, 5], 0] = (1.0, 2.0, 3.0)
+    b[:, 3] = np.arange(1.0, 7.0)
+    a, b = csc_from_dense(np.zeros((0, 6), np.float32)), csc_from_dense(b)
+    stacks = [BatchedCSC.from_values(m, torch.ones((2, m.nnz)))
+              for m in (a, b)]
+    kernels.reset_launch_counts()
+    got = [spgemm(a, b, method)]
+    got += spgemm_batched(*stacks, method)
+    torch.cuda.synchronize()
+    assert not any(kernels.launch_counts().values())
+    assert kernels.spars_spgemm.n_launches == 0
+    for c in got:
+        assert c.shape == (0, 5) and c.values.device.type == "cuda"
+        assert _np(c.col_ptr).tolist() == [0] * 6 and c.nnz == 0
+
+
+@pytest.mark.parametrize("engine", [None, "fused"])
+def test_a_batch_past_max_batch_on_card(cuda, engine):
+    """65,537 value sets: two launches per group (65,535 and 2), elements 0,
+    65,535 and 65,536 equal to single executes."""
+    from repro_torch.kernels._checks import MAX_BATCH
+
+    a = generate.random_powerlaw_csc(12, 3.0, seed=16)
+    batch = MAX_BATCH + 2
+    rng = np.random.default_rng(17)
+    a_vals, b_vals = (torch.from_numpy(rng.integers(
+        1, 4, (batch, a.nnz)).astype(np.float32)).to(cuda) for _ in range(2))
+    plan = plan_spgemm(a, a, "h-spa-16/64")
+    stats: dict = {}
+    got = plan.execute_batched(a_vals, b_vals, engine=engine, stats=stats)
+    one: dict = {}
+    plan.execute(a_vals[0], b_vals[0], engine=engine, stats=one)
+    assert len(got) == batch and stats["n_launches"] == 2 * one["n_launches"]
+    for b in (0, MAX_BATCH, MAX_BATCH + 1):
+        want = plan.execute(a_vals[b], b_vals[b], engine=engine)
+        for f in ("col_ptr", "row_indices", "values"):
+            assert torch.equal(getattr(got[b], f), getattr(want, f))
 
 
 def test_wrapper_rejects_bad_cuda_operands(cuda):
