@@ -10,10 +10,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. Kernel phase: K2 SPA, K3 SPARS and K4 HASH each against its plain
    PyTorch version on the same CUDA tensors — the first and last group of
    each kind in the main path's plans, on the integer values and on
-   real-valued (normal) values of the same patterns, plus edge cases, and
-   K2's own edge cases (a B column of 3000 entries, an A column of 2500
-   named by every B column, m off and past the slice height, unsorted A
-   rows, empty columns, one CTA's worth of columns) — exactly equal; K1
+   real-valued (normal) values of the same patterns, plus edge cases on
+   both (K4's own among them: probing that wraps from slot h-1 to 0, rows
+   sharing one home slot, a small arrow, 50 distinct rows in a lane, an
+   empty A column met first, and a table of 32768 slots, so that K4 must
+   launch in both table tiers), and K2's own edge cases (a B column of 3000
+   entries, an A column of 2500 named by every B column, m off and past the
+   slice height, unsorted A rows, empty columns, one CTA's worth of
+   columns) — exactly equal; K1
    (the fused stream replay) likewise on the forward and both gradient
    views of every matrix's product stream, plus edge cases.
 3. Main path: C = A·A through ``repro_torch.core.spgemm`` for eleven of the
@@ -31,11 +35,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. Batched kernels: K1-b … K4-b (one launch for B value sets, the batch a
    second grid axis) each against its batched plain version at B = 2 (an
    integer and a normal value set) on the first group of each kind of
-   every matrix's plans and on every forward view, and K2-b at B = 3 on
-   K2's edge cases; and, at B = 8, each batched launch's slice b against
-   the unbatched kernel on value set b, bit for bit, on every group of the
-   default method and of ``spars-16/64``, on every forward view and on
-   K2's edge cases.
+   every matrix's plans and on every forward view, and K2-b and K4-b at
+   B = 3 on their edge cases (K4-b's in both table tiers); and, at B = 8,
+   each batched launch's slice b against the unbatched kernel on value set
+   b, bit for bit, on every group of the default method and of
+   ``spars-16/64`` and on every forward view, at B = 3 on those edge
+   cases.
 7. Batched path: ``spgemm_batched(A, B)`` for the eleven matrices with
    B = 8 integer value sets per operand (the JAX package's batched
    benchmark setting), A's and B's drawn apart, under the five methods and
@@ -54,9 +59,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    idle share; per kernel, its time, its plain version's, its bound and a
    library call's, at its largest main-path group or view (the batched
    kernels at B = 8), K2 and K2-b also against their plain versions there
-   on real values.  Device times are CUDA events around a loop queued
-   behind a device-side wait (``event_ms``); K2's and K2-b's rows add
-   their and their library call's host-paced times.
+   on real values.  The library call of K2-K4 is ``torch.sparse.mm`` of A
+   and the group's dense B columns (once per value set when batched),
+   checked against the kernel's output turned dense; K4's rows add their
+   launches per table tier, on the main path and in the edge cases.
+   Device times are CUDA events around a loop queued behind a device-side
+   wait (``event_ms``); K2's and K2-b's rows add their and their library
+   call's host-paced times.
 9. Sparse FFN set-up: granite-20b's FFN at full width (d_model 6144, d_ff
    24576), weights from ``--seed`` through the port's ``init_params``,
    converted by ``SparseFFN.from_params`` at keep_density 0.9 (the dense
@@ -236,10 +245,88 @@ def batched_stacks(name, a, seed: int):
                  for v in vals)
 
 
+# K4's own edge cases, as (A pattern, B pattern, h or None for the planner's
+# size): probing that wraps from slot h-1 to 0, a lane whose rows share one
+# home slot, a small arrow (row 39 in 60 A columns one lane names), a lane
+# with more distinct rows (50) than a round of 32, an empty A column met
+# first, and a table of 32768 slots, past shared memory (tier "global")
+HASH_CASES = ("wrap", "one_home", "small_arrow", "many_rows",
+              "empty_a_first", "tier_global")
+
+
+def hash_case(name):
+    rng = np.random.default_rng(11)
+    lanes = 16
+    if name == "wrap":
+        a = np.zeros((64, 2))
+        a[[7, 15, 23], 0] = 1
+        a[[8, 0], 1] = 1
+        b = np.zeros((2, lanes))
+        b[:, 0] = b[1, 1] = b[0, 2] = 1
+        return a, b, 8
+    if name == "one_home":
+        rows = [r for r in range(200) if r * 0x1E3779B1 % 16 == 5][:12]
+        a = np.zeros((200, 3))
+        for k in range(3):
+            a[rows[4 * k:4 * k + 4], k] = 1
+        b = np.zeros((3, lanes))
+        b[:, 0] = 1
+        b[[0, 2], 1] = b[1, 2] = 1
+        return a, b, 16
+    if name == "small_arrow":
+        a = np.zeros((40, 60))
+        a[39] = 1
+        for k in range(60):
+            a[rng.choice(39, 2, replace=False), k] = 1
+        b = (rng.uniform(size=(60, lanes)) < 0.15).astype(float)
+        b[:, 0] = 1
+        return a, b, None
+    if name == "many_rows":
+        a = np.zeros((120, 10))
+        for k in range(10):
+            a[5 * k:5 * k + 5, k] = 1
+        b = (rng.uniform(size=(10, lanes)) < 0.3).astype(float)
+        b[:, 0] = 1
+        return a, b, None
+    if name == "empty_a_first":
+        a = np.zeros((10, 4))
+        a[[0, 3, 5], 1] = 1
+        a[[0, 7], 2] = 1
+        a[[2, 9], 3] = 1
+        b = np.zeros((4, lanes))
+        b[[0, 1, 2], 0] = 1
+        b[0, 1] = 1
+        b[[0, 3], 2] = 1
+        return a, b, None
+    if name == "tier_global":
+        a = (rng.uniform(size=(300, 80)) < 0.08).astype(float)
+        b = (rng.uniform(size=(80, 2 * lanes)) < 0.2).astype(float)
+        return a, b, 32768
+    raise AssertionError(name)
+
+
+def with_normal_values(op, seed, batch=None):
+    """``op`` with standard normal values (``batch`` value sets of them when
+    given) in its live slots and 0 in its padding."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz = op["ab"]
+    lead = () if batch is None else (batch,)
+
+    def normal(v):
+        x = rng.standard_normal(lead + tuple(v.shape)).astype(np.float32)
+        return (torch.from_numpy(x).to(v.device) * (v != 0)).contiguous()
+
+    return dict(op, ab=(a_rows, normal(a_vals), a_nnz, b_rows,
+                        normal(b_vals), b_nnz))
+
+
 def edge_operands(dev):
     """Padded kernel operands for the edge cases: a B entry on an empty A
     column, empty B columns, an all-empty operand, a table exactly full
-    (Op_j + 1 = H), H = 2, and a lane block that is all padding."""
+    (Op_j + 1 = H), H = 2, a lane block that is all padding, and K4's own
+    (HASH_CASES), each with values in {1, 2, 3}."""
     import torch
     from repro_torch.core.analysis import hash_table_size
     from repro_torch.sparse import (
@@ -271,6 +358,10 @@ def edge_operands(dev):
     bd = rng.integers(1, 4, (24, 10)) * (rng.uniform(size=(24, 10)) < 0.3)
     cases["padding_block"] = (rng.integers(1, 4, (24, 24))
                               * (rng.uniform(size=(24, 24)) < 0.2), bd, None)
+    for name in HASH_CASES:
+        a, b, h = hash_case(name)
+        cases[name] = (a * rng.integers(1, 4, a.shape),
+                       b * rng.integers(1, 4, b.shape), h)
     out = {}
     for name, (a, b, h) in cases.items():
         a = a if not isinstance(a, np.ndarray) else csc_from_dense(a)
@@ -426,10 +517,22 @@ def compare(kind, op, label):
     return err
 
 
+def tier_launches(wrapper, before) -> dict:
+    """K4's (or K4-b's) launches per table tier since ``before``; fails
+    unless both tiers launched."""
+    tiers = {t: n - before[t] for t, n in wrapper.n_launches_by_tier.items()}
+    print(f"kernel {wrapper.__name__}: edge-case launches by tier {tiers}",
+          flush=True)
+    check(all(tiers.values()), f"{wrapper.__name__}: the edge cases did not "
+          f"reach every table tier: {tiers}")
+    return tiers
+
+
 def kernel_phase(plans, mats, dev, seed):
     """Every kernel against its plain version: the first and last group of
     each kind of every matrix's plans, on the integer values and on real
-    values of the same pattern, and the edge cases."""
+    values of the same pattern, and the edge cases on both; returns the
+    largest differences and K4's edge-case launches per table tier."""
     errs = {k: 0.0 for k in GROUP_KERNELS}
     checked = {k: 0 for k in GROUP_KERNELS}
     for name in MATRICES:
@@ -447,10 +550,17 @@ def kernel_phase(plans, mats, dev, seed):
                         kind, op, f"{name} {method_name(method)} "
                         f"{len(g.cols)} cols, {values} values"))
                     checked[kind] += 1
+    from repro_torch import kernels
+
+    before = dict(kernels.hash_spgemm.n_launches_by_tier)
     for name, op in edge_operands(dev).items():
-        for kind in GROUP_KERNELS:
-            errs[kind] = max(errs[kind], compare(kind, op, name))
-            checked[kind] += 1
+        for values, vop in (("int", op),
+                            ("real", with_normal_values(op, seed))):
+            for kind in GROUP_KERNELS:
+                errs[kind] = max(errs[kind], compare(
+                    kind, vop, f"{name}, {values} values"))
+                checked[kind] += 1
+    tiers = tier_launches(kernels.hash_spgemm, before)
     for name, op in spa_edge_operands(dev).items():
         errs["spa"] = max(errs["spa"], compare("spa", op, name))
         checked["spa"] += 1
@@ -458,7 +568,7 @@ def kernel_phase(plans, mats, dev, seed):
         check(checked[kind] > 0, f"{kind}: no group compared")
         print(f"kernel {KERNELS[kind]['name']}: {checked[kind]} comparisons "
               f"with the plain version, max |diff| {errs[kind]}", flush=True)
-    return errs
+    return errs, tiers
 
 
 # ---------------------------------------------------------------------------
@@ -520,7 +630,9 @@ def batched_kernel_phase(plans, fplans, mats, stacks, dev, seed):
     """K2-b … K4-b against their batched plain versions at B = 2 on the
     first group of each kind of every matrix's plans, and their slices
     against the unbatched kernels at B = 8 on every group of
-    ``SLICE_METHODS``; K1-b likewise on every forward view."""
+    ``SLICE_METHODS``; K1-b likewise on every forward view; K2-b's and
+    K4-b's edge cases (K4-b's in both table tiers) at B = 3.  Returns the
+    largest differences and K4-b's edge-case launches per table tier."""
     import torch
     from repro_torch import kernels
     from repro_torch.core import fused_stream
@@ -572,6 +684,20 @@ def batched_kernel_phase(plans, fplans, mats, stacks, dev, seed):
         checked["spa"] += 1
         compare_slices("spa", op, name)
         sliced["spa"] += 1
+    # K4's edge cases at B = 3 in both table tiers
+    before = dict(kernels.hash_spgemm_batched.n_launches_by_tier)
+    for name, op in edge_operands(dev).items():
+        if name not in HASH_CASES:
+            continue
+        for h in sorted({op["h"], 32768}):
+            bop = with_normal_values(dict(op, h=h), seed, batch=3)
+            label = f"{name} h = {h}"
+            errs["hash"] = max(errs["hash"], compare("hash", bop,
+                                                     f"{label}, B = 3"))
+            checked["hash"] += 1
+            compare_slices("hash", bop, label)
+            sliced["hash"] += 1
+    tiers = tier_launches(kernels.hash_spgemm_batched, before)
     for kind in errs:
         name = KERNELS[kind + "_b"]["name"]
         check(checked[kind] > 0 and sliced[kind] > 0,
@@ -579,9 +705,9 @@ def batched_kernel_phase(plans, fplans, mats, stacks, dev, seed):
         print(f"kernel {name}: {checked[kind]} comparisons with the batched "
               f"plain version at B = 2, max |diff| {errs[kind]}; "
               f"{sliced[kind]} launches at B = {BATCH} equal the unbatched "
-              "kernel slice by slice (K2-b's edge cases at B = 3 in both)",
-              flush=True)
-    return errs
+              "kernel slice by slice (K2-b's and K4-b's edge cases at B = 3 "
+              "in both)", flush=True)
+    return errs, tiers
 
 
 # ---------------------------------------------------------------------------
@@ -614,6 +740,8 @@ def main_path(mats, expected):
             check(np.array_equal(vals.astype(np.float64), data),
                   f"{label}: values differ from scipy")
     counts = kernels.launch_counts()
+    counts["hash_spgemm_by_tier"] = dict(
+        kernels.hash_spgemm.n_launches_by_tier)
     print(f"main path: {len(MATRICES)} matrices x {len(METHODS)} methods "
           f"equal scipy A@A exactly; launches {json.dumps(counts)}",
           flush=True)
@@ -906,6 +1034,8 @@ def batched_path(stacks):
             results[name, run], launches[name, run] = batched_call(
                 stacks[name], run)
     counts = kernels.launch_counts()
+    counts["hash_spgemm_batched_by_tier"] = dict(
+        kernels.hash_spgemm_batched.n_launches_by_tier)
     print(f"batched path: {len(MATRICES)} matrices x {len(BATCHED_RUNS)} "
           f"runs at B = {BATCH}; launches {json.dumps(counts)}", flush=True)
     for kind in GROUP_KERNELS + ("fused",):
@@ -1114,23 +1244,27 @@ def spa_library_operands(op):
 
 
 def library_ms(kind, op, reps, queued=True):
-    """One PyTorch call computing the kernel's function: for SPA, the sparse
-    A times the group's dense B columns; none computes SPARS's flags or
-    HASH's tables.  For a batched launch, that call once per value set."""
+    """One PyTorch call computing the group's C columns: the sparse A times
+    the group's dense B columns (``torch.sparse.mm``), checked first against
+    the kernel's output turned dense (SPA's tile, SPARS's accumulator tile,
+    HASH's tables through ``hash_tables_to_dense``).  It yields the C
+    columns in another layout than SPARS's (no flags) and HASH's (no
+    tables).  For a batched launch, that call once per value set."""
     import torch
+    from repro_torch.kernels.ref import hash_tables_to_dense
 
-    if kind != "spa":
-        return None
+    out = run_kernel(kind, op)
     if op["ab"][1].dim() == 3:
-        want = run_kernel("spa", op)[0]
-        ops = [element_op(op, b) for b in range(want.shape[0])]
+        ops = [element_op(op, b) for b in range(op["ab"][1].shape[0])]
     else:
-        want = run_plain("spa", op)[0][None]
         ops = [op]
+        out = tuple(x[None] for x in out)
     pairs = [spa_library_operands(o) for o in ops]
     for b, (a_csr, b_dense) in enumerate(pairs):
-        check(torch.allclose(torch.sparse.mm(a_csr, b_dense), want[b]),
-              "library SPA call disagrees")
+        want = (hash_tables_to_dense(out[0][b], out[1][b], op["m"])
+                if kind == "hash" else out[0][b])
+        check(torch.allclose(torch.sparse.mm(a_csr, b_dense), want),
+              f"library call disagrees with {kind}'s C columns")
     return event_ms(lambda: [torch.sparse.mm(*p) for p in pairs], reps,
                     queued=queued)
 
@@ -1365,9 +1499,11 @@ def host_paced(kind, op, reps) -> dict:
                                                  queued=False))
 
 
-def kernel_report(biggest, plans, mats, counts, errs, seed, reps):
+def kernel_report(biggest, plans, mats, counts, errs, edge_tiers, seed,
+                  reps):
     """The rows of K2-K4, each timed at its largest main-path group; K2 also
-    held against its plain version there on real values."""
+    held against its plain version there on real values; K4's with its
+    launches per table tier on the main path and in the edge cases."""
     import torch
 
     rows = []
@@ -1385,11 +1521,14 @@ def kernel_report(biggest, plans, mats, counts, errs, seed, reps):
         ms = event_ms(lambda: run_kernel(kind, op), reps)
         plain = event_ms(lambda: run_plain(kind, op), reps=2)
         b_ms, by = bound_ms(products, nbytes)
+        tiers = {} if kind != "hash" else dict(
+            launches_by_tier=counts["hash_spgemm_by_tier"],
+            edge_launches_by_tier=edge_tiers)
         rows.append(dict(
             info, launches=counts[info["name"]], max_abs_err=err,
             ms=ms, plain_ms=plain, bound_ms=b_ms,
             bound_by=by, library_ms=library_ms(kind, op, reps),
-            **host_paced(kind, op, reps),
+            **host_paced(kind, op, reps), **tiers,
             at=dict(matrix=name, method=method_name(method),
                     cols=len(g.cols), products=products, bytes=nbytes,
                     h=g.h)))
@@ -1424,7 +1563,7 @@ def k1_report(biggest, launches, err, libs, reps):
 
 
 def batched_kernel_report(biggest, k1_biggest, plans, stacks, counts, errs,
-                          dev, seed, reps):
+                          edge_tiers, dev, seed, reps):
     """The rows of K1-b … K4-b: each timed at B = BATCH on its unbatched
     kernel's largest main-path group or view, with that matrix's value
     stacks; the plain versions once (at iprob they take seconds); the
@@ -1454,11 +1593,14 @@ def batched_kernel_report(biggest, k1_biggest, plans, stacks, counts, errs,
         plain = event_ms(lambda: run_plain(kind, op), reps=1, warmup=0)
         products, nbytes = group_work(kind, op)
         b_ms, by = bound_ms(products, nbytes)
+        tiers = {} if kind != "hash" else dict(
+            launches_by_tier=counts["hash_spgemm_batched_by_tier"],
+            edge_launches_by_tier=edge_tiers)
         rows.append(dict(
             info, launches=counts[info["name"]], max_abs_err=err,
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
             library_ms=library_ms(kind, op, reps),
-            **host_paced(kind, op, reps),
+            **host_paced(kind, op, reps), **tiers,
             at=dict(matrix=name, method=method_name(method), batch=BATCH,
                     cols=len(g.cols), products=products, bytes=nbytes,
                     h=g.h)))
@@ -1979,10 +2121,10 @@ def main(argv=None) -> int:
 
     fplans = fused_plans(mats, dev)
 
-    errs = timed(kernel_phase, plans, mats, dev, args.seed)
+    errs, edge_tiers = timed(kernel_phase, plans, mats, dev, args.seed)
     k1_err = timed(fused_kernel_phase, fplans, mats, dev, args.seed)
-    b_errs = timed(batched_kernel_phase, plans, fplans, mats, stacks, dev,
-                   args.seed)
+    b_errs, b_edge_tiers = timed(batched_kernel_phase, plans, fplans, mats,
+                                 stacks, dev, args.seed)
     counts = timed(main_path, mats, expected)
     fused_counts = timed(fused_path, mats, expected)
     timed(backward_phase, mats, dev, args.seed)
@@ -1998,9 +2140,9 @@ def main(argv=None) -> int:
     rows = [timed(k1_report, k1_biggest, fused_counts["fused_stream"],
                   k1_err, libs, args.reps)]
     rows += timed(kernel_report, biggest, plans, mats, counts, errs,
-                  args.seed, args.reps)
+                  edge_tiers, args.seed, args.reps)
     rows += timed(batched_kernel_report, biggest, k1_biggest, plans, stacks,
-                  b_counts, b_errs, dev, args.seed, args.reps)
+                  b_counts, b_errs, b_edge_tiers, dev, args.seed, args.reps)
 
     # the FFN phases hold granite-20b's FFN at full width: the earlier
     # phases' plans and operands go first

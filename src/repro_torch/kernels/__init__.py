@@ -3,7 +3,8 @@
 - fused_stream.py K1 fused product-stream replay: one thread per output slot
 - spa.py          K2 SPA SpGEMM: a CTA per 8 C columns x 512 rows
 - spars.py        K3 SPARS lock-step SpGEMM: one thread per lane
-- hash_spgemm.py  K4 HASH lock-step SpGEMM: one thread per lane and table
+- hash_spgemm.py  K4 HASH lock-step SpGEMM: two warps per lane, its table
+                  in shared memory (or, for h >= 32768, in device memory)
 - bsr_spmm.py     K5 padded-BSR x dense: one thread per output column of a
                   block-row; and the host converter bsr_from_dense
 - ref.py          plain-torch oracles for the tests
@@ -59,6 +60,8 @@ KERNELS = (fused_stream, spa_spgemm, spars_spgemm, hash_spgemm, bsr_spmm,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.n_launches = 0
+        for tier in getattr(k, "n_launches_by_tier", ()):
+            k.n_launches_by_tier[tier] = 0
 
 
 def launch_counts() -> dict:

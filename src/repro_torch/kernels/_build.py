@@ -39,8 +39,10 @@ SIGNATURES = {
     "repro_spa_launch": _A_B + (_I, _I, _P, _P),
     # A and B operands, steps, block_cols, m, batch, acc, flags, stream
     "repro_spars_launch": _A_B + (_P, _I, _I, _I, _P, _P, _P),
-    # A and B operands, steps, block_cols, h, batch, keys, vals, stream
-    "repro_hash_launch": _A_B + (_P, _I, _I, _I, _P, _P, _P),
+    # A and B operands, steps, block_cols, h, batch, tier, lanes, sets,
+    # keys, vals, ws_keys, ws_vals, stream
+    "repro_hash_launch": _A_B + (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                 _P),
     # idx_x, idx_y, seg_ptr, x, y, n_x, n_y, n_out, batch, out, stream
     "repro_fused_stream_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
                                   _P),

@@ -8,8 +8,16 @@ The counterpart of the JAX package's Pallas HASH kernel
 ``vals`` f32, both ``[h, n_b]`` (``[B, h, n_b]`` batched: probing depends on
 rows alone, so every element's keys are equal), slot for slot as the
 reference fills them.  On a CUDA tensor the wrappers launch the
-hand-written kernel (one thread per lane, the batch a second grid axis) or
-raise; on a CPU tensor they run :func:`hash_spgemm_batched_plain`.
+hand-written kernel (two warps per lane, one staging its steps and one
+committing them into its table on chip; the value sets a second grid axis)
+or raise; on a CPU tensor they run :func:`hash_spgemm_batched_plain`.
+
+The kernel keeps each lane's table in one of two tiers, by h alone
+(:func:`hash_layout`): "shared" while a lane's keys and one set of values
+(8 h bytes, with the lane's staging) fit a CTA's shared memory, h <= 16384
+on the H100; "global" past that, a workspace in device memory with each
+lane's table contiguous.  Both wrappers count their launches per tier in
+``n_launches_by_tier``.
 """
 
 from __future__ import annotations
@@ -25,6 +33,49 @@ from repro_torch.kernels.spars import LockStep
 EMPTY = -1
 #: the multiplier the reference applies in int32 (its low 31 bits)
 HASH_C31 = HASH_C & 0x7FFFFFFF
+
+#: the kernel's table tiers, in the order of its ``tier`` argument
+TIERS = ("shared", "global")
+#: dynamic shared memory one CTA may use on the H100 (227 KB)
+SMEM_BYTES = 232448
+#: value sets one CTA may hold (the kernel's instantiations), most first
+SETS = (8, 4, 2, 1)
+#: lanes (two warps each) one CTA holds at most, a power of two (the
+#: kernel's kMaxLanes)
+MAX_LANES = 4
+#: rounds of 32 steps in a lane's ring (the kernel's kStages)
+STAGES = 4
+
+
+def cta_bytes(h: int, lanes: int, sets: int, tier: str = "shared") -> int:
+    """Shared memory of one K4 CTA.  Per lane: its warps' staging, two
+    8-byte barriers a ring stage, a round's products and rows, and a ring of
+    STAGES rounds (rows, A and B values, and a count); and in tier "shared"
+    the table, h keys and ``sets`` value arrays."""
+    table = (1 + sets) * h if tier == "shared" else 0
+    stage = 4 * STAGES + 32 * (sets + 1) + STAGES * (32 * (1 + 2 * sets) + 1)
+    return 4 * lanes * (table + stage)
+
+
+def hash_layout(h: int, batch: int = 1) -> tuple:
+    """(tier, lanes per CTA, value sets per CTA) of one K4 launch.
+
+    The tier follows from h alone: "shared" while one lane's table fits a
+    CTA's shared memory (h <= 16384), else "global".  In tier "shared" a
+    CTA takes as many of the batch's value sets as fit (at most the next
+    power of two of ``batch``, so that slots found once serve them all),
+    then as many lanes as fit, a power of two up to MAX_LANES; in tier
+    "global", MAX_LANES lanes of one value set.
+    """
+    if cta_bytes(h, 1, 1) > SMEM_BYTES:
+        return "global", MAX_LANES, 1
+    sets = next(s for s in SETS
+                if (s == 1 or s < 2 * batch)
+                and cta_bytes(h, 1, s) <= SMEM_BYTES)
+    lanes = MAX_LANES
+    while cta_bytes(h, lanes, sets) > SMEM_BYTES:
+        lanes //= 2
+    return "shared", lanes, sets
 
 
 def _check(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, h,
@@ -43,15 +94,22 @@ def _launch(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, h,
     """One K4 launch over ``batch`` value sets; (keys, vals) [batch, h,
     n_b]."""
     n_b, zb = b_rows.shape
-    keys = torch.full((batch, h, n_b), EMPTY, dtype=torch.int32, device=dev)
-    vals = torch.zeros((batch, h, n_b), dtype=torch.float32, device=dev)
+    tier, lanes, sets = hash_layout(h, batch)
+    # the kernel writes every slot
+    keys = torch.empty((batch, h, n_b), dtype=torch.int32, device=dev)
+    vals = torch.empty((batch, h, n_b), dtype=torch.float32, device=dev)
+    ws = (torch.empty((batch, n_b, h), dtype=torch.int32, device=dev),
+          torch.empty((batch, n_b, h), dtype=torch.float32, device=dev)) \
+        if tier == "global" else None
     _build.launch(
         "repro_hash_launch", a_rows.data_ptr(), a_vals.data_ptr(),
         a_nnz.data_ptr(), *a_rows.shape, b_rows.data_ptr(),
         b_vals.data_ptr(), b_nnz.data_ptr(), n_b, zb, steps.data_ptr(),
-        block_cols, h, batch, keys.data_ptr(), vals.data_ptr(),
+        block_cols, h, batch, TIERS.index(tier), lanes, sets,
+        keys.data_ptr(), vals.data_ptr(),
+        *((w.data_ptr() for w in ws) if ws else (None, None)),
         stream_handle(dev))
-    return keys, vals
+    return keys, vals, tier
 
 
 def hash_spgemm(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, *,
@@ -67,13 +125,15 @@ def hash_spgemm(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, *,
     if dev.type == "cpu":
         return hash_spgemm_plain(a_rows, a_vals, a_nnz, b_rows, b_vals,
                                  b_nnz, steps, h=h, block_cols=block_cols)
-    keys, vals = _launch(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
-                         h, block_cols, 1, dev)
+    keys, vals, tier = _launch(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz,
+                               steps, h, block_cols, 1, dev)
     hash_spgemm.n_launches += 1
+    hash_spgemm.n_launches_by_tier[tier] += 1
     return keys[0], vals[0]
 
 
 hash_spgemm.n_launches = 0
+hash_spgemm.n_launches_by_tier = dict.fromkeys(TIERS, 0)
 
 
 def hash_spgemm_batched(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
@@ -93,13 +153,15 @@ def hash_spgemm_batched(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
         return hash_spgemm_batched_plain(a_rows, a_vals, a_nnz, b_rows,
                                          b_vals, b_nnz, steps, h=h,
                                          block_cols=block_cols)
-    out = _launch(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, h,
-                  block_cols, a_vals.shape[0], dev)
+    keys, vals, tier = _launch(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz,
+                               steps, h, block_cols, a_vals.shape[0], dev)
     hash_spgemm_batched.n_launches += 1
-    return out
+    hash_spgemm_batched.n_launches_by_tier[tier] += 1
+    return keys, vals
 
 
 hash_spgemm_batched.n_launches = 0
+hash_spgemm_batched.n_launches_by_tier = dict.fromkeys(TIERS, 0)
 
 
 def hash_slot(rows: torch.Tensor, h: int) -> torch.Tensor:

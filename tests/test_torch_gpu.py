@@ -176,6 +176,142 @@ def test_hash_kernel_equals_plain(cuda):
     assert torch.equal(keys, want_keys) and torch.equal(vals, want_vals)
 
 
+# K4's edge cases (tests/test_torch_hash_layout.py holds their plain
+# version to the JAX package on the CPU), as (A pattern, B pattern, h or
+# None for the planner's size): probing that wraps from slot h-1 to 0 (rows
+# 7, 15, 23 homed at slot 7 of 8), a lane whose 12 rows share home slot 5
+# of 16, a small arrow (row 39 in 60 A columns that lane 0 names), a lane
+# with 50 distinct rows (more than a round of 32, at a load of 50/64), an
+# empty A column met first (key 0 with ±0, then row 0's real products); and
+# a table of 32768 slots, past shared memory (tier "global")
+HASH_BLOCK = 16
+
+
+def _hash_case(name):
+    rng = np.random.default_rng(11)
+    c = 0x1E3779B1   # HASH_C's low 31 bits
+    if name == "wrap":
+        a = np.zeros((64, 2))
+        a[[7, 15, 23], 0] = 1
+        a[[8, 0], 1] = 1
+        b = np.zeros((2, HASH_BLOCK))
+        b[:, 0] = b[1, 1] = b[0, 2] = 1
+        return a, b, 8
+    if name == "one_home":
+        rows = [r for r in range(200) if r * c % 16 == 5][:12]
+        a = np.zeros((200, 3))
+        for k in range(3):
+            a[rows[4 * k:4 * k + 4], k] = 1
+        b = np.zeros((3, HASH_BLOCK))
+        b[:, 0] = 1
+        b[[0, 2], 1] = b[1, 2] = 1
+        return a, b, 16
+    if name == "small_arrow":
+        a = np.zeros((40, 60))
+        a[39] = 1
+        for k in range(60):
+            a[rng.choice(39, 2, replace=False), k] = 1
+        b = (rng.uniform(size=(60, HASH_BLOCK)) < 0.15).astype(float)
+        b[:, 0] = 1
+        return a, b, None
+    if name == "many_rows":
+        a = np.zeros((120, 10))
+        for k in range(10):
+            a[5 * k:5 * k + 5, k] = 1
+        b = (rng.uniform(size=(10, HASH_BLOCK)) < 0.3).astype(float)
+        b[:, 0] = 1
+        return a, b, None
+    if name == "empty_a_first":
+        a = np.zeros((10, 4))
+        a[[0, 3, 5], 1] = 1
+        a[[0, 7], 2] = 1
+        a[[2, 9], 3] = 1
+        b = np.zeros((4, HASH_BLOCK))
+        b[[0, 1, 2], 0] = 1
+        b[0, 1] = 1
+        b[[0, 3], 2] = 1
+        return a, b, None
+    if name == "tier_global":
+        a = (rng.uniform(size=(300, 80)) < 0.08).astype(float)
+        b = (rng.uniform(size=(80, 2 * HASH_BLOCK)) < 0.2).astype(float)
+        return a, b, 32768
+    raise AssertionError(name)
+
+
+HASH_CASES = ("wrap", "one_home", "small_arrow", "many_rows",
+              "empty_a_first", "tier_global")
+
+
+def _hash_operands(dev, name, integer, batch=None):
+    """Padded K4 operands of one case on ``dev``, with values in {1, 2, 3}
+    or standard normal, ``batch`` value sets of the pattern when given."""
+    from repro_torch.sparse.format import csc_from_dense
+
+    a, b, h = _hash_case(name)
+    a, b = csc_from_dense(a), csc_from_dense(b)
+    ar, _, an = csc_to_padded_columns(a)
+    br, _, bn = csc_to_padded_columns(b)
+    rng = np.random.default_rng(len(name))
+    lead = () if batch is None else (batch,)
+
+    def vals(rows):
+        v = (rng.integers(1, 4, lead + tuple(rows.shape)) if integer
+             else rng.standard_normal(lead + tuple(rows.shape)))
+        return torch.from_numpy(v.astype(np.float32))
+
+    steps = steps_per_column(a, b).reshape(-1, HASH_BLOCK).max(axis=1)
+    return dict(
+        ab=tuple(x.to(dev) for x in (ar, vals(ar), an, br, vals(br), bn)),
+        steps=torch.from_numpy(steps.astype(np.int32)).to(dev), m=a.n_rows,
+        block=HASH_BLOCK,
+        h=h if h is not None else hash_table_size(
+            int(ops_per_column(a, b).max(initial=0))))
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case", HASH_CASES)
+def test_hash_kernel_edge_cases_equal_plain(cuda, case, integer):
+    op = _hash_operands(cuda, case, integer)
+    tier = "global" if op["h"] > 16384 else "shared"
+    before = dict(kernels.hash_spgemm.n_launches_by_tier)
+    keys, vals = kernels.hash_spgemm(*op["ab"], op["steps"], m=op["m"],
+                                     h=op["h"], block_cols=op["block"])
+    torch.cuda.synchronize()
+    after = kernels.hash_spgemm.n_launches_by_tier
+    assert after[tier] == before[tier] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    want_keys, want_vals = kernels.hash_spgemm_plain(
+        *op["ab"], op["steps"], h=op["h"], block_cols=op["block"])
+    assert torch.equal(keys, want_keys) and torch.equal(vals, want_vals)
+
+
+@pytest.mark.parametrize("h", [None, 32768])
+@pytest.mark.parametrize("case", ["small_arrow", "many_rows"])
+def test_hash_batched_kernel_in_each_tier(cuda, case, h):
+    """K4-b at B = 3 in tier "shared" (the case's own table size) and
+    "global" (32768 slots): equal to its plain version, and slice b to K4 on
+    value set b, bit for bit."""
+    op = _hash_operands(cuda, case, False, batch=3)
+    if h is not None:
+        op["h"] = h
+    tier = "global" if op["h"] > 16384 else "shared"
+    before = kernels.hash_spgemm_batched.n_launches_by_tier[tier]
+    got = kernels.hash_spgemm_batched(*op["ab"], op["steps"], m=op["m"],
+                                      h=op["h"], block_cols=op["block"])
+    torch.cuda.synchronize()
+    assert kernels.hash_spgemm_batched.n_launches_by_tier[tier] == before + 1
+    want = kernels.hash_spgemm_batched_plain(
+        *op["ab"], op["steps"], h=op["h"], block_cols=op["block"])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    ar, av, an, br, bv, bn = op["ab"]
+    for b in range(3):
+        one = kernels.hash_spgemm(ar, av[b].contiguous(), an, br,
+                                  bv[b].contiguous(), bn, op["steps"],
+                                  m=op["m"], h=op["h"],
+                                  block_cols=op["block"])
+        assert all(torch.equal(g[b], w) for g, w in zip(got, one))
+
+
 @pytest.mark.parametrize("method", METHODS)
 def test_spgemm_on_card_equals_cpu(cuda, method):
     a = generate.random_powerlaw_csc(300, 5.0, seed=4)
