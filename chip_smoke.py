@@ -17,7 +17,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launch in both table tiers), and K2's own edge cases (a B column of 3000
    entries, an A column of 2500 named by every B column, m off and past the
    slice height, unsorted A rows, empty columns, one CTA's worth of
-   columns) — exactly equal; K1
+   columns), through K2 and, at full and cut trip counts per lane block of
+   8, through K3 — exactly equal; K1
    (the fused stream replay) likewise on the forward and both gradient
    views of every matrix's product stream, plus edge cases.
 3. Main path: C = A·A through ``repro_torch.core.spgemm`` for eleven of the
@@ -35,8 +36,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. Batched kernels: K1-b … K4-b (one launch for B value sets, the batch a
    second grid axis) each against its batched plain version at B = 2 (an
    integer and a normal value set) on the first group of each kind of
-   every matrix's plans and on every forward view, and K2-b and K4-b at
-   B = 3 on their edge cases (K4-b's in both table tiers); and, at B = 8,
+   every matrix's plans and on every forward view, and K2-b, K3-b and K4-b
+   at B = 3 on their edge cases (K4-b's in both table tiers); and, at B = 8,
    each batched launch's slice b against the unbatched kernel on value set
    b, bit for bit, on every group of the default method and of
    ``spars-16/64`` and on every forward view, at B = 3 on those edge
@@ -64,8 +65,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    checked against the kernel's output turned dense; K4's rows add their
    launches per table tier, on the main path and in the edge cases.
    Device times are CUDA events around a loop queued behind a device-side
-   wait (``event_ms``); K2's and K2-b's rows add their and their library
-   call's host-paced times.
+   wait (``event_ms``); the rows of K2, K3 and their batched forms add
+   their and their library call's host-paced times; K1's gradient views
+   are timed beside ``torch.sparse.sampled_addmm``, which computes them.
 9. Sparse FFN set-up: granite-20b's FFN at full width (d_model 6144, d_ff
    24576), weights from ``--seed`` through the port's ``init_params``,
    converted by ``SparseFFN.from_params`` at keep_density 0.9 (the dense
@@ -445,6 +447,31 @@ def spa_edge_operands(dev, batch=None):
     return out
 
 
+SPARS_EDGE_BLOCK = 8   # K3's lane blocks on K2's edge cases
+
+
+def spars_edge_operands(dev, batch=None):
+    """K2's edge cases (``spa_edge_operands``) as K3 operands: a trip count
+    per lane block of SPARS_EDGE_BLOCK columns, the block's largest lane
+    (sum of max(nnz(A[:, k]), 1) over its B entries; "full") or half of it
+    rounded up ("cut": lanes stop inside A columns, each block at its own
+    count).  The step on an empty A column reads that column's padding slot
+    0, which holds a random row and value here."""
+    import torch
+
+    out = {}
+    for name, op in spa_edge_operands(dev, batch).items():
+        _, _, a_nnz, b_rows, _, b_nnz = op["ab"]
+        per = torch.clamp(a_nnz, min=1)[b_rows.long()]
+        live = (torch.arange(b_rows.shape[1], device=dev)[None, :]
+                < b_nnz[:, None])
+        full = (per * live).sum(1).reshape(-1, SPARS_EDGE_BLOCK).max(1).values
+        for cut, steps in (("full", full), ("cut", (full + 1) // 2)):
+            out[f"{name}, {cut} trip counts"] = dict(
+                op, steps=steps.int().contiguous(), block=SPARS_EDGE_BLOCK)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -564,6 +591,9 @@ def kernel_phase(plans, mats, dev, seed):
     for name, op in spa_edge_operands(dev).items():
         errs["spa"] = max(errs["spa"], compare("spa", op, name))
         checked["spa"] += 1
+    for name, op in spars_edge_operands(dev).items():
+        errs["spars"] = max(errs["spars"], compare("spars", op, name))
+        checked["spars"] += 1
     for kind in GROUP_KERNELS:
         check(checked[kind] > 0, f"{kind}: no group compared")
         print(f"kernel {KERNELS[kind]['name']}: {checked[kind]} comparisons "
@@ -684,6 +714,12 @@ def batched_kernel_phase(plans, fplans, mats, stacks, dev, seed):
         checked["spa"] += 1
         compare_slices("spa", op, name)
         sliced["spa"] += 1
+    for name, op in spars_edge_operands(dev, batch=3).items():
+        errs["spars"] = max(errs["spars"], compare("spars", op,
+                                                   f"{name}, B = 3"))
+        checked["spars"] += 1
+        compare_slices("spars", op, name)
+        sliced["spars"] += 1
     # K4's edge cases at B = 3 in both table tiers
     before = dict(kernels.hash_spgemm_batched.n_launches_by_tier)
     for name, op in edge_operands(dev).items():
@@ -705,8 +741,8 @@ def batched_kernel_phase(plans, fplans, mats, stacks, dev, seed):
         print(f"kernel {name}: {checked[kind]} comparisons with the batched "
               f"plain version at B = 2, max |diff| {errs[kind]}; "
               f"{sliced[kind]} launches at B = {BATCH} equal the unbatched "
-              "kernel slice by slice (K2-b's and K4-b's edge cases at B = 3 "
-              "in both)", flush=True)
+              "kernel slice by slice (K2-b's, K3-b's and K4-b's edge cases "
+              "at B = 3 in both)", flush=True)
     return errs, tiers
 
 
@@ -1200,7 +1236,9 @@ def group_work(kind, op):
     n_b, zb = b_rows.shape
     live = torch.arange(zb, device=b_rows.device)[None, :] < b_nnz[:, None]
     ks = b_rows[live].long()
-    products = int(a_nnz[ks].sum())
+    # SPARS takes a step on an empty A column too
+    per_col = a_nnz.clamp(min=1) if kind == "spars" else a_nnz
+    products = int(per_col[ks].sum())
     ref_cols = torch.unique(ks)
     per_entry = 4 + 4 * batch   # its row once, its value in every element
     a_bytes = int(a_nnz[ref_cols].sum()) * per_entry + len(ref_cols) * 4
@@ -1488,10 +1526,10 @@ def batched_timing_phase(stacks, fplans, dev, reps, syncs):
 
 
 def host_paced(kind, op, reps) -> dict:
-    """K2's and K2-b's time and their library call's with the host's pace
-    counted as well (``event_ms(queued=False)``), as this script timed every
-    kernel before it queued its loops."""
-    if kind != "spa":
+    """K2's and K3's (and their batched forms') time and their library
+    call's with the host's pace counted as well (``event_ms(queued=False)``),
+    as this script timed every kernel before it queued its loops."""
+    if kind not in ("spa", "spars"):
         return {}
     return dict(ms_host_paced=event_ms(lambda: run_kernel(kind, op), reps,
                                        queued=False),
@@ -1536,11 +1574,54 @@ def kernel_report(biggest, plans, mats, counts, errs, edge_tiers, seed,
     return rows
 
 
-def k1_report(biggest, launches, err, libs, reps):
+def grad_library_ms(plan, a, vname, g, v, got, reps):
+    """The time of the one PyTorch call that computes K1's gradient view
+    ``vname`` of C = A·A (B = A): with G the cotangent ``g`` as a dense [m,
+    n], grad_a = G·Bᵀ sampled at A's pattern and grad_b = Aᵀ·G sampled at
+    B's, each ``torch.sparse.sampled_addmm`` (beta 0) of a CSR pattern and
+    two dense operands.  Checked first against K1's output ``got`` at the
+    view's positions, within 1e-5 of its largest magnitude (the order of
+    the sums differs)."""
+    import scipy.sparse as sps
+    import torch
+    from repro_torch.core import fused_stream
+    from repro_torch.sparse.format import _np
+
+    fs = fused_stream(plan)
+    view = getattr(fs, vname)
+    dev = v.device
+    cp, ri = _np(a.col_ptr), _np(a.row_indices)
+    # A's slots in CSR order, each holding its position in A's values
+    csr = sps.csc_matrix((np.arange(a.nnz), ri, cp), shape=a.shape).tocsr()
+    perm, crow, col = (torch.from_numpy(x.astype(np.int64)).to(dev)
+                       for x in (csr.data, csr.indptr, csr.indices))
+    pattern = torch.sparse_csr_tensor(crow, col, v[perm], size=a.shape)
+    dense_a = pattern.to_dense()
+    c_cols = torch.repeat_interleave(
+        torch.arange(fs.shape[1], device=dev),
+        torch.diff(fs.c_col_ptr.long()))
+    dense_g = torch.zeros(fs.shape, device=dev)
+    dense_g[fs.c_rows.long(), c_cols] = g
+    mats = ((dense_g, dense_a.t().contiguous()) if vname == "grad_a"
+            else (dense_a.t().contiguous(), dense_g))
+
+    def call():
+        return torch.sparse.sampled_addmm(pattern, *mats, beta=0)
+
+    full = torch.zeros(a.nnz, device=dev)
+    full[perm] = call().values()
+    check(torch.allclose(full[view.out_map], got, rtol=1e-5,
+                         atol=1e-5 * float(got.abs().max())),
+          f"sampled_addmm disagrees with K1's {vname} view")
+    return event_ms(call, reps)
+
+
+def k1_report(biggest, launches, err, libs, fplans, mats, reps):
     """K1's row of the kernels line: timed at its largest forward view,
-    with the largest gradient views beside it.  One PyTorch call computes
-    the forward view's function (torch.sparse.mm(A, A)); none computes a
-    gradient view's."""
+    with the largest gradient views beside it, each beside the one PyTorch
+    call that computes its function: torch.sparse.mm(A, A) for the forward
+    view, torch.sparse.sampled_addmm for the gradient views
+    (``grad_library_ms``)."""
     import torch
 
     timed = {}
@@ -1551,9 +1632,12 @@ def k1_report(biggest, launches, err, libs, reps):
         plain = event_ms(lambda: run_k1_plain(view, x, y), reps=2)
         work = k1_work(view, x, y)
         b_ms, by = bound_ms(*work)
+        lib = libs[name] if vname == "forward" else grad_library_ms(
+            fplans[name]["plan"], mats[name], vname, x, y,
+            run_k1(view, x, y), reps)
         timed[vname] = dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
-            library_ms=libs[name] if vname == "forward" else None,
+            library_ms=lib,
             at=dict(matrix=name, view=vname, products=products,
                     segments=view.n_out, bytes=work[1]))
         torch.cuda.synchronize()
@@ -2138,7 +2222,7 @@ def main(argv=None) -> int:
                        naive_ms, libs)
     timed(batched_timing_phase, stacks, fplans, dev, args.reps, b_syncs)
     rows = [timed(k1_report, k1_biggest, fused_counts["fused_stream"],
-                  k1_err, libs, args.reps)]
+                  k1_err, libs, fplans, mats, args.reps)]
     rows += timed(kernel_report, biggest, plans, mats, counts, errs,
                   edge_tiers, args.seed, args.reps)
     rows += timed(batched_kernel_report, biggest, k1_biggest, plans, stacks,

@@ -2,7 +2,8 @@
 
 - fused_stream.py K1 fused product-stream replay: one thread per output slot
 - spa.py          K2 SPA SpGEMM: a CTA per 8 C columns x 512 rows
-- spars.py        K3 SPARS lock-step SpGEMM: one thread per lane
+- spars.py        K3 SPARS lock-step SpGEMM: K2's slice kernel in lock-step
+                  (csrc/slice_kernel.cuh holds the body both share)
 - hash_spgemm.py  K4 HASH lock-step SpGEMM: two warps per lane, its table
                   in shared memory (or, for h >= 32768, in device memory)
 - bsr_spmm.py     K5 padded-BSR x dense: one thread per output column of a

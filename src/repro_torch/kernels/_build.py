@@ -5,8 +5,9 @@ in seconds.  At first use every ``csrc/*.cu`` is compiled to an object for
 ``sm_90a`` (one ``nvcc`` process per source, all started together), the
 objects are linked into one shared library, and the library is loaded with
 ``ctypes``.  The library is cached under ``build/repro_torch_kernels/<key>/``
-at the root of the checkout, keyed by a hash of the sources and the flags,
-so a second process reuses it.  A missing ``nvcc`` or a failed build raises.
+at the root of the checkout, keyed by a hash of the sources, the headers
+they include (``csrc/*.cuh``) and the flags, so a second process reuses
+it.  A missing ``nvcc`` or a failed build raises.
 
 Every C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0.
@@ -78,7 +79,7 @@ def _key() -> str:
     h = hashlib.sha256()
     for f in NVCC_FLAGS:
         h.update(f.encode() + b"\0")
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):   # sources and their headers
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return h.hexdigest()[:16]
 

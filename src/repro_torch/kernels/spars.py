@@ -5,13 +5,15 @@ The counterpart of the JAX package's Pallas SPARS kernel
 (``spars_spgemm_batched``): one lane per C column, one product per lane per
 step, cursors ``vidx_b``/``vcnt_a``; outputs the dense accumulator and the
 touched-row flags, both f32 ``[m, n_b]`` (``[B, m, n_b]`` batched).  On a
-CUDA tensor the wrappers launch the hand-written kernel (one thread per
-lane, the batch a second grid axis) or raise; on a CPU tensor they run
-:func:`spars_spgemm_batched_plain`.
+CUDA tensor the wrappers launch the hand-written kernel (K2's slice kernel
+in lock-step: a CTA per 8 C columns x 512 rows, every cell with one owner
+and stored once, the batch a second grid axis) or raise; on a CPU tensor
+they run :func:`spars_spgemm_batched_plain`.
 
 Both follow the reference kernel, not ``kernels.ref.spars_ref``: a B entry
-that names an *empty* A column still takes a step, which adds a ±0 product
-to row 0 of its lane and sets ``flags[0, lane]`` (``spars_ref`` does not).
+that names an *empty* A column still takes a step, which adds the product
+of that column's padding slot 0 (row 0 and value 0 in a plan's operands) to
+its lane and sets the slot's row in ``flags`` (``spars_ref`` does not).
 """
 
 from __future__ import annotations
@@ -26,10 +28,10 @@ from repro_torch.kernels._checks import check_operands, check_steps, \
 def _launch(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps, m,
             block_cols, batch, dev):
     """One K3 launch over ``batch`` value sets; (acc, flags) [batch, m,
-    n_b]."""
+    n_b], every cell of both written by the kernel."""
     n_b, zb = b_rows.shape
-    acc = torch.zeros((batch, m, n_b), dtype=torch.float32, device=dev)
-    flags = torch.zeros((batch, m, n_b), dtype=torch.float32, device=dev)
+    acc = torch.empty((batch, m, n_b), dtype=torch.float32, device=dev)
+    flags = torch.empty((batch, m, n_b), dtype=torch.float32, device=dev)
     _build.launch(
         "repro_spars_launch", a_rows.data_ptr(), a_vals.data_ptr(),
         a_nnz.data_ptr(), *a_rows.shape, b_rows.data_ptr(),

@@ -164,6 +164,99 @@ def test_spars_kernel_equals_plain(cuda):
     assert torch.equal(acc, want_acc) and torch.equal(flags, want_flags)
 
 
+SPARS_BLOCK = 8   # K3's lane blocks on K2's edge cases: a trip count each
+
+
+def _spars_steps(ab, cut):
+    """Trip counts of K2-style operands per lane block of SPARS_BLOCK
+    columns: the block's largest lane ("full": sum of max(nnz(A[:, k]), 1)
+    over its B entries) or half of it, rounded up ("half": lanes stop inside
+    A columns, each block at its own count)."""
+    _, _, a_nnz, b_rows, _, b_nnz = ab
+    per = torch.clamp(a_nnz, min=1)[b_rows.long()]
+    live = (torch.arange(b_rows.shape[1], device=b_rows.device)[None, :]
+            < b_nnz[:, None])
+    full = (per * live).sum(1).reshape(-1, SPARS_BLOCK).max(1).values
+    return (full if cut == "full" else (full + 1) // 2).int().contiguous()
+
+
+@pytest.mark.parametrize("cut", ["full", "half"])
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case", sorted(SPA_CASES))
+def test_spars_kernel_edge_cases_equal_plain(cuda, case, integer, cut):
+    """K3 on K2's edge cases, whose A padding slots hold random rows and
+    values (the step on an empty A column reads slot 0), at full and at
+    half trip counts."""
+    ab, m = _spa_operands(cuda, case, integer)
+    steps = _spars_steps(ab, cut)
+    before = kernels.spars_spgemm.n_launches
+    got = kernels.spars_spgemm(*ab, steps, m=m, block_cols=SPARS_BLOCK)
+    torch.cuda.synchronize()
+    assert kernels.spars_spgemm.n_launches == before + 1
+    want = kernels.spars_spgemm_plain(*ab, steps, m=m,
+                                      block_cols=SPARS_BLOCK)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("cut", ["full", "half"])
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case", sorted(SPA_CASES))
+def test_spars_batched_kernel_edge_cases_equal_plain_and_slices(
+        cuda, case, integer, cut):
+    ab, m = _spa_operands(cuda, case, integer, batch=3)
+    steps = _spars_steps(ab, cut)
+    got = kernels.spars_spgemm_batched(*ab, steps, m=m,
+                                       block_cols=SPARS_BLOCK)
+    torch.cuda.synchronize()
+    want = kernels.spars_spgemm_batched_plain(*ab, steps, m=m,
+                                              block_cols=SPARS_BLOCK)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    ar, av, an, br, bv, bn = ab
+    for b in range(3):
+        one = kernels.spars_spgemm(ar, av[b].contiguous(), an, br,
+                                   bv[b].contiguous(), bn, steps, m=m,
+                                   block_cols=SPARS_BLOCK)
+        assert all(torch.equal(g[b], w) for g, w in zip(got, one))
+
+
+def test_spars_kernel_keeps_a_non_finite_product_in_its_row(cuda):
+    """inf in B against empty A columns (padding value 0: 0 * inf is NaN)
+    and -inf against others, over phase-mode and list-mode columns (more
+    than 64 B entries) and two row slices: kernel and plain version give the
+    same NaN and inf cells, and a NaN stays in its product's row."""
+    rng = np.random.default_rng(15)
+    m, n_a = 700, 120
+    a_lens = rng.integers(1, 9, n_a) * (np.arange(n_a) % 3 != 0)
+    b_lens = np.array([90, 5, 70, 0, 12, 100, 1, 30] * 2)
+    za, zb = int(a_lens.max()), int(b_lens.max())
+    a_rows = rng.integers(0, m, (n_a, za)).astype(np.int32)
+    a_vals = rng.standard_normal((n_a, za)).astype(np.float32)
+    for k, n in enumerate(a_lens):
+        a_rows[k, :n] = rng.choice(m, n, replace=False)
+    a_vals[a_lens == 0, 0] = 0.0
+    b_rows = rng.integers(0, n_a, (len(b_lens), zb)).astype(np.int32)
+    b_vals = rng.standard_normal((len(b_lens), zb)).astype(np.float32)
+    for c, n in enumerate(b_lens):
+        b_rows[c, :n] = rng.choice(n_a, n, replace=False)
+        b_vals[c, :n][a_lens[b_rows[c, :n]] == 0] = np.inf
+        b_vals[c, :n][rng.uniform(size=n) < 0.02] = -np.inf
+    ab = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(cuda) for x in (
+        a_rows, a_vals, a_lens.astype(np.int32), b_rows, b_vals,
+        b_lens.astype(np.int32)))
+    for cut in ("full", "half"):
+        steps = _spars_steps(ab, cut)
+        acc, flags = kernels.spars_spgemm(*ab, steps, m=m,
+                                          block_cols=SPARS_BLOCK)
+        torch.cuda.synchronize()
+        want_acc, want_flags = kernels.spars_spgemm_plain(
+            *ab, steps, m=m, block_cols=SPARS_BLOCK)
+        assert want_acc.isnan().any() and want_acc.isinf().any()
+        assert not want_acc.isnan().all(0).any()
+        torch.testing.assert_close(acc, want_acc, rtol=0, atol=0,
+                                   equal_nan=True)
+        assert torch.equal(flags, want_flags)
+
+
 def test_hash_kernel_equals_plain(cuda):
     op = _operands(cuda)
     before = kernels.hash_spgemm.n_launches

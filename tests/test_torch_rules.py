@@ -145,3 +145,19 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
+
+
+def test_build_key_covers_the_shared_header(monkeypatch, tmp_path):
+    """K2 and K3 share ``csrc/slice_kernel.cuh``: an edit to it changes the
+    library's cache key, so the kernels are built again; only the ``.cu``
+    files are compiled."""
+    from repro_torch.kernels import _build
+
+    for f in _build.CSRC.glob("*.cu*"):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    key = _build._key()
+    header = tmp_path / "slice_kernel.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build._key() != key
+    assert {p.suffix for p in _build.sources()} == {".cu"}
