@@ -26,22 +26,20 @@ device-side wait, output allocation included.  The builds go to
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
 import json
 import os
-import re
-import subprocess
 import sys
 
 import numpy as np
+
+from kernel_builds import ablated, build_all, read_sources, using, \
+    with_constants
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 MATRICES = ("S40PI_n1", "bcspwr09", "tols1090", "fpga_dcop_05", "watt_1",
             "pores_2", "cage9", "ex22", "adder_dcop_01", "Goodwin_013",
             "iprob")
-QUEUE_CYCLES = 5_000_000   # about 2.5 ms: time to queue a timed loop
 # what each ablation replaces in round_commit
 FOLD = "  // add the products, each slot's in step order by its lowest thread\n"
 INSERT = "  unsigned pending = news;\n"
@@ -51,67 +49,6 @@ ABLATIONS = {
     "both": ((FOLD, "  __syncwarp();\n  return;\n"),
              (INSERT, "  unsigned pending = 0;\n")),
 }
-
-
-def with_constants(src: str, assignments: str) -> str:
-    for item in assignments.split(","):
-        name, value = item.split("=")
-        src, n = re.subn(r"constexpr int %s = -?\d+;" % name,
-                         f"constexpr int {name} = {value};", src)
-        if n != 1:
-            raise SystemExit(f"no constant {name} in hash_spgemm.cu")
-    return src
-
-
-def ablated(src: str, what: str) -> str:
-    for old, new in ABLATIONS[what]:
-        if src.count(old) != 1:
-            raise SystemExit(f"ablation {what}: {old!r} not found once")
-        src = src.replace(old, new)
-    return src
-
-
-def build_all(sources: dict) -> dict:
-    """Compile each source into its own shared library, all at once."""
-    from repro_torch.kernels import _build
-
-    procs = {}
-    for name, text in sources.items():
-        out = os.path.join(ROOT, "build", "hash_shapes", name)
-        os.makedirs(out, exist_ok=True)
-        src = os.path.join(out, "hash_spgemm.cu")
-        with open(src, "w") as f:
-            f.write(text)
-        lib = os.path.join(out, "libhash.so")
-        procs[name] = (lib, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", src, "-o", lib],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (path, p) in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(path)
-        lib.repro_hash_launch.argtypes = \
-            _build.SIGNATURES["repro_hash_launch"]
-        lib.repro_hash_launch.restype = ctypes.c_int
-        lib.repro_error_string.argtypes = (ctypes.c_int,)
-        lib.repro_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
-    return libs
-
-
-@contextlib.contextmanager
-def using(lib):
-    """The kernel wrappers launch through ``lib`` inside the block."""
-    from repro_torch.kernels import _build
-
-    _build.library()
-    saved, _build._LIB = _build._LIB, lib
-    try:
-        yield
-    finally:
-        _build._LIB = saved
 
 
 def run(op):
@@ -129,22 +66,6 @@ def plain(op):
     fn = (kernels.hash_spgemm_batched_plain if op["ab"][1].dim() == 3
           else kernels.hash_spgemm_plain)
     return fn(*op["ab"], op["steps"], h=op["h"], block_cols=op["block"])
-
-
-def device_ms(fn, reps: int) -> float:
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(QUEUE_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def group_ops(plan, a):
@@ -184,17 +105,15 @@ def main(argv=None) -> int:
     from repro_torch.core import plan_spgemm
     from repro_torch.sparse import BatchedCSC
 
-    src_path = os.path.join(ROOT, "src", "repro_torch", "csrc",
-                            "hash_spgemm.cu")
-    with open(src_path) as f:
-        current = f.read()
+    current = read_sources(os.path.join(ROOT, "src", "repro_torch", "csrc",
+                                        "hash_spgemm.cu"))
     sources = {"current": current}
     for spec in args.set:
         name, assignments = spec.split("=", 1)
         sources[name] = with_constants(current, assignments)
     for what in args.ablate:
-        sources[f"no_{what}"] = ablated(current, what)
-    libs = build_all(sources)
+        sources[f"no_{what}"] = ablated(current, ABLATIONS[what], what)
+    libs = build_all(sources, "hash_shapes")
     exact = [n for n in libs if not n.startswith("no_")]
     dev = torch.device("cuda")
     print(f"card: {cs.card_line()}", flush=True)
@@ -217,7 +136,7 @@ def main(argv=None) -> int:
         times = {}
         for build, lib in libs.items():
             with using(lib):
-                times[build] = sum(device_ms(lambda: run(op), args.reps)
+                times[build] = sum(cs.event_ms(lambda: run(op), args.reps)
                                    for op in ops)
         print(json.dumps({"matrix": name, "method": "default",
                           "groups": len(ops), "hash_ms": times}), flush=True)
@@ -243,9 +162,9 @@ def main(argv=None) -> int:
     for build, lib in libs.items():
         with using(lib):
             out[build] = dict(
-                k4_ms=device_ms(lambda: run(op), args.reps),
-                k4b_ms=device_ms(lambda: run(bop), args.reps),
-                no_steps_ms=device_ms(lambda: run(idle), args.reps))
+                k4_ms=cs.event_ms(lambda: run(op), args.reps),
+                k4b_ms=cs.event_ms(lambda: run(bop), args.reps),
+                no_steps_ms=cs.event_ms(lambda: run(idle), args.reps))
     print(json.dumps({"matrix": "iprob", "method": "hash-256/256",
                       "h": op["h"], "products": cs.group_work("hash", op)[0],
                       "builds": out}), flush=True)

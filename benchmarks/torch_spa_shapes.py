@@ -30,14 +30,13 @@ alone, and that group's densest column alone and without it, beside
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import re
-import subprocess
 import sys
 
 import numpy as np
+
+from kernel_builds import CSRC, build_all, read_sources, with_constants
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -46,74 +45,9 @@ MATRICES = ("S40PI_n1", "bcspwr09", "tols1090", "fpga_dcop_05", "watt_1",
             "iprob")
 QUEUE_CYCLES = 5_000_000   # about 2.5 ms: time to queue a timed loop
 LAUNCH_CYCLES = 100_000    # about 50 us: more than the host takes a launch
-CSRC = os.path.join(ROOT, "src", "repro_torch", "csrc")
-# per kernel: its source, its C entry point, the plan method whose groups
-# of its kind are timed
-KERNELS = {"spa": ("spa.cu", "repro_spa_launch", None),
-           "spars": ("spars.cu", "repro_spars_launch", "spars-16/64")}
-
-
-def read_sources(path: str) -> dict:
-    """The kernel source at ``path`` and the headers beside it, by name."""
-    folder = os.path.dirname(os.path.abspath(path))
-    files = [path] + [os.path.join(folder, f) for f in sorted(
-        os.listdir(folder)) if f.endswith(".cuh")]
-    out = {}
-    for f in files:
-        with open(f) as fh:
-            out[os.path.basename(f)] = fh.read()
-    return out
-
-
-def with_constants(files: dict, assignments: str) -> dict:
-    """``files`` with each named ``constexpr int`` replaced in the one file
-    that defines it."""
-    files = dict(files)
-    for item in assignments.split(","):
-        name, value = item.split("=")
-        hits = 0
-        for fname, text in files.items():
-            files[fname], n = re.subn(r"constexpr int %s = -?\d+;" % name,
-                                      f"constexpr int {name} = {value};",
-                                      text)
-            hits += n
-        if hits != 1:
-            raise SystemExit(f"no single constant {name} in {sorted(files)}")
-    return files
-
-
-def build_all(sources: dict, kernel: str) -> dict:
-    """Compile each build's kernel source (its headers beside it) into its
-    own shared library, all at once."""
-    from repro_torch.kernels import _build
-
-    main, entry, _ = KERNELS[kernel]
-    procs = {}
-    for name, files in sources.items():
-        out = os.path.join(ROOT, "build", "spa_shapes", kernel, name)
-        os.makedirs(out, exist_ok=True)
-        for fname, text in files.items():
-            with open(os.path.join(out, fname), "w") as f:
-                f.write(text)
-        src = os.path.join(out, next(iter(files)))
-        procs[name] = (os.path.join(out, "lib.so"), subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-             src, "-o", os.path.join(out, "lib.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (path, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"{name}: nvcc failed\n{log}")
-        print(json.dumps({"build": name, "ptxas": re.findall(
-            r"Used \d+ registers.*|\d+ bytes stack frame.*", log)}),
-            flush=True)
-        lib = ctypes.CDLL(path)
-        fn = getattr(lib, entry)
-        fn.argtypes = _build.SIGNATURES[entry]
-        fn.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+# per kernel: its source, the plan method whose groups of its kind are
+# timed
+KERNELS = {"spa": ("spa.cu", None), "spars": ("spars.cu", "spars-16/64")}
 
 
 def launcher(lib, kernel: str, zeroed: bool):
@@ -156,20 +90,12 @@ def plain(kernel: str, op):
 
 def device_ms(fn, reps: int, launches: int = 1) -> float:
     """Device time of one ``fn`` call (``launches`` kernel launches), from
-    ``reps`` calls queued behind a device-side wait."""
-    import torch
+    ``reps`` calls queued behind a device-side wait long enough for the
+    host to queue them all."""
+    import chip_smoke as cs
 
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(max(QUEUE_CYCLES, LAUNCH_CYCLES * reps * launches))
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return cs.event_ms(fn, reps, queue_cycles=max(
+        QUEUE_CYCLES, LAUNCH_CYCLES * reps * launches))
 
 
 def library_operands(op):
@@ -211,13 +137,14 @@ def main(argv=None) -> int:
         print("FAIL: no CUDA device is available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    sys.path.insert(0, ROOT)
     from repro_torch.core import plan_spgemm
     from repro_torch.core.planner import BLOCK_COLS
     from repro_torch.sparse import CSC, synthesize_suitesparse
     from repro_torch.sparse.format import padded_values
 
     kind = args.kernel
-    main_src, _, method = KERNELS[kind]
+    main_src, method = KERNELS[kind]
     current = read_sources(os.path.join(CSRC, main_src))
     sources = {"current": current}
     for item in args.set:
@@ -225,7 +152,7 @@ def main(argv=None) -> int:
         sources[name] = with_constants(current, assignments)
     if args.baseline:
         sources["baseline"] = read_sources(args.baseline)
-    libs = build_all(sources, kind)
+    libs = build_all(sources, os.path.join("spa_shapes", kind))
     checked = {name: launcher(lib, kind, name == "baseline")
                for name, lib in libs.items()}
     launch = {name: launcher(lib, kind, False) for name, lib in libs.items()}

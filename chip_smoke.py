@@ -78,7 +78,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on real and integer values, at B = 1 and B = 8: the full-width gate and
    down matrices of the bsr path on a 128-column slice of x, and edge cases
    (all block-rows empty, some empty, max_nb padding, 8x16 and 16x16
-   blocks, a ragged column tile); each batched slice against K5.
+   blocks, a ragged column tile, 8x8 blocks on 132 and 130 columns: the
+   128-column instance and the generic one); each batched slice against
+   K5.
 11. Sparse FFN path: a prefill x [2048, 6144] and a batch xs [8, 128, 6144]
    through ``SparseFFN`` at both densities, with the counts set to 0 just
    before: three K5 launches per prefill and three K5-b per batch on the
@@ -92,7 +94,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    K5-b rows: each kernel against its plain version, bit for bit, on gate's
    and down's operands of the bsr path (prefill for K5, batch for K5-b),
    and timed on gate's beside ``torch.matmul`` of the pruned weight (and,
-   for K5-b, the BSR-tensor product).
+   for K5-b, the BSR-tensor product); each row adds the bound of the exact
+   order (a multiply and an add a product, twice the operation bound) and
+   the launch's shape (``bsr_layout``).
 
 The last two lines are the kernels' JSON and the card line; the very last is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -1155,10 +1159,11 @@ QUEUE_CYCLES = 5_000_000
 
 
 def event_ms(fn, reps: int, warmup: int = 1, per_call: bool = False,
-             queued: bool = True) -> float:
+             queued: bool = True, queue_cycles: int = QUEUE_CYCLES) -> float:
     """Mean device time of ``fn`` per call, by CUDA events around a loop of
     ``reps`` calls.  ``queued``: the loop is queued behind a device-side
-    wait (``torch.cuda._sleep``), so the card runs the calls back to back
+    wait (``torch.cuda._sleep`` of ``queue_cycles``, long enough for the
+    host to queue the loop), so the card runs the calls back to back
     and a call shorter than its host-side launch (a Python wrapper's checks
     take tens of microseconds) is timed by the card, not by the host's pace;
     not ``queued``, the host's pace counts as well.  With ``per_call``, the
@@ -1184,7 +1189,7 @@ def event_ms(fn, reps: int, warmup: int = 1, per_call: bool = False,
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     if queued:
-        torch.cuda._sleep(QUEUE_CYCLES)
+        torch.cuda._sleep(queue_cycles)
     start.record()
     for _ in range(reps):
         fn()
@@ -1811,8 +1816,10 @@ def bsr_edge_cases(dev):
     """(label, BSR operands, N) of the K5 edge cases, each weight
     [192, EDGE_K]: every block-row empty,
     a few block-rows empty, one block-row far longer than the rest (the
-    others padded to its max_nb), 8x16 and 16x16 blocks, and a column count
-    that is not a multiple of the kernel's 128-column tile."""
+    others padded to its max_nb), 8x16 and 16x16 blocks, a column count
+    that is not a multiple of the kernel's column tile, and 8x8 blocks on
+    132 columns (the 128-column instance, its second tile 4 wide) and on
+    130 (the generic instance)."""
     import torch
     from repro_torch.kernels import bsr_from_dense
     from repro_torch.models import prune_blocks
@@ -1835,6 +1842,8 @@ def bsr_edge_cases(dev):
     yield "max_nb_padding", ops(long_row, 8, 8), 256
     yield "blocks_8x16", ops(prune_blocks(w, 8, 16, 0.4)[0], 8, 16), 256
     yield "blocks_16x16", ops(prune_blocks(w, 16, 16, 0.4)[0], 16, 16), 200
+    yield "blocks_8x8_n132", ops(prune_blocks(w, 8, 8, 0.3)[0], 8, 8), 132
+    yield "blocks_8x8_n130", ops(prune_blocks(w, 8, 8, 0.3)[0], 8, 8), 130
 
 
 def compare_bsr(ops, xs, label):
@@ -2080,7 +2089,10 @@ def bsr_kernel_report(data, counts, dev, reps):
     path: gate's x^T and down's h, [D, T] and [F, T] for K5 (the prefill),
     [B, D, T] and [B, F, T] for K5-b (the batch); the row's max_abs_err is
     the larger of the two.  Each is timed on gate's operand, the plain
-    version once.  The library call is ``torch.matmul`` of the pruned dense
+    version once; ``exact_order_bound_ms`` is the bound with two
+    instructions a product (``__fmul_rn`` and ``__fadd_rn``, the order
+    that the kernel and its plain version share), ``at.layout`` the
+    launch's shape.  The library call is ``torch.matmul`` of the pruned dense
     weight (f32, full precision); the K5-b row also times the BSR-tensor
     product ``w.to_sparse_bsr((8, 8)) @ x`` once per activation set (at the
     prefill's N = 2048 that product asks for more than the card's memory
@@ -2124,16 +2136,21 @@ def bsr_kernel_report(data, counts, dev, reps):
         plain_ms = event_ms(lambda: plain(*ops, x), reps=1, warmup=0)
         products, nbytes = bsr_work(m, x)
         b_ms, by = bound_ms(products, nbytes)
+        n_rb, _, bm, bk = m.blocks.shape
         rows.append(dict(
             info, launches=counts[info["name"]], max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+            exact_order_bound_ms=bound_ms(2 * products, nbytes)[0],
             library_ms=event_ms(lambda: w @ x, reps),
             library_bsr_tensor_ms=lib_bsr_ms,
             at=dict(arch=FFN_ARCH, matrix="gate", keep_density=keep,
                     shape=list(m.shape), x=list(x.shape),
                     kept_blocks=int(m.block_nnz.sum()),
                     max_nb=m.blocks.shape[1], multiply_adds=products,
-                    bytes=nbytes, compared_on=["gate", "down"])))
+                    bytes=nbytes, compared_on=["gate", "down"],
+                    layout=kernels.bsr_layout(
+                        n_rb, bm, bk, x.shape[-1],
+                        x.shape[0] if x.dim() == 3 else 1))))
         del want, x
         torch.cuda.synchronize()
     return rows

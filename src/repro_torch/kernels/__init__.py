@@ -6,8 +6,10 @@
                   (csrc/slice_kernel.cuh holds the body both share)
 - hash_spgemm.py  K4 HASH lock-step SpGEMM: two warps per lane, its table
                   in shared memory (or, for h >= 32768, in device memory)
-- bsr_spmm.py     K5 padded-BSR x dense: one thread per output column of a
-                  block-row; and the host converter bsr_from_dense
+- bsr_spmm.py     K5 padded-BSR x dense: a CTA a group of 16 block-rows,
+                  x staged in shared memory chunk by chunk, an 8-row
+                  register tile a lane; and the host converter
+                  bsr_from_dense
 - ref.py          plain-torch oracles for the tests
 - ops.py          group-level wrappers + spgemm_cuda
 - _build.py       nvcc build of csrc/ and the ctypes binding
@@ -21,6 +23,7 @@ runs its plain PyTorch version for CPU tensors, and counts its launches in
 
 from repro_torch.kernels.bsr_spmm import (
     bsr_from_dense,
+    bsr_layout,
     bsr_spmm,
     bsr_spmm_batched,
     bsr_spmm_batched_plain,
@@ -72,6 +75,7 @@ def launch_counts() -> dict:
 __all__ = [
     "KERNELS",
     "bsr_from_dense",
+    "bsr_layout",
     "bsr_spmm",
     "bsr_spmm_batched",
     "bsr_spmm_batched_plain",

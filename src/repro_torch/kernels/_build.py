@@ -50,6 +50,8 @@ SIGNATURES = {
     # block_idx, block_nnz, blocks, n_rb, max_nb, bm, bk, x, k_dim, n,
     # batch, out, stream
     "repro_bsr_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P),
+    # K5's launch shape (no launch): n_rb, bm, bk, n, batch, aligned, out
+    "repro_bsr_layout": (_I, _I, _I, _I, _I, _I, _P),
 }
 
 _LOCK = threading.Lock()

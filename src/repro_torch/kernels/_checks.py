@@ -39,9 +39,10 @@ def check_tensors(named: dict, is_value, device=None) -> torch.device:
     return dev
 
 
-#: the most value sets one launch takes: the batch is a grid axis of every
-#: kernel (y, or z for K5-b), and each is at most 65535; the executors and
-#: ``SparseMatmul.batched`` split a larger batch (:func:`batch_chunks`)
+#: the most value sets one launch takes: the batch is a grid axis of K1-b
+#: … K4-b (y, at most 65535; K5-b puts it in its grid's one axis and keeps
+#: the same limit); the executors and ``SparseMatmul.batched`` split a larger
+#: batch (:func:`batch_chunks`)
 MAX_BATCH = 65535
 
 

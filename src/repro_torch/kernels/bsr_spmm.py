@@ -6,14 +6,18 @@ The counterpart of the JAX package's Pallas BSR kernel
 padded BSR (``block_idx [n_rb, max_nb]`` int32, ``block_nnz [n_rb]`` int32,
 ``blocks [n_rb, max_nb, bm, bk]`` f32) times dense activations ``x [K, N]``
 (``[B, K, N]`` batched) gives ``[n_rb * bm, N]`` (``[B, n_rb * bm, N]``).  On
-a CUDA tensor the wrappers launch the hand-written kernel (one thread per
-output column of a block-row, the batch a third grid axis) or raise; on a
-CPU tensor they run :func:`bsr_spmm_batched_plain`.  :func:`bsr_from_dense`
-is the reference's host converter, copied (less its ``threshold``, which no
-caller sets).
+a CUDA tensor the wrappers launch the hand-written kernel (a CTA a group of
+16 block-rows x a column tile x a batch element, x staged in shared memory
+chunk by chunk, an 8-row register tile a lane; :func:`bsr_layout` reports
+the launch's shape) or raise; on a CPU tensor they
+run :func:`bsr_spmm_batched_plain`.  :func:`bsr_from_dense` is the
+reference's host converter, copied (less its ``threshold``, which no caller
+sets).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -22,12 +26,31 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_batch, check_tensors, \
     stream_handle
 
-#: the kernel's column tile (one CTA, one thread per column) and the largest
-#: bk it stages (``kStage / kRows`` in ``csrc/bsr_spmm.cu``)
-TILE_COLS = 128
+#: the largest bk: a stage of the generic instance holds at least 256 rows
+#: of x, one block-column of 256
 MAX_BK = 256
-#: column tiles are the grid's second axis, at most 65535 of them
-MAX_COLS = 65535 * TILE_COLS
+#: columns are int32 on the card, a column tile of 256 past N included
+MAX_COLS = 2**31 - 1 - 256
+#: the keys of :func:`bsr_layout`, in ``repro_bsr_layout``'s order
+LAYOUT_KEYS = ("vec", "chunk", "slabs", "groups", "ctas", "group_units",
+               "stages")
+
+
+def bsr_layout(n_rb: int, bm: int, bk: int, n: int, batch: int = 1,
+               aligned: bool = True) -> dict:
+    """The launch's shape as ``csrc/bsr_spmm.cu`` chooses it (its
+    ``repro_bsr_layout``; this builds the kernel library): the instance
+    (``"8x8"`` or ``"generic"``), columns a lane (``vec``) and a tile
+    (``cols``), block-columns a chunk, units (8-row slabs) a block-row,
+    groups, CTAs (groups x column tiles x batch elements), units a group
+    and stages of x in flight.  ``aligned``: x has rows and x and the
+    output start on 16 bytes."""
+    out = (ctypes.c_longlong * len(LAYOUT_KEYS))()
+    _build.library().repro_bsr_layout(n_rb, bm, bk, n, batch, int(aligned),
+                                      ctypes.addressof(out))
+    lay = dict(zip(LAYOUT_KEYS, out))
+    return dict(instance="generic" if lay["vec"] == 1 else "8x8",
+                cols=32 * lay["vec"], **lay)
 
 
 def _check(block_idx, block_nnz, blocks, x, bn, device,
@@ -82,11 +105,17 @@ def bsr_spmm(block_idx, block_nnz, blocks, x, *, bn: int = 128,
     """``[n_rb * bm, N]`` = BSR(A) @ x for ``x [K, N]`` f32.
 
     ``N`` must be a multiple of ``bn`` (the reference's contract; the
-    kernel's own tile is :data:`TILE_COLS` columns, masked at the edge).
-    The BSR indices come from :func:`bsr_from_dense` and are trusted: every
-    ``block_idx[i, nb] * bk + bk <= K`` for ``nb < block_nnz[i] <= max_nb``
-    (the card does not check).  ``device``, when given, is where the
-    operands must lie.
+    kernel's own tile is 256, 128 or 32 columns, masked at the edge:
+    :func:`bsr_layout`).  The BSR indices come from :func:`bsr_from_dense`
+    and are trusted (the card does not check them): every
+    ``block_idx[i, nb] * bk + bk <= K`` for ``nb < block_nnz[i] <=
+    max_nb``, and each block-row's live ``block_idx[i, :block_nnz[i]]`` is
+    strictly ascending.  The kernel walks K in ascending chunks, each
+    block-row's blocks in the chunk they fall in, so that order is what
+    keeps its products in the plain version's order.  Operands that break
+    either rule give undefined results on the card (wrong values, not an
+    error; the plain version, on the CPU, still sums every live block).
+    ``device``, when given, is where the operands must lie.
     """
     dev = _check(block_idx, block_nnz, blocks, x, bn, device)
     if dev.type == "cpu":

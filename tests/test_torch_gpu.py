@@ -19,6 +19,7 @@ version, with no fused multiply-add, so they must agree exactly — on
 real-valued inputs too.
 """
 
+import itertools
 import warnings
 
 import numpy as np
@@ -779,3 +780,140 @@ def test_sparse_ffn_on_card_equals_cpu(cuda, keep):
         3 if path == "bsr" else 0)
     for got, want in ((got3, on_cpu(x)), (got2, on_cpu(x[0]))):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+# K5's walk (a CTA a group of 16 8-row units x a column tile, K in
+# ascending chunks of whole block-columns), as (n_rb, n_cb, bm, bk, N): the
+# 8x8 instance (N a multiple of 4) and the generic one (any other shape)
+BSR_WALK_CASES = {
+    # 3 groups, the last 5 units; 70 block-columns, 5 chunks, the last cut
+    # short; a 128-column tile and one of 8
+    "8x8_groups_chunks_tiles": (37, 70, 8, 8, 136),
+    # 8 columns a lane: 256-column tiles; and 257 groups of 128 columns,
+    # a tile an element (K5-b: 771 CTAs)
+    "8x8_wide_tiles": (21, 70, 8, 8, 512),
+    "8x8_many_groups": (4100, 24, 8, 8, 128),
+    "8x8_n200": (20, 33, 8, 8, 200),
+    "8x8_n_not_a_multiple_of_4": (20, 33, 8, 8, 130),
+    "8x16": (19, 40, 8, 16, 72),
+    "16x16": (11, 40, 16, 16, 40),
+    "16x8_two_slabs": (9, 50, 16, 8, 64),
+    "3x5_odd": (30, 120, 3, 5, 33),
+    "12x20_cut_slab_and_piece": (13, 30, 12, 20, 48),
+    "8x256_widest": (18, 5, 8, 256, 32),
+}
+
+
+def _bsr_walk_operands(dev, case, integer, batch=3, keep=0.3, seed=21):
+    """BSR operands of BSR_WALK_CASES[case] (about ``keep`` of the blocks
+    kept, some block-rows empty) and xs [batch, K, N], integer-valued in
+    {-2 ... 2} or normal."""
+    n_rb, n_cb, bm, bk, n = BSR_WALK_CASES[case]
+    rng = np.random.default_rng([seed, len(case)])
+    kept = rng.uniform(size=(n_rb, n_cb)) < keep
+    kept[rng.uniform(size=n_rb) < 0.15] = False
+    if integer:
+        w = rng.integers(-2, 3, (n_rb, bm, n_cb, bk)).astype(np.float32)
+        xs = rng.integers(-2, 3, (batch, n_cb * bk, n)).astype(np.float32)
+    else:
+        w = rng.standard_normal((n_rb, bm, n_cb, bk)).astype(np.float32)
+        xs = rng.standard_normal((batch, n_cb * bk, n)).astype(np.float32)
+    w = (w * kept[:, None, :, None]).reshape(n_rb * bm, n_cb * bk)
+    return w, _bsr_lift(w, bm, bk, dev), torch.from_numpy(xs).to(dev)
+
+
+def _bsr_lift(w, bm, bk, dev):
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in kernels.bsr_from_dense(w, bm, bk))
+
+
+def _check_bsr_both(ops, xs):
+    """K5 on each slice and K5-b on xs, each against its plain version bit
+    for bit and counted once a launch; K5-b's slices equal K5's."""
+    b_before = kernels.bsr_spmm_batched.n_launches
+    got_b = kernels.bsr_spmm_batched(*ops, xs, bn=xs.shape[2])
+    torch.cuda.synchronize()
+    assert kernels.bsr_spmm_batched.n_launches == b_before + 1
+    assert torch.equal(got_b, kernels.bsr_spmm_batched_plain(*ops, xs))
+    for b in range(xs.shape[0]):
+        before = kernels.bsr_spmm.n_launches
+        got = kernels.bsr_spmm(*ops, xs[b], bn=xs.shape[2])
+        torch.cuda.synchronize()
+        assert kernels.bsr_spmm.n_launches == before + 1
+        assert torch.equal(got, kernels.bsr_spmm_plain(*ops, xs[b]))
+        assert torch.equal(got_b[b], got)
+    return got_b
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("case", sorted(BSR_WALK_CASES))
+def test_bsr_kernel_walk_cases_equal_plain(cuda, case, integer):
+    w, ops, xs = _bsr_walk_operands(cuda, case, integer)
+    got = _check_bsr_both(ops, xs)
+    if integer:   # every sum exact in f32: the f64 product
+        want = torch.from_numpy(w).double().to(cuda) @ xs.double()
+        assert torch.equal(got.double(), want)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_bsr_kernel_one_block_row_far_longer_than_its_group(cuda, integer):
+    """Block-row 5 keeps every block of 60 block-columns, its group's other
+    15 one block each (max_nb pads them to 60): their warps wait at every
+    chunk for block-row 5's."""
+    n_rb, n_cb = 32, 60
+    rng = np.random.default_rng(22)
+    w = (rng.integers(-2, 3, (n_rb * 8, n_cb * 8)) if integer
+         else rng.standard_normal((n_rb * 8, n_cb * 8))).astype(np.float32)
+    keep = np.zeros((n_rb, n_cb), bool)
+    keep[np.arange(n_rb), rng.integers(0, n_cb, n_rb)] = True
+    keep[5] = True
+    w *= np.repeat(np.repeat(keep, 8, 0), 8, 1)
+    ops = _bsr_lift(w, 8, 8, cuda)
+    assert int(ops[1].max()) == n_cb == ops[0].shape[1]
+    xs = torch.from_numpy((rng.integers(-2, 3, (2, n_cb * 8, 256)) if integer
+                           else rng.standard_normal((2, n_cb * 8, 256)))
+                          .astype(np.float32)).to(cuda)
+    _check_bsr_both(ops, xs)
+
+
+@pytest.mark.parametrize("bm,bk", [(8, 8), (16, 16)])
+def test_bsr_kernel_all_empty_groups_write_zeros(cuda, bm, bk):
+    """The first two groups' block-rows keep nothing (their CTAs stage no
+    chunk), a later one keeps one block; an all-zero weight gives zeros."""
+    rng = np.random.default_rng(23)
+    w = np.zeros((40 * bm, 20 * bk), np.float32)
+    w[35 * bm: 36 * bm, 7 * bk: 8 * bk] = rng.standard_normal((bm, bk))
+    xs = torch.from_numpy(rng.standard_normal((2, 20 * bk, 64)).astype(
+        np.float32)).to(cuda)
+    got = _check_bsr_both(_bsr_lift(w, bm, bk, cuda), xs)
+    assert not got[:, : 35 * bm].any() and got[:, 35 * bm: 36 * bm].any()
+    zero = _check_bsr_both(_bsr_lift(np.zeros_like(w), bm, bk, cuda), xs)
+    assert not zero.any()
+
+
+def test_bsr_kernel_on_an_unaligned_x(cuda):
+    """x starting 4 bytes past a 16-byte boundary (a contiguous view) takes
+    the generic instance at 8x8 blocks, still equal to the plain version."""
+    _, ops, xs = _bsr_walk_operands(cuda, "8x8_groups_chunks_tiles", False)
+    flat = torch.empty(xs.numel() + 1, device=cuda)
+    shifted = flat[1:].view(xs.shape)
+    shifted.copy_(xs)
+    assert shifted.data_ptr() % 16 == 4
+    assert kernels.bsr_layout(37, 8, 8, 136, aligned=False)["instance"] \
+        == "generic"
+    _check_bsr_both(ops, shifted)
+
+
+def test_bsr_layout_model_equals_the_kernels_choice(cuda):
+    """``kernels.bsr_layout``, the launch shape that ``csrc/bsr_spmm.cu``
+    chooses, equals the CPU tests' model of it (``torch_bsr_walk``), which
+    gives the walk model its tiles and chunks: every instance, alignment,
+    the batch, and group and tile borders."""
+    from torch_bsr_walk import model_layout
+
+    blocks = ((8, 8), (8, 16), (16, 16), (16, 8), (3, 5), (8, 256))
+    for n_rb, (bm, bk), n, batch, aligned in itertools.product(
+            (1, 37, 768, 3072, 4100), blocks,
+            (32, 128, 130, 132, 200, 256, 2048), (1, 3, 8), (True, False)):
+        args = (n_rb, bm, bk, n, batch, aligned)
+        assert kernels.bsr_layout(*args) == model_layout(*args), args

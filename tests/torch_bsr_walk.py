@@ -1,0 +1,85 @@
+"""A plain PyTorch model of K5's walk (``csrc/bsr_spmm.cu``) and of its
+choice of launch shape, for the CPU tests (``test_torch_bsr_layout.py``)
+and the card's (``test_torch_gpu.py``, which holds :func:`model_layout` to
+``kernels.bsr_layout``, the kernel's own report).  Imports no JAX.
+"""
+
+import torch
+
+# the kernel's constants: units (8-row slabs, one a warp) a group, stages
+# of x in flight, floats a stage, rows of a slab and kk of a piece
+GROUP_UNITS, STAGES, STAGE_FLOATS, SLAB_ROWS = 16, 3, 16384, 8
+
+
+def model_layout(n_rb, bm, bk, n, batch=1, aligned=True) -> dict:
+    """The launch's shape that ``csrc/bsr_spmm.cu`` chooses, with the keys
+    of ``kernels.bsr_layout``: 8 columns a lane on 8x8 blocks where N is a
+    multiple of 256, 4 on other 8x8 operands with N a multiple of 4, x and
+    the output 16-byte aligned and x with rows; 1 (the generic instance)
+    on any other."""
+    slabs = -(-bm // SLAB_ROWS)
+    groups = -(-(n_rb * slabs) // GROUP_UNITS)
+    fixed = bm == 8 and bk == 8 and n % 4 == 0 and aligned
+    vec = 1 if not fixed else 8 if n % 256 == 0 else 4
+    cols = 32 * vec
+    return dict(instance="generic" if vec == 1 else "8x8", vec=vec,
+                cols=cols, chunk=STAGE_FLOATS // cols // bk, slabs=slabs,
+                groups=groups, ctas=groups * -(-n // cols) * batch,
+                group_units=GROUP_UNITS, stages=STAGES)
+
+
+def walk_model(block_idx, block_nnz, blocks, xs, *, group=None,
+               stage_floats=None):
+    """out [B, n_rb * bm, N] as the kernel computes it, step by step."""
+    n_rb, _, bm, bk = blocks.shape
+    batch, k_dim, n = xs.shape
+    lay = model_layout(n_rb, bm, bk, n, batch, k_dim > 0)
+    group = group or GROUP_UNITS
+    cols = lay["cols"]
+    chunk = (stage_floats or STAGE_FLOATS) // cols // bk
+    slab = SLAB_ROWS
+    slabs = lay["slabs"]
+    n_units = n_rb * slabs
+    idx, nnz = block_idx.tolist(), block_nnz.tolist()
+    out = torch.full((batch, n_rb * bm, n), float("nan"))
+    for elem in range(batch):
+        for col0 in range(0, n, cols):
+            # the tile's x: K x its columns, zeros past N
+            tile = torch.zeros((k_dim, cols))
+            part = xs[elem, :, col0: col0 + cols]
+            tile[:, : part.shape[1]] = part
+            for u0 in range(0, n_units, group):
+                units = range(u0, min(u0 + group, n_units))
+                rows = [u // slabs for u in units]
+                firsts = [idx[i][0] for i in rows if nnz[i]]
+                lasts = [idx[i][nnz[i] - 1] for i in rows if nnz[i]]
+                chunks = (range(min(firsts) // chunk, max(lasts) // chunk + 1)
+                          if firsts else range(0))
+                acc = {u: torch.zeros((slab, cols)) for u in units}
+                cursor = {u: 0 for u in units}
+                for c in chunks:
+                    # the stage: the chunk's rows of the tile, zeros past K
+                    stage = torch.zeros((chunk * bk, cols))
+                    rows_c = tile[c * chunk * bk: (c + 1) * chunk * bk]
+                    stage[: rows_c.shape[0]] = rows_c
+                    for u in units:
+                        i, s = divmod(u, slabs)
+                        while cursor[u] < nnz[i] and \
+                                idx[i][cursor[u]] < (c + 1) * chunk:
+                            nb = cursor[u]
+                            for p in range(-(-bk // slab)):
+                                w = torch.zeros((slab, slab))
+                                piece = blocks[i, nb, s * slab: (s + 1) * slab,
+                                               p * slab: (p + 1) * slab]
+                                w[: piece.shape[0], : piece.shape[1]] = piece
+                                row0 = (idx[i][nb] - c * chunk) * bk + p * slab
+                                for kk in range(min(slab, bk - p * slab)):
+                                    acc[u] = acc[u] + w[:, kk, None] \
+                                        * stage[None, row0 + kk]
+                            cursor[u] += 1
+                for u in units:
+                    i, s = divmod(u, slabs)
+                    r1 = min(slab, bm - s * slab)
+                    out[elem, i * bm + s * slab: i * bm + s * slab + r1,
+                        col0: col0 + cols] = acc[u][:r1, : n - col0]
+    return out
