@@ -20,7 +20,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    columns), through K2 and, at full and cut trip counts per lane block of
    8, through K3 — exactly equal; K1
    (the fused stream replay) likewise on the forward and both gradient
-   views of every matrix's product stream, plus edge cases.
+   views of every matrix's product stream, plus edge cases (among them,
+   around K1's long-slot threshold L: slots of L - 1, L and L + 1
+   products, 3000 slots of 3000, a long slot first and last, long slots
+   beside empty ones, no long slot); then K1-b at B = 1, 3, 8, 9 and 17
+   against a loop of K1, bit for bit, on all those views.
 3. Main path: C = A·A through ``repro_torch.core.spgemm`` for eleven of the
    paper's Table-1 matrices (synthesized from their published statistics,
    integer values in {1, 2, 3} from ``--seed``) under the default method and
@@ -696,20 +700,19 @@ def batched_kernel_phase(plans, fplans, mats, stacks, dev, seed):
                                f"{len(g.cols)} cols")
                 sliced[g.kind] += 1
         view = fused_stream(fplans[name]["plan"]).forward
-        idx = (view.idx_x, view.idx_y, view.seg_ptr)
         x, y = a2.to(dev), b2.to(dev)
-        got = kernels.fused_stream_batched(*idx, x, y)
+        got = run_k1b(view, x, y)
         torch.cuda.synchronize()
-        want = kernels.fused_stream_batched_plain(*idx, x, y)
+        want = run_k1_plain(view, x, y, batched=True)
         check(torch.equal(got, want), f"fused_stream_batched {name} B = 2: "
               "kernel != plain version")
         errs["fused"] = max(errs["fused"], float(
             (got.double() - want.double()).abs().max()))
         checked["fused"] += 1
         x, y = sa.values.to(dev), sb.values.to(dev)
-        got = kernels.fused_stream_batched(*idx, x, y)
+        got = run_k1b(view, x, y)
         for b in range(BATCH):
-            check(torch.equal(got[b], kernels.fused_stream(*idx, x[b], y[b])),
+            check(torch.equal(got[b], run_k1(view, x[b], y[b])),
                   f"fused_stream_batched {name}: slice {b} != K1 on value "
                   f"set {b}")
         sliced["fused"] += 1
@@ -850,14 +853,23 @@ def view_operands(plan, a, seed):
 def run_k1(view, x, y):
     from repro_torch import kernels
 
-    return kernels.fused_stream(view.idx_x, view.idx_y, view.seg_ptr, x, y)
+    return kernels.fused_stream(view.idx_x, view.idx_y, view.seg_ptr, x, y,
+                                long_slots=view.long_slots)
 
 
-def run_k1_plain(view, x, y):
+def run_k1b(view, x, y):
     from repro_torch import kernels
 
-    return kernels.fused_stream_plain(view.idx_x, view.idx_y, view.seg_ptr,
-                                      x, y)
+    return kernels.fused_stream_batched(view.idx_x, view.idx_y, view.seg_ptr,
+                                        x, y, long_slots=view.long_slots)
+
+
+def run_k1_plain(view, x, y, batched=False):
+    from repro_torch import kernels
+
+    fn = (kernels.fused_stream_batched_plain if batched
+          else kernels.fused_stream_plain)
+    return fn(view.idx_x, view.idx_y, view.seg_ptr, x, y)
 
 
 def compare_k1(view, x, y, label):
@@ -872,7 +884,7 @@ def compare_k1(view, x, y, label):
           and got.dtype == want.dtype == torch.float32,
           f"fused_stream {label}: shape/dtype {got.shape}/{got.dtype} vs "
           f"{want.shape}/{want.dtype}")
-    check(torch.equal(got, want),
+    check(torch.equal(bits(got), bits(want)),
           f"fused_stream {label}: kernel != plain version")
     return float((got.double() - want.double()).abs().max()) \
         if got.numel() else 0.0
@@ -881,30 +893,50 @@ def compare_k1(view, x, y, label):
 def k1_edge_views(dev):
     """K1 views of the edge cases, and normal values for them: zero
     products, one segment spanning the whole stream, many one-product
-    segments, and empty segments between full ones."""
+    segments, and empty segments between full ones; around K1's long-slot
+    threshold L (``LONG_SLOT``): slots of L - 1, L and L + 1 products, 3000
+    slots of 3000 products (iprob's gradient views), a long slot first and
+    last, long slots beside empty ones, and a view with no long slot."""
     import torch
     from repro_torch.core.fused_stream import FusedView
+    from repro_torch.kernels.fused_stream import LONG_SLOT, long_slots_of
 
     rng = np.random.default_rng(4)
     n_val = 1000
 
-    def view(seg_ptr):
+    def view(lens):
+        seg_ptr = np.concatenate(([0], np.cumsum(lens))).astype(np.int32)
         p = int(seg_ptr[-1])
 
         def lift(v):
             return torch.as_tensor(np.asarray(v, np.int32), device=dev)
 
-        return FusedView(lift(rng.integers(0, n_val, p)),
-                         lift(rng.integers(0, n_val, p)), lift(seg_ptr),
-                         None, len(seg_ptr) - 1, p)
+        return FusedView(
+            idx_x=lift(rng.integers(0, n_val, p)),
+            idx_y=lift(rng.integers(0, n_val, p)), seg_ptr=lift(seg_ptr),
+            long_slots=long_slots_of(torch.from_numpy(seg_ptr)).to(dev),
+            out_map=None, n_out=len(seg_ptr) - 1, n_products=p)
 
     lens = rng.integers(0, 4, 5000)
+    near = rng.choice([LONG_SLOT - 1, LONG_SLOT, LONG_SLOT + 1], 3000)
+    beside_empty = np.zeros(4000, int)
+    beside_empty[1::3] = rng.integers(LONG_SLOT + 1, 400, len(
+        beside_empty[1::3]))
     cases = {
-        "zero_products": view(np.zeros(4)),
-        "one_segment": view(np.array([0, 20_000])),
-        "one_product_segments": view(np.arange(200_001)),
-        "empty_segments": view(np.concatenate(([0], np.cumsum(lens)))),
+        "zero_products": view(np.zeros(3, int)),
+        "one_segment": view(np.array([20_000])),
+        "one_product_segments": view(np.ones(200_000, int)),
+        "empty_segments": view(lens),
+        "around_the_threshold": view(near),
+        "3000_slots_of_3000": view(np.full(3000, 3000)),
+        "long_first_and_last": view(np.concatenate((
+            [5000], rng.integers(0, 8, 20_000), [4321]))),
+        "long_beside_empty": view(beside_empty),
+        "no_long_slot": view(rng.integers(0, LONG_SLOT + 1, 50_000)),
     }
+    check(cases["no_long_slot"].long_slots.numel() == 0
+          and cases["3000_slots_of_3000"].long_slots.numel() == 3000,
+          "K1's edge views: long-slot lists not as built")
     x, y = (torch.from_numpy(rng.standard_normal(n_val).astype(np.float32))
             .to(dev) for _ in range(2))
     return cases, x, y
@@ -927,6 +959,61 @@ def fused_kernel_phase(fplans, mats, dev, seed):
     print(f"kernel fused_stream: {checked} comparisons with the plain "
           f"version, max |diff| {err}", flush=True)
     return err
+
+
+# K1-b's batch sizes: within one tile of 8 value sets, one whole tile, and
+# one or two tiles and a part
+K1B_BATCHES = (1, 3, 8, 9, 17)
+
+
+def bits(t):
+    """``t``'s f32 values as their bit patterns (torch.equal of two of
+    them tells -0.0 from 0.0)."""
+    import torch
+
+    return t.contiguous().view(torch.int32)
+
+
+def fused_batch_phase(fplans, mats, dev, seed):
+    """K1-b at B = 1, 3, 8, 9 and 17 normal value sets against a loop of K1,
+    slice by slice, bit for bit, on the three views of every matrix and on
+    K1's edge views; on the edge views K1-b also against its plain version
+    at B = 3."""
+    import torch
+    from repro_torch.core import fused_stream
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    views = []
+    for name in MATRICES:
+        fs = fused_stream(fplans[name]["plan"])
+        nnz = mats[name].nnz
+        for vname in ("forward", "grad_a", "grad_b"):
+            n_x = nnz if vname == "forward" else fs.forward.n_out
+            views.append((f"{name} {vname}", getattr(fs, vname), n_x, nnz))
+    cases, x, _ = k1_edge_views(dev)
+    edges = [(label, view, x.numel(), x.numel())
+             for label, view in cases.items()]
+    launches = 0
+    for i, (label, view, n_x, n_y) in enumerate(views + edges):
+        for batch in K1B_BATCHES:
+            xs, ys = (torch.randn((batch, n), generator=gen, device=dev)
+                      for n in (n_x, n_y))
+            got = run_k1b(view, xs, ys)
+            launches += 1
+            for b in range(batch):
+                check(torch.equal(bits(got[b]),
+                                  bits(run_k1(view, xs[b], ys[b]))),
+                      f"fused_stream_batched {label} B = {batch}: slice {b} "
+                      f"!= K1 on value set {b}")
+            if batch == 3 and i >= len(views):
+                check(torch.equal(bits(got), bits(run_k1_plain(
+                    view, xs, ys, batched=True))),
+                      f"fused_stream_batched {label} B = 3: kernel != plain "
+                      "version")
+    print(f"kernel fused_stream_batched: {launches} launches at B in "
+          f"{K1B_BATCHES} equal a loop of K1 bit for bit ({len(views)} "
+          f"matrix views, {len(edges)} edge views; the edge views also the "
+          "plain version at B = 3)", flush=True)
 
 
 def fused_path(mats, expected):
@@ -1621,6 +1708,16 @@ def grad_library_ms(plan, a, vname, g, v, got, reps):
     return event_ms(call, reps)
 
 
+def k1_chain(view) -> dict:
+    """The view's long slots (a warp each in K1) and its longest slot, whose
+    products one lane adds one after another, counted from the view."""
+    import torch
+
+    longest = int(torch.diff(view.seg_ptr).max()) if view.n_out else 0
+    return dict(long_slots=int(view.long_slots.numel()),
+                longest_slot=longest)
+
+
 def k1_report(biggest, launches, err, libs, fplans, mats, reps):
     """K1's row of the kernels line: timed at its largest forward view,
     with the largest gradient views beside it, each beside the one PyTorch
@@ -1642,7 +1739,7 @@ def k1_report(biggest, launches, err, libs, fplans, mats, reps):
             run_k1(view, x, y), reps)
         timed[vname] = dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
-            library_ms=lib,
+            library_ms=lib, **k1_chain(view),
             at=dict(matrix=name, view=vname, products=products,
                     segments=view.n_out, bytes=work[1]))
         torch.cuda.synchronize()
@@ -1697,10 +1794,9 @@ def batched_kernel_report(biggest, k1_biggest, plans, stacks, counts, errs,
     _, name, view, _, _ = k1_biggest["forward"]
     sa, sb = stacks[name]
     x, y = sa.values.to(dev), sb.values.to(dev)
-    idx = (view.idx_x, view.idx_y, view.seg_ptr)
-    ms = event_ms(lambda: kernels.fused_stream_batched(*idx, x, y), reps)
-    plain = event_ms(lambda: kernels.fused_stream_batched_plain(*idx, x, y),
-                     reps=1, warmup=0)
+    ms = event_ms(lambda: run_k1b(view, x, y), reps)
+    plain = event_ms(lambda: run_k1_plain(view, x, y, batched=True), reps=1,
+                     warmup=0)
     products, nbytes = k1_work(view, x, y)
     b_ms, by = bound_ms(products, nbytes)
     csrs = [(torch_csr(sa[b], dev), torch_csr(sb[b], dev))
@@ -1710,6 +1806,7 @@ def batched_kernel_report(biggest, k1_biggest, plans, stacks, counts, errs,
     rows.insert(0, dict(
         info, launches=counts[info["name"]], max_abs_err=errs["fused"],
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib,
+        **k1_chain(view),
         at=dict(matrix=name, view="forward", batch=BATCH,
                 products=products, segments=view.n_out, bytes=nbytes)))
     torch.cuda.synchronize()
@@ -2224,6 +2321,7 @@ def main(argv=None) -> int:
 
     errs, edge_tiers = timed(kernel_phase, plans, mats, dev, args.seed)
     k1_err = timed(fused_kernel_phase, fplans, mats, dev, args.seed)
+    timed(fused_batch_phase, fplans, mats, dev, args.seed)
     b_errs, b_edge_tiers = timed(batched_kernel_phase, plans, fplans, mats,
                                  stacks, dev, args.seed)
     counts = timed(main_path, mats, expected)

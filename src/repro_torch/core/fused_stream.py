@@ -9,9 +9,10 @@ The host side of the JAX package's ``core/pallas_stream.py``.  Its views are
 not a copy of the TPU layout: the Pallas kernel tiles the product axis into
 128-product grid steps and carries partial sums across steps through an
 output window, which holds only because TPU grid steps run in order.  K1
-gives each output slot to one thread, so a view here is just the two gather
-index vectors, the segment offsets and, for the gradient views, the scatter
-``out_map``: no padding, block ids, local ids or masks.
+gives each output slot one owner, a thread or (for a slot of more than
+``LONG_SLOT`` products) a warp, so a view here is just the two gather index
+vectors, the segment offsets, the list of long slots and, for the gradient
+views, the scatter ``out_map``: no padding, block ids, local ids or masks.
 
 **Views.**  The forward view replays the stream in C-slot order.  The
 gradient views replay it sorted (stably) by the differentiated operand's
@@ -51,6 +52,7 @@ from repro_torch.core.device_stream import (
 )
 from repro_torch.core.executor import _check_batch, _values
 from repro_torch.core.fast import ProductStream, build_product_stream
+from repro_torch.kernels.fused_stream import long_slots_of
 from repro_torch.sparse.format import CSC
 
 
@@ -59,13 +61,16 @@ class FusedView:
     """Device-resident index tensors of one K1 replay.
 
     Segment s covers products ``[seg_ptr[s], seg_ptr[s+1])``; product q
-    multiplies ``x[idx_x[q]]`` by ``y[idx_y[q]]``.  Gradient views scatter
-    their ``n_out`` sums through ``out_map``; the forward view has none.
+    multiplies ``x[idx_x[q]]`` by ``y[idx_y[q]]``.  ``long_slots`` lists the
+    segments longer than ``LONG_SLOT`` products, which K1 gives a warp each.
+    Gradient views scatter their ``n_out`` sums through ``out_map``; the
+    forward view has none.
     """
 
     idx_x: torch.Tensor              # [P] int32 into the x operand
     idx_y: torch.Tensor              # [P] int32 into the y operand
     seg_ptr: torch.Tensor            # [n_out + 1] int32 segment offsets
+    long_slots: torch.Tensor         # [n_long] int32 ids of the long slots
     out_map: Optional[torch.Tensor]  # [n_out] int64 scatter (grad views)
     n_out: int
     n_products: int
@@ -74,7 +79,8 @@ class FusedView:
     def nbytes(self) -> int:
         """Device bytes held by this view's index tensors."""
         return sum(t.nbytes for t in (self.idx_x, self.idx_y, self.seg_ptr,
-                                      self.out_map) if t is not None)
+                                      self.long_slots, self.out_map)
+                   if t is not None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,9 +112,11 @@ def _lift(arr, dtype, dev) -> torch.Tensor:
 
 
 def _view(idx_x, idx_y, seg_ptr, dev, out_map=None) -> FusedView:
+    seg_ptr = np.asarray(seg_ptr, np.int32)
     return FusedView(
         idx_x=_lift(idx_x, np.int32, dev), idx_y=_lift(idx_y, np.int32, dev),
         seg_ptr=_lift(seg_ptr, np.int32, dev),
+        long_slots=long_slots_of(torch.from_numpy(seg_ptr)).to(dev),
         out_map=None if out_map is None else _lift(out_map, np.int64, dev),
         n_out=len(seg_ptr) - 1, n_products=len(idx_x))
 
@@ -164,7 +172,8 @@ def _fused_call(view: FusedView, x, y) -> torch.Tensor:
     """One K1 launch over ``view``: the ``[n_out]`` segment sums."""
     from repro_torch.kernels import fused_stream as k1
 
-    return k1(view.idx_x, view.idx_y, view.seg_ptr, x, y)
+    return k1(view.idx_x, view.idx_y, view.seg_ptr, x, y,
+              long_slots=view.long_slots)
 
 
 def _scatter(view: FusedView, compact: torch.Tensor, n: int) -> torch.Tensor:
@@ -280,7 +289,8 @@ def execute_fused_batched(plan, a_values, b_values, *,
     parts = batch_chunks(_stack(av, dev), _stack(bv, dev))
     with torch.no_grad():
         vals = [fused_stream_batched(view.idx_x, view.idx_y, view.seg_ptr,
-                                     x, y) for x, y in parts]
+                                     x, y, long_slots=view.long_slots)
+                for x, y in parts]
     _fused_stats(stats, plan, view, cached)
     if stats is not None:
         stats["batch"] = batch

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``csrc/*.cu``) and their wrappers.
 
-- fused_stream.py K1 fused product-stream replay: one thread per output slot
+- fused_stream.py K1 fused product-stream replay: a thread per short output
+                  slot (a tile of value sets in each), a warp per long one
+                  (more than LONG_SLOT products) and value set
 - spa.py          K2 SPA SpGEMM: a CTA per 8 C columns x 512 rows
 - spars.py        K3 SPARS lock-step SpGEMM: K2's slice kernel in lock-step
                   (csrc/slice_kernel.cuh holds the body both share)

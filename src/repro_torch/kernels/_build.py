@@ -44,9 +44,10 @@ SIGNATURES = {
     # keys, vals, ws_keys, ws_vals, stream
     "repro_hash_launch": _A_B + (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                                  _P),
-    # idx_x, idx_y, seg_ptr, x, y, n_x, n_y, n_out, batch, out, stream
-    "repro_fused_stream_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                                  _P),
+    # idx_x, idx_y, seg_ptr, long_slots, n_long, x, y, n_x, n_y, n_out,
+    # batch, out, stream
+    "repro_fused_stream_launch": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
+                                  _P, _P),
     # block_idx, block_nnz, blocks, n_rb, max_nb, bm, bk, x, k_dim, n,
     # batch, out, stream
     "repro_bsr_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P),

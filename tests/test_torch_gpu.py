@@ -664,6 +664,42 @@ def test_fused_batched_kernel_equals_plain_and_slices(cuda):
             view.idx_x, view.idx_y, view.seg_ptr, x[b], y[b]))
 
 
+def _long_slot_view(dev, seed=11):
+    """K1 operands around its long-slot threshold L: slots of L - 1, L,
+    L + 1 and many more products, long slots first, last, side by side
+    and beside empty ones."""
+    from repro_torch.kernels.fused_stream import LONG_SLOT, long_slots_of
+
+    rng = np.random.default_rng(seed)
+    big = LONG_SLOT + 1
+    lens = np.concatenate(([3000, 0, big, big, 0], rng.choice(
+        [0, 1, LONG_SLOT - 1, LONG_SLOT, big, 700], 2000), [0, 4321]))
+    seg_ptr = torch.from_numpy(np.concatenate(([0], np.cumsum(lens))).astype(
+        np.int32))
+    p, n_val = int(seg_ptr[-1]), 500
+    idx = [torch.from_numpy(rng.integers(0, n_val, p).astype(np.int32)).to(
+        dev) for _ in range(2)]
+    return (*idx, seg_ptr.to(dev)), long_slots_of(seg_ptr).to(dev), n_val
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 9, 17])
+def test_fused_kernel_tiers_equal_plain_and_loop(cuda, batch):
+    """Both tiers of K1 bit for bit against the plain version, K1-b's tiles
+    slice by slice against K1, and a launch without the list (the wrapper
+    builds it) the same."""
+    view, long_slots, n_val = _long_slot_view(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(batch)
+    x, y = (torch.randn((batch, n_val), generator=gen, device=cuda)
+            for _ in range(2))
+    got = kernels.fused_stream_batched(*view, x, y, long_slots=long_slots)
+    want = kernels.fused_stream_batched_plain(*view, x, y)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for b in range(batch):
+        one = kernels.fused_stream(*view, x[b], y[b], long_slots=long_slots)
+        assert torch.equal(one.view(torch.int32), got[b].view(torch.int32))
+    assert torch.equal(kernels.fused_stream_batched(*view, x, y), got)
+
+
 @pytest.mark.parametrize("engine", [None, "fused"])
 def test_batched_execute_waits_once_or_never(cuda, engine):
     """A batched execute on operands already on the card waits for the card
