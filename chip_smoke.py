@@ -37,6 +37,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. Backward: ``torch.autograd.grad`` of ``sum(w * plan.stream_apply(x, x,
    engine="fused"))`` on ``cage9`` must equal the dense-matmul gradient in
    f64 on the CPU exactly, with three K1 launches (forward and two grads).
+5a. Torch stream (``backend="torch"``, the counterpart of the JAX
+   package's ``"jax"``: the product stream in PyTorch ops, no hand-written
+   kernel): ``spgemm(A, A, backend="torch")`` for the eleven matrices
+   (``iprob`` through a plan under the fused phase's raised guard, passed
+   as ``plan=``), with the counts set to 0 just before: each C equals scipy
+   exactly and the fused engine bit for bit, and no kernel of ours runs.
+   On real values per matrix: two runs bit for bit, a B = 8 stack equal to
+   a loop bit for bit, 0 host syncs per (batched) execute on card
+   operands, the device operations of one execute, and the difference from
+   K1's order.  A probe of the card's 1-D ``torch.segment_reduce``: for
+   segments of 2 to 100,000 products, whether it adds left to right, and
+   whether a segment sums alike 1-3 products later and ``ALIGN`` products
+   later (the last must hold: batched == looped rests on it).  On
+   ``cage9`` the gradient of ``sum(w * C)`` through ``stream_apply`` equals
+   the dense-matmul gradient in f64 exactly, and a B = 8 stack's forward
+   and gradient equal a loop bit for bit.
+5b. Stacked backward (the fused engine on ``[B, nnz]`` stacks): for every
+   matrix and B = 1, 3, 8, 9, the gradient of ``sum(w * C)`` through
+   ``stream_apply(..., engine="fused")``, with the counts set to 0 just
+   before: three K1-b launches a call (the forward view and both gradient
+   views), no K1; every element equal to a loop of unbatched calls bit for
+   bit.  Then K1-b on both gradient views of every matrix at those B
+   against its plain version and a loop of K1, bit for bit.
 6. Batched kernels: K1-b … K4-b (one launch for B value sets, the batch a
    second grid axis) each against its batched plain version at B = 2 (an
    integer and a normal value set) on the first group of each kind of
@@ -72,6 +95,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    wait (``event_ms``); the rows of K2, K3 and their batched forms add
    their and their library call's host-paced times; K1's gradient views
    are timed beside ``torch.sparse.sampled_addmm``, which computes them.
+   K1's and K1-b's rows add the torch stream's replay of the same view
+   (``torch_stream_ms``: several PyTorch calls, not one library call),
+   and K1-b's launches count the batched path and the stacked backward
+   (``launches_by_path``).  Per matrix, the torch stream's execute on card
+   and host operands beside the fused one on card operands, with its plan
+   and lift times, device time, idle share, device operations and a
+   batched execute per multiply against a loop; and at the largest stream,
+   the 1-D segmented sum beside ``torch.segment_reduce``'s ``axis=1`` path
+   (which the port does not use) on the same products, each against K1.
 9. Sparse FFN set-up: granite-20b's FFN at full width (d_model 6144, d_ff
    24576), weights from ``--seed`` through the port's ``init_params``,
    converted by ``SparseFFN.from_params`` at keep_density 0.9 (the dense
@@ -1122,6 +1154,336 @@ def backward_phase(mats, dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# the torch stream (backend="torch") and the stacked gradient (K1-b)
+# ---------------------------------------------------------------------------
+
+# K1-b's batch sizes on the gradient views: within one tile of 8 value sets,
+# one whole tile, and one tile and a part
+GRAD_BATCHES = (1, 3, 8, 9)
+
+
+def torch_plans(mats, fplans, dev):
+    """Per matrix, the torch-backend plan: the LRU's (what spgemm(A, A,
+    backend="torch") reaches) under the default guard, and past it (iprob)
+    one under the fused phase's raised guard; its stream built and lifted,
+    with the time each took."""
+    import torch
+    from repro_torch.core import cached_plan, device_stream, plan_spgemm
+
+    out = {}
+    for name in MATRICES:
+        a = mats[name]
+        t0 = time.perf_counter()
+        if fplans[name]["guard_raised"]:
+            plan = plan_spgemm(a, a, backend="torch", device=dev,
+                               stream_limit=fplans[name]["plan"].stream_limit)
+        else:
+            plan = cached_plan(a, a, backend="torch")
+        t1 = time.perf_counter()
+        device_stream(plan)
+        torch.cuda.synchronize()
+        out[name] = dict(plan=plan, plan_ms=(t1 - t0) * 1e3,
+                         lift_ms=(time.perf_counter() - t1) * 1e3,
+                         guard_raised=fplans[name]["guard_raised"])
+    return out
+
+
+def torch_stream_path(mats, expected, tplans):
+    """C = A·A through spgemm(backend="torch") for every matrix (iprob
+    through its raised-guard plan, ``plan=``), with the counts set to 0
+    just before: each C equals scipy exactly, on the card, and no
+    hand-written kernel runs; then each equals the fused engine on the same
+    plan bit for bit (integer values: every order agrees)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import spgemm
+    from repro_torch.sparse.format import _np
+
+    kernels.reset_launch_counts()
+    results = {}
+    for name in MATRICES:
+        a = mats[name]
+        results[name] = (spgemm(a, a, plan=tplans[name]["plan"])
+                         if tplans[name]["guard_raised"]
+                         else spgemm(a, a, backend="torch"))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"the torch stream launched "
+          f"hand-written kernels: {counts}")
+    for name, c in results.items():
+        indptr, indices, data = expected[name]
+        label = f"{name} backend=torch"
+        check(c.values.device.type == "cuda", f"{label}: result on "
+              f"{c.values.device}")
+        check(np.array_equal(_np(c.col_ptr), indptr)
+              and np.array_equal(_np(c.row_indices), indices),
+              f"{label}: structure differs from scipy")
+        vals = _np(c.values)
+        check(np.isfinite(vals).all()
+              and np.array_equal(vals.astype(np.float64), data),
+              f"{label}: values differ from scipy")
+        a = mats[name]
+        fused = tplans[name]["plan"].execute(a, a, engine="fused")
+        check(torch.equal(bits(fused.values), bits(c.values)),
+              f"{label}: values differ from the fused engine's")
+    print(f"torch stream path: {len(MATRICES)} matrices equal scipy A@A "
+          "exactly and the fused engine bit for bit; hand-written kernels "
+          f"launched {json.dumps(counts)}", flush=True)
+    return counts
+
+
+def device_ops(fn, n=3) -> float:
+    """Device operations (kernels, copies, memsets) per call of ``fn``, as
+    torch.profiler counts them, after one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU) / n
+
+
+def torch_stream_checks(mats, tplans, fplans, dev, seed):
+    """Per matrix, on real (normal) values on the card: two executes of the
+    torch stream bit for bit; a B = BATCH stack through one flat segmented
+    sum equal to a loop of executes bit for bit; 0 host syncs per execute
+    and per batched execute on card operands; the device operations of one
+    execute; and how far the card's order is from K1's (bit-equal or the
+    largest difference, relative to the largest magnitude)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name in MATRICES:
+        plan = tplans[name]["plan"]
+        a = real_valued(mats[name], seed).to(dev)
+        label = f"{name} backend=torch, real values"
+        first = plan.execute(a, a).values
+        second = plan.execute(a, a).values
+        check(torch.equal(bits(first), bits(second)),
+              f"{label}: two runs differ")
+        k1 = fplans[name]["plan"].execute(a, a, engine="fused").values
+        diff = float((first.double() - k1.double()).abs().max()) \
+            if first.numel() else 0.0
+        scale = float(k1.abs().max()) if k1.numel() else 1.0
+        xs = torch.randn((BATCH, a.nnz), generator=gen, device=dev)
+        ys = torch.randn((BATCH, a.nnz), generator=gen, device=dev)
+        batched = plan.execute_batched(xs, ys)
+        for b in range(BATCH):
+            check(torch.equal(bits(batched[b].values),
+                              bits(plan.execute(xs[b], ys[b]).values)),
+                  f"{label}: batched element {b} != a looped execute")
+        syncs = host_syncs(lambda: plan.execute(a, a))
+        b_syncs = host_syncs(lambda: plan.execute_batched(xs, ys))
+        check(syncs == 0 and b_syncs == 0, f"{label}: {syncs} / {b_syncs} "
+              "host syncs per (batched) execute on card operands")
+        out[name] = dict(
+            matrix=name, engine="torch", products=plan.stream.n_products,
+            runs_bit_identical=True, batched_equals_looped=True,
+            equals_k1_bits=bool(torch.equal(bits(first), bits(k1))),
+            max_abs_diff_vs_k1=diff,
+            rel_diff_vs_k1=diff / scale if scale else 0.0,
+            host_syncs=syncs, batched_host_syncs=b_syncs,
+            device_ops_per_execute=device_ops(lambda: plan.execute(a, a)))
+        print(json.dumps(out[name]), flush=True)
+    print(f"torch stream: {len(MATRICES)} matrices bit-stable on real "
+          f"values, B = {BATCH} equal to a loop bit for bit, 0 host syncs",
+          flush=True)
+    return out
+
+
+def segment_order_probe(dev, seed):
+    """The order of the card's 1-D ``torch.segment_reduce``: for segments
+    of several lengths, whether it equals the left-to-right sum (the CPU's,
+    K1's), the difference if not, and whether the segment's sum changes
+    when its first product sits 1, 2 or 3 products (4-12 bytes) or
+    ``ALIGN`` products later in the buffer; and whether its ``[1, P]``
+    (``axis=1``) path adds left to right."""
+    import torch
+    from repro_torch.core.device_stream import ALIGN
+
+    rng = np.random.default_rng([seed, 5])
+    rows = []
+    for length in (2, 32, 33, 256, 1000, 3000, 4096, 5000, 20_000, 100_000):
+        x = rng.standard_normal(length).astype(np.float32)
+        seq = torch.segment_reduce(torch.from_numpy(x), "sum",
+                                   lengths=torch.tensor([length]),
+                                   unsafe=True)
+        sums = {}
+        for off in (0, 1, 2, 3, ALIGN):
+            buf = torch.zeros(off + length, device=dev)
+            buf[off:] = torch.from_numpy(x).to(dev)
+            lengths = torch.tensor([off, length], device=dev)
+            sums[off] = torch.segment_reduce(buf, "sum", lengths=lengths,
+                                             unsafe=True)[1:].cpu()
+        # the same segment through segment_reduce's [1, P] (axis=1) path,
+        # which the torch stream does not use
+        two_d = torch.segment_reduce(
+            torch.from_numpy(x).to(dev)[None], "sum",
+            lengths=torch.tensor([[length]], device=dev), axis=1,
+            unsafe=True)[0].cpu()
+        rows.append(dict(
+            length=length,
+            equals_left_to_right=bool(torch.equal(bits(sums[0]), bits(seq))),
+            abs_diff=float((sums[0].double() - seq.double()).abs()),
+            same_at_offsets_1_2_3=all(torch.equal(bits(sums[0]),
+                                                  bits(sums[o]))
+                                      for o in (1, 2, 3)),
+            same_at_offset_align=bool(torch.equal(bits(sums[0]),
+                                                  bits(sums[ALIGN]))),
+            axis1_path_equals_left_to_right=bool(torch.equal(bits(two_d),
+                                                             bits(seq)))))
+    print(json.dumps({"segment_reduce_order_on_card": rows}), flush=True)
+    for r in rows:
+        check(r["same_at_offset_align"], f"segment_reduce: a segment of "
+              f"{r['length']} products sums differently {ALIGN} products "
+              "later, so the torch stream's batched == looped would fail")
+    return rows
+
+
+def torch_backward_phase(mats, tplans, dev, seed):
+    """On cage9: the gradient of sum(w * C) through stream_apply (the torch
+    stream) equals the dense-matmul gradient in f64 exactly on integer
+    values; and a B = BATCH stack's forward and gradients equal a loop bit
+    for bit on real values."""
+    import torch
+
+    a = mats[BACKWARD_MATRIX]
+    plan = tplans[BACKWARD_MATRIX]["plan"]
+    rng = np.random.default_rng([seed, 3])
+    x_np = rng.integers(1, 4, a.nnz).astype(np.float32)
+    n_c = plan.stream.nnz
+    w_np = rng.integers(1, 4, n_c).astype(np.float32)
+    x = torch.from_numpy(x_np).to(dev).requires_grad_()
+    w = torch.from_numpy(w_np).to(dev)
+    c = plan.stream_apply(x, x)
+    g, = torch.autograd.grad((w * c).sum(), x)
+    xd = torch.from_numpy(x_np).double().requires_grad_()
+    ad = torch.zeros(a.shape, dtype=torch.float64).index_put(
+        stored_coords(a.row_indices, a.col_ptr), xd)
+    s = plan.stream
+    c_at = stored_coords(s.c_rows, s.c_col_ptr)
+    wd = torch.zeros(a.shape, dtype=torch.float64).index_put(
+        c_at, torch.from_numpy(w_np).double())
+    prod = ad @ ad
+    gd, = torch.autograd.grad((wd * prod).sum(), xd)
+    check(torch.equal(c.detach().cpu().double(), prod.detach()[c_at]),
+          f"{BACKWARD_MATRIX}: torch stream forward differs from the dense "
+          "product")
+    check(torch.equal(g.cpu().double(), gd),
+          f"{BACKWARD_MATRIX}: torch stream gradient differs from the "
+          "dense-matmul gradient (max |diff| "
+          f"{float((g.cpu().double() - gd).abs().max())})")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randn((BATCH, a.nnz), generator=gen, device=dev)
+    ws = torch.randn((BATCH, n_c), generator=gen, device=dev)
+    xb = xs.clone().requires_grad_()
+    cb = plan.stream_apply(xb, xb)
+    gb, = torch.autograd.grad((ws * cb).sum(), xb)
+    for b in range(BATCH):
+        xk = xs[b].clone().requires_grad_()
+        ck = plan.stream_apply(xk, xk)
+        gk, = torch.autograd.grad((ws[b] * ck).sum(), xk)
+        check(torch.equal(bits(cb[b].detach()), bits(ck.detach()))
+              and torch.equal(bits(gb[b]), bits(gk)),
+              f"{BACKWARD_MATRIX}: stacked torch-stream element {b} != a "
+              "looped call")
+    print(f"torch backward: d sum(w * C) / dx through stream_apply on "
+          f"{BACKWARD_MATRIX} ({s.n_products} products) equals the "
+          f"dense-matmul gradient in f64 exactly; a B = {BATCH} stack "
+          "equals a loop bit for bit, forward and gradient", flush=True)
+
+
+def grad_view_path(fplans, mats, dev, seed):
+    """The stacked backward through the fused engine: for every matrix and
+    B in GRAD_BATCHES, sum(w * C) of plan.stream_apply on [B, nnz] stacks
+    differentiated, with the counts set to 0 just before and read just
+    after: K1-b launches on the forward view and on both gradient views (3
+    a call), K1 none.  Then each stack's forward and gradients equal a loop
+    of unbatched calls bit for bit.  Returns the counts."""
+    import torch
+    from repro_torch import kernels
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    calls = []
+    for name in MATRICES:
+        plan = fplans[name]["plan"]
+        for batch in GRAD_BATCHES:
+            xs = torch.randn((batch, mats[name].nnz), generator=gen,
+                             device=dev)
+            ws = torch.randn((batch, plan.stream.nnz), generator=gen,
+                             device=dev)
+            calls.append((name, batch, xs, ws))
+    kernels.reset_launch_counts()
+    results = []
+    for name, batch, xs, ws in calls:
+        x = xs.clone().requires_grad_()
+        c = fplans[name]["plan"].stream_apply(x, x, engine="fused")
+        g, = torch.autograd.grad((ws * c).sum(), x)
+        results.append((c.detach(), g))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(counts["fused_stream_batched"] == 3 * len(calls)
+          and counts["fused_stream"] == 0,
+          f"stacked fused backward: launches {counts}, expected "
+          f"{3 * len(calls)} of fused_stream_batched and none else")
+    for (name, batch, xs, ws), (c, g) in zip(calls, results):
+        plan = fplans[name]["plan"]
+        for b in range(batch):
+            xk = xs[b].clone().requires_grad_()
+            ck = plan.stream_apply(xk, xk, engine="fused")
+            gk, = torch.autograd.grad((ws[b] * ck).sum(), xk)
+            check(torch.equal(bits(c[b]), bits(ck.detach()))
+                  and torch.equal(bits(g[b]), bits(gk)),
+                  f"{name} B = {batch}: stacked fused element {b} != a "
+                  "looped call")
+    print(f"stacked fused backward: {len(calls)} calls ({len(MATRICES)} "
+          f"matrices x B in {GRAD_BATCHES}) equal a loop bit for bit, "
+          f"forward and gradient; launches {json.dumps(counts)}",
+          flush=True)
+    return counts
+
+
+def grad_view_kernel_phase(fplans, mats, dev, seed):
+    """K1-b on both gradient views of every matrix at B in GRAD_BATCHES,
+    against its plain version and against a loop of K1, bit for bit."""
+    import torch
+    from repro_torch.core import fused_stream
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    checked = 0
+    for name in MATRICES:
+        fs = fused_stream(fplans[name]["plan"])
+        for vname in ("grad_a", "grad_b"):
+            view = getattr(fs, vname)
+            for batch in GRAD_BATCHES:
+                g = torch.randn((batch, fs.forward.n_out), generator=gen,
+                                device=dev)
+                v = torch.randn((batch, mats[name].nnz), generator=gen,
+                                device=dev)
+                got = run_k1b(view, g, v)
+                want = run_k1_plain(view, g, v, batched=True)
+                label = f"fused_stream_batched {name} {vname} B = {batch}"
+                check(torch.equal(bits(got), bits(want)),
+                      f"{label}: kernel != plain version")
+                for b in range(batch):
+                    check(torch.equal(bits(got[b]),
+                                      bits(run_k1(view, g[b], v[b]))),
+                          f"{label}: slice {b} != K1 on value set {b}")
+                checked += 1
+    print(f"kernel fused_stream_batched on the gradient views: {checked} "
+          f"launches at B in {GRAD_BATCHES} equal the plain version and a "
+          "loop of K1 bit for bit", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # the batched path (K1-b … K4-b)
 # ---------------------------------------------------------------------------
 
@@ -1577,6 +1939,100 @@ def fused_timing_phase(fplans, mats, dev, reps, naive_ms, libs):
     return biggest
 
 
+def torch_timing_phase(tplans, fplans, mats, dev, reps):
+    """Per matrix, the torch stream's execute beside the fused engine's, on
+    operands on the card and on the host (host clock, median of
+    ``reps``), with the plan and lift times, the profiler's device time and
+    idle share of one on-card execute, its device operations, and a batched
+    execute (B = BATCH, card operands) per multiply against a looped one."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name in MATRICES:
+        t = tplans[name]
+        plan, fplan = t["plan"], fplans[name]["plan"]
+        a = mats[name]
+        a_dev = a.to(dev)
+        on_card = execute_ms(lambda: plan.execute(a_dev, a_dev), reps)
+        on_host = execute_ms(lambda: plan.execute(a, a), reps)
+        fused = execute_ms(
+            lambda: fplan.execute(a_dev, a_dev, engine="fused"), reps)
+        device_ms = profiled_device_ms(lambda: plan.execute(a_dev, a_dev))
+        xs = torch.randn((BATCH, a.nnz), generator=gen, device=dev)
+        t_b = statistics.median(execute_ms(
+            lambda: plan.execute_batched(xs, xs), reps))
+        t_l = statistics.median(execute_ms(
+            lambda: [plan.execute(xs[b], xs[b]) for b in range(BATCH)],
+            reps))
+        print(json.dumps({
+            "matrix": name, "engine": "torch",
+            "stream_limit": plan.stream_limit,
+            "guard_raised_above_default": t["guard_raised"],
+            "products": plan.stream.n_products, "plan_ms": t["plan_ms"],
+            "lift_ms": t["lift_ms"],
+            "device_stream_bytes": plan.device_stream_nbytes,
+            "execute_on_card_ms_median": statistics.median(on_card),
+            "execute_on_card_ms_min": min(on_card),
+            "execute_ms_median": statistics.median(on_host),
+            "fused_execute_on_card_ms_median": statistics.median(fused),
+            "device_ms": device_ms,
+            "device_idle_share": idle_share(device_ms,
+                                            statistics.median(on_card)),
+            "device_ops_per_execute": device_ops(
+                lambda: plan.execute(a_dev, a_dev)),
+            "batched_ms_per_multiply": t_b / BATCH,
+            "looped_ms_per_multiply": t_l / BATCH,
+            "looped_over_batched": t_l / t_b}), flush=True)
+
+
+def segment_path_timing(tplans, fplans, mats, dev, reps):
+    """At the largest stream (iprob's forward view: 9.0M products, mostly
+    one a slot), the device time of the torch stream's 1-D segmented sum
+    beside ``torch.segment_reduce``'s ``[1, P]`` (``axis=1``) path on the
+    same products, and whether each equals K1's sums bit for bit (real
+    values)."""
+    import torch
+    from repro_torch.core import device_stream
+
+    name = max(MATRICES, key=lambda n: tplans[n]["plan"].stream.n_products)
+    view = device_stream(tplans[name]["plan"]).forward
+    v = real_valued(mats[name], 0).values.to(dev)
+    prod = v.index_select(0, view.idx_x) * v.index_select(0, view.idx_y)
+    lengths_2d = view.lengths[None]
+
+    def flat():
+        return torch.segment_reduce(prod, "sum", lengths=view.lengths,
+                                    unsafe=True)
+
+    def axis1():
+        return torch.segment_reduce(prod[None], "sum", lengths=lengths_2d,
+                                    axis=1, unsafe=True)
+
+    k1 = fplans[name]["plan"].execute(v, v, engine="fused").values
+    n = view.n_out
+    print(json.dumps({
+        "segment_reduce_paths": {
+            "matrix": name, "view": "forward",
+            "products": view.n_products, "segments": n,
+            "flat_ms": event_ms(flat, reps),
+            "axis1_ms": event_ms(axis1, reps),
+            "flat_equals_k1": bool(torch.equal(bits(flat()[:n]), bits(k1))),
+            "axis1_equals_k1": bool(torch.equal(bits(axis1()[0, :n]),
+                                                bits(k1)))}}), flush=True)
+
+
+def torch_stream_ms(tplans, name, vname, x, y, reps) -> float:
+    """Device time of the torch stream's replay of view ``vname`` of
+    ``name``'s stream on ``x``, ``y`` (several PyTorch calls: two gathers,
+    a multiply and a segmented sum), the same function as K1's (or K1-b's)
+    replay of that view."""
+    from repro_torch.core import device_stream
+    from repro_torch.core.device_stream import replay
+
+    view = getattr(device_stream(tplans[name]["plan"]), vname)
+    return event_ms(lambda: replay(view, x, y), reps)
+
+
 def batched_timing_phase(stacks, fplans, dev, reps, syncs):
     """Per matrix, at B = BATCH with operands on the card: a batched
     execute per multiply against a looped one (the same plan executed once
@@ -1718,12 +2174,13 @@ def k1_chain(view) -> dict:
                 longest_slot=longest)
 
 
-def k1_report(biggest, launches, err, libs, fplans, mats, reps):
+def k1_report(biggest, launches, err, libs, fplans, tplans, mats, reps):
     """K1's row of the kernels line: timed at its largest forward view,
     with the largest gradient views beside it, each beside the one PyTorch
     call that computes its function: torch.sparse.mm(A, A) for the forward
     view, torch.sparse.sampled_addmm for the gradient views
-    (``grad_library_ms``)."""
+    (``grad_library_ms``); and beside the torch stream's replay of the same
+    view (``torch_stream_ms``, several PyTorch calls)."""
     import torch
 
     timed = {}
@@ -1739,7 +2196,9 @@ def k1_report(biggest, launches, err, libs, fplans, mats, reps):
             run_k1(view, x, y), reps)
         timed[vname] = dict(
             ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
-            library_ms=lib, **k1_chain(view),
+            library_ms=lib,
+            torch_stream_ms=torch_stream_ms(tplans, name, vname, x, y, reps),
+            **k1_chain(view),
             at=dict(matrix=name, view=vname, products=products,
                     segments=view.n_out, bytes=work[1]))
         torch.cuda.synchronize()
@@ -1748,8 +2207,9 @@ def k1_report(biggest, launches, err, libs, fplans, mats, reps):
                 **fwd, grad_views=timed)
 
 
-def batched_kernel_report(biggest, k1_biggest, plans, stacks, counts, errs,
-                          edge_tiers, dev, seed, reps):
+def batched_kernel_report(biggest, k1_biggest, plans, tplans, stacks,
+                          counts, grad_counts, errs, edge_tiers, dev, seed,
+                          reps):
     """The rows of K1-b … K4-b: each timed at B = BATCH on its unbatched
     kernel's largest main-path group or view, with that matrix's value
     stacks; the plain versions once (at iprob they take seconds); the
@@ -1803,9 +2263,13 @@ def batched_kernel_report(biggest, k1_biggest, plans, stacks, counts, errs,
             for b in range(BATCH)]
     lib = event_ms(lambda: [torch.sparse.mm(*p) for p in csrs], reps)
     info = KERNELS["fused_b"]
+    by_path = {"batched": counts[info["name"]],
+               "stacked_backward": grad_counts[info["name"]]}
     rows.insert(0, dict(
-        info, launches=counts[info["name"]], max_abs_err=errs["fused"],
+        info, launches=sum(by_path.values()), launches_by_path=by_path,
+        max_abs_err=errs["fused"],
         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=lib,
+        torch_stream_ms=torch_stream_ms(tplans, name, "forward", x, y, reps),
         **k1_chain(view),
         at=dict(matrix=name, view="forward", batch=BATCH,
                 products=products, segments=view.n_out, bytes=nbytes)))
@@ -2327,6 +2791,13 @@ def main(argv=None) -> int:
     counts = timed(main_path, mats, expected)
     fused_counts = timed(fused_path, mats, expected)
     timed(backward_phase, mats, dev, args.seed)
+    tplans = timed(torch_plans, mats, fplans, dev)
+    timed(torch_stream_path, mats, expected, tplans)
+    timed(torch_stream_checks, mats, tplans, fplans, dev, args.seed)
+    timed(segment_order_probe, dev, args.seed)
+    timed(torch_backward_phase, mats, tplans, dev, args.seed)
+    grad_counts = timed(grad_view_path, fplans, mats, dev, args.seed)
+    timed(grad_view_kernel_phase, fplans, mats, dev, args.seed)
     b_results, b_launches, b_counts = timed(batched_path, stacks)
     b_syncs = timed(check_batched_path, b_results, b_launches, stacks,
                     fplans, dev)
@@ -2336,16 +2807,19 @@ def main(argv=None) -> int:
     k1_biggest = timed(fused_timing_phase, fplans, mats, dev, args.reps,
                        naive_ms, libs)
     timed(batched_timing_phase, stacks, fplans, dev, args.reps, b_syncs)
+    timed(torch_timing_phase, tplans, fplans, mats, dev, args.reps)
+    timed(segment_path_timing, tplans, fplans, mats, dev, args.reps)
     rows = [timed(k1_report, k1_biggest, fused_counts["fused_stream"],
-                  k1_err, libs, fplans, mats, args.reps)]
+                  k1_err, libs, fplans, tplans, mats, args.reps)]
     rows += timed(kernel_report, biggest, plans, mats, counts, errs,
                   edge_tiers, args.seed, args.reps)
-    rows += timed(batched_kernel_report, biggest, k1_biggest, plans, stacks,
-                  b_counts, b_errs, b_edge_tiers, dev, args.seed, args.reps)
+    rows += timed(batched_kernel_report, biggest, k1_biggest, plans, tplans,
+                  stacks, b_counts, grad_counts, b_errs, b_edge_tiers, dev,
+                  args.seed, args.reps)
 
     # the FFN phases hold granite-20b's FFN at full width: the earlier
     # phases' plans and operands go first
-    del plans, fplans, mats, expected, stacks, biggest, k1_biggest
+    del plans, fplans, tplans, mats, expected, stacks, biggest, k1_biggest
     plan_cache_clear()
     gc.collect()
     torch.cuda.empty_cache()

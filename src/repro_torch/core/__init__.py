@@ -3,10 +3,13 @@
 ``spgemm(a, b)`` plans the product once per sparsity pattern (cached) and
 runs the plan's per-group SPA / SPARS / HASH kernels on the card;
 ``engine="fused"`` runs the plan's product stream through one K1 launch
-instead, and ``plan.stream_apply(..., engine="fused")`` is its
-differentiable form.  ``spgemm_batched(a, b)`` / ``plan.execute_batched``
-run B same-pattern value sets through the same launches (the batched
-kernels K1-b … K4-b).
+instead.  ``backend="torch"`` runs the stream in PyTorch ops (the
+counterpart of the JAX package's ``"jax"`` backend) and ``backend="host"``
+the numpy oracles and stream (its ``"host"`` backend).
+``plan.stream_apply(...)`` is the differentiable form of either stream
+engine, on value vectors or ``[B, nnz]`` stacks.  ``spgemm_batched(a, b)``
+/ ``plan.execute_batched`` run B same-pattern value sets through one
+execution (the batched kernels K1-b … K4-b on the card).
 """
 
 from repro_torch.core.analysis import (
@@ -29,11 +32,15 @@ from repro_torch.core.api import (
     spgemm,
     spgemm_batched,
 )
-from repro_torch.core.backends import ExecutionContract, get_backend
+from repro_torch.core.backends import ExecutionContract, backend_names, \
+    get_backend
+from repro_torch.core.device_stream import DeviceStream, device_stream, \
+    execute_torch, execute_torch_batched, stream_fn, stream_fn_batched
 from repro_torch.core.executor import execute, execute_batched, \
-    resolve_engine
+    register_executor, resolve_engine
 from repro_torch.core.fused_stream import FusedStream, execute_fused_batched, \
     fused_fn, fused_stream
+from repro_torch.core.reference import dense_product, spgemm_dense
 from repro_torch.core.planner import (
     ALGORITHMS,
     KernelGroup,
@@ -63,14 +70,24 @@ __all__ = [
     "spgemm",
     "spgemm_batched",
     "ExecutionContract",
+    "backend_names",
     "get_backend",
+    "DeviceStream",
+    "device_stream",
+    "execute_torch",
+    "execute_torch_batched",
+    "stream_fn",
+    "stream_fn_batched",
     "execute",
     "execute_batched",
+    "register_executor",
     "resolve_engine",
     "FusedStream",
     "execute_fused_batched",
     "fused_fn",
     "fused_stream",
+    "dense_product",
+    "spgemm_dense",
     "ALGORITHMS",
     "KernelGroup",
     "KernelLayout",

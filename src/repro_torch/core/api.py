@@ -1,21 +1,37 @@
 """Public SpGEMM API of the port: ``spgemm(A, B, method=...)`` over cached
 plans.
 
-Methods mirror the paper's evaluated algorithms that have a kernel family;
-the default is the paper's best, ``"h-hash-256/256"``.  ``spgemm`` builds —
-or fetches from a bounded, thread-safe LRU keyed on pattern fingerprints
-and the device — a :class:`~repro_torch.core.planner.SpgemmPlan` and
-executes it against the operand values::
+Methods mirror the paper's evaluated algorithms (and the host-only ``esc``
+and ``expand``); the default is the paper's best, ``"h-hash-256/256"``.
+``spgemm`` builds — or fetches from a bounded, thread-safe LRU keyed on
+pattern fingerprints, the method, its resolved parameters, the backend, the
+stream guard and the device — a
+:class:`~repro_torch.core.planner.SpgemmPlan` and executes it against the
+operand values::
 
     plan = cached_plan(a, b)                 # symbolic phase, once
     c1 = plan.execute(a_vals_1, b_vals_1)    # numeric phase only
+    c2 = spgemm(a2, b2, plan=plan)           # the same, spelled as a call
+
+Backends (``core.backends``): ``"cuda"`` (the default; the per-group
+kernels, or K1 under ``engine="fused"``), ``"torch"`` (the product stream
+in PyTorch ops, differentiable through ``plan.stream_apply``; every method
+spelling shares one canonical plan) and ``"host"`` (the numpy oracles and
+stream, bit for bit the JAX package's host backend).  ``t``/``b_min``/
+``b_max`` override the named method's parameters (the torch backend
+rejects them); a held ``plan=`` carries its own method, backend, parameters
+and device, and explicit arguments that conflict with it raise;
+``cache=False`` plans afresh outside the LRU; ``validate="fingerprint"``
+re-hashes the operands' structure against the plan.
 
 ``spgemm_batched(A, B)`` multiplies B same-pattern value sets
 (:class:`~repro_torch.sparse.format.BatchedCSC`) through one execution of
-the same cached plan.
+the same plan.
 
-``device=None`` means the card (``"cuda"``); without one it raises.  Pass
-``device="cpu"`` to run the kernels' plain versions on the host.
+``device=None`` means the card (``"cuda"``) on the device backends, and
+raises without one; pass ``device="cpu"`` to run the kernels' plain
+versions and the torch stream on the host.  The host backend runs on the
+CPU, and asking it for another device raises.
 """
 
 from __future__ import annotations
@@ -23,16 +39,26 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 
+import torch
+
+from repro_torch.core import backends, fast
 from repro_torch.core.planner import (
+    ALGORITHMS,
     SpgemmPlan,
     pattern_fingerprint,
+    plan_device,
     plan_spgemm,
+    resolve_params,
 )
-from repro_torch.device import resolve_device
 from repro_torch.sparse.format import CSC, BatchedCSC
 
 DEFAULT_METHOD = "h-hash-256/256"
 DEFAULT_BACKEND = "cuda"
+
+
+def _held(plans, attr: str) -> int:
+    # entries other than plans hold no stream
+    return sum(getattr(p, attr, 0) for p in plans)
 
 
 class PlanCache:
@@ -77,12 +103,11 @@ class PlanCache:
                         max_size=self.max_size,
                         hit_rate=(self._stats["hits"] / lookups
                                   if lookups else 0.0),
-                        # entries other than plans hold no stream
-                        stream_bytes=sum(getattr(p, "stream_nbytes", 0)
-                                         for p in plans),
-                        fused_stream_bytes=sum(
-                            getattr(p, "fused_stream_nbytes", 0)
-                            for p in plans))
+                        stream_bytes=_held(plans, "stream_nbytes"),
+                        device_stream_bytes=_held(plans,
+                                                  "device_stream_nbytes"),
+                        fused_stream_bytes=_held(plans,
+                                                 "fused_stream_nbytes"))
 
     def clear(self) -> None:
         with self._lock:
@@ -108,8 +133,11 @@ def plan_cache_info() -> dict:
     """Occupancy, hit/miss/eviction counters and hit rate of the plan LRU.
 
     ``stream_bytes`` totals the host product streams the cached plans hold,
-    ``fused_stream_bytes`` their K1 views on the device (both built at a
-    plan's first fused execution; a guarded plan holds neither).
+    ``device_stream_bytes`` the torch stream's index tensors on their
+    devices (``core.device_stream``) and ``fused_stream_bytes`` the K1 views
+    (``core.fused_stream``); each is built at a plan's first execution
+    through its engine, one plan may hold all three, and a guarded plan
+    holds none.
     """
     return PLAN_CACHE.info()
 
@@ -125,22 +153,89 @@ def plan_cache_resize(n: int) -> dict:
     return PLAN_CACHE.resize(n)
 
 
-def cached_plan(a: CSC, b: CSC, method: str | None = None, *,
-                backend: str | None = None, device=None) -> SpgemmPlan:
-    """Fetch-or-build a plan through the shared LRU.
-
-    The key is both operands' pattern fingerprints, the method, the backend
-    and the device.  Cached plans keep the default stream guard
-    (``fast.STREAM_MAX_PRODUCTS``); call :func:`plan_spgemm` with
-    ``stream_limit=`` for another.
-    """
+def _resolve_method_backend(method, backend):
     method = DEFAULT_METHOD if method is None else method
     backend = DEFAULT_BACKEND if backend is None else backend
-    dev = resolve_device(device)
-    key = (pattern_fingerprint(a), pattern_fingerprint(b), method, backend,
-           str(dev))
+    if method not in ALGORITHMS:
+        raise ValueError(
+            f"unknown method {method!r}; one of {list(ALGORITHMS)}")
+    return method, backends.get_backend(backend)
+
+
+def _plan_key(a: CSC, b: CSC, method: str, contract, params: dict,
+              dev) -> tuple:
+    """The LRU key: both patterns, the method and its resolved parameters
+    (the canonical method and its defaults on a canonical-method backend,
+    so every spelling shares one entry), the backend, the stream guard in
+    force at build time and the device."""
+    if contract.canonical_method:
+        method = contract.canonical_method
+        params = resolve_params(method)
+    return (pattern_fingerprint(a), pattern_fingerprint(b), method,
+            contract.name, tuple(sorted(params.items())),
+            fast.STREAM_MAX_PRODUCTS, str(dev))
+
+
+def cached_plan(a: CSC, b: CSC, method: str | None = None, *,
+                backend: str | None = None, t: float | None = None,
+                b_min: int | None = None, b_max: int | None = None,
+                device=None) -> SpgemmPlan:
+    """Fetch-or-build a plan through the shared LRU.
+
+    Arguments as in :func:`spgemm`.  Cached plans keep the stream guard in
+    force when they were built (``fast.STREAM_MAX_PRODUCTS``, part of the
+    key); call :func:`plan_spgemm` with ``stream_limit=`` for another.
+    """
+    method, contract = _resolve_method_backend(method, backend)
+    backends.check_method_knobs(contract, t, b_min, b_max)
+    params = resolve_params(method, t=t, b_min=b_min, b_max=b_max)
+    dev = plan_device(contract, device)
     return PLAN_CACHE.get_or_build(
-        key, lambda: plan_spgemm(a, b, method, backend=backend, device=dev))
+        _plan_key(a, b, method, contract, params, dev),
+        lambda: plan_spgemm(a, b, method, backend=contract.name, t=t,
+                            b_min=b_min, b_max=b_max, device=dev))
+
+
+def _plan_for(a, b, method, backend, t, b_min, b_max, device, cache):
+    """The plan of a call that holds none: from the LRU, or with
+    ``cache=False`` built afresh."""
+    if cache:
+        return cached_plan(a, b, method, backend=backend, t=t, b_min=b_min,
+                           b_max=b_max, device=device)
+    method, contract = _resolve_method_backend(method, backend)
+    return plan_spgemm(a, b, method, backend=contract.name, t=t,
+                       b_min=b_min, b_max=b_max, device=device)
+
+
+def _check_plan_overrides(plan, method, backend, t, b_min, b_max,
+                          device) -> None:
+    """Reject ``plan=`` calls whose explicit arguments conflict with what
+    the held plan was built with."""
+    own = dict(plan.params)
+    conflicts = []
+    if method is not None and method != plan.method:
+        conflicts.append(f"method={method!r} (plan has {plan.method!r})")
+    if backend is not None and backend != plan.backend:
+        conflicts.append(f"backend={backend!r} (plan has {plan.backend!r})")
+    for name, given in (("t", t), ("b_min", b_min), ("b_max", b_max)):
+        if given is not None and (name not in own or own[name] != given):
+            conflicts.append(
+                f"{name}={given!r} (plan has {own.get(name, '<unset>')})")
+    if device is not None and not _same_device(torch.device(device),
+                                               plan.device):
+        conflicts.append(f"device={device!r} (plan has {plan.device})")
+    if conflicts:
+        raise ValueError(
+            "arguments conflict with the held plan (a plan carries its own "
+            "method/backend/parameters/device): " + "; ".join(conflicts))
+
+
+def _same_device(given: torch.device, held: torch.device) -> bool:
+    """Whether ``given`` names ``held`` (an index on one side only, as in
+    ``"cuda"`` and ``"cuda:0"``, names the same card)."""
+    return given.type == held.type and (
+        given.index is None or held.index is None
+        or given.index == held.index)
 
 
 def spgemm(
@@ -149,36 +244,38 @@ def spgemm(
     method: str | None = None,
     *,
     backend: str | None = None,
+    t: float | None = None,
+    b_min: int | None = None,
+    b_max: int | None = None,
+    plan: SpgemmPlan | None = None,
+    cache: bool = True,
+    validate: str | None = None,
     device=None,
     engine: str | None = None,
 ) -> CSC:
     """Compute C = A @ B with one of the paper's algorithms.
 
-    The default method is ``"h-hash-256/256"`` (the paper's best overall).
-    ``device=None`` runs on the card and raises where there is none.  The
-    plan comes from the shared LRU.  ``engine="fused"`` replaces the
-    method's per-group kernels by one K1 launch over the product stream.
-    The result is a CSC whose values (f32), rows and col_ptr lie on the
-    plan's device.
+    The default method is ``"h-hash-256/256"`` (the paper's best overall),
+    the default backend ``"cuda"``.  ``t``/``b_min``/``b_max`` override the
+    named method's parameters.  With ``plan`` the symbolic phase is
+    skipped: the plan carries its own method, backend, parameters and
+    device, and an explicit argument that conflicts with it raises.  With
+    ``cache=False`` the plan is built afresh, outside the LRU.
+    ``validate="fingerprint"`` re-hashes the operands' structure against
+    the plan (O(nnz)) besides the O(1) shape and nnz check.
+
+    ``engine`` picks one of the backend's engines per execution (so it
+    never conflicts with ``plan=``): ``"naive"`` (cuda: the per-group
+    kernels; host: the oracles) or ``"fused"`` (one K1 launch) on cuda,
+    ``"stream"`` or ``"fused"`` on torch, ``"naive"`` or ``"stream"`` on
+    host; ``None`` is the backend's default for the method.  The result is
+    a CSC whose values lie on the plan's device.
     """
-    plan = cached_plan(a, b, method, backend=backend, device=device)
-    return plan.execute(a, b, engine=engine)
-
-
-def _check_plan_overrides(plan, method, backend, device) -> None:
-    """Reject ``plan=`` calls whose explicit arguments conflict with what
-    the held plan was built with."""
-    conflicts = []
-    if method is not None and method != plan.method:
-        conflicts.append(f"method={method!r} (plan has {plan.method!r})")
-    if backend is not None and backend != plan.backend:
-        conflicts.append(f"backend={backend!r} (plan has {plan.backend!r})")
-    if device is not None and resolve_device(device) != plan.device:
-        conflicts.append(f"device={device!r} (plan has {plan.device})")
-    if conflicts:
-        raise ValueError(
-            "arguments conflict with the held plan (a plan carries its own "
-            "method/backend/device): " + "; ".join(conflicts))
+    if plan is not None:
+        _check_plan_overrides(plan, method, backend, t, b_min, b_max, device)
+        return plan.execute(a, b, validate=validate, engine=engine)
+    p = _plan_for(a, b, method, backend, t, b_min, b_max, device, cache)
+    return p.execute(a, b, validate=validate, engine=engine)
 
 
 def spgemm_batched(
@@ -187,26 +284,31 @@ def spgemm_batched(
     method: str | None = None,
     *,
     backend: str | None = None,
+    t: float | None = None,
+    b_min: int | None = None,
+    b_max: int | None = None,
+    plan: SpgemmPlan | None = None,
+    cache: bool = True,
+    validate: str | None = None,
     device=None,
     engine: str | None = None,
-    plan: SpgemmPlan | None = None,
 ) -> list:
     """B same-pattern multiplies C_b = A_b @ B_b through one plan execution.
 
     ``a``/``b`` are :class:`~repro_torch.sparse.format.BatchedCSC` stacks
-    (one sparsity pattern each, values ``[B, nnz]``).  The plan comes from
-    the same LRU as :func:`spgemm`, keyed on element 0, and all B value
-    sets run through one set of kernel launches (``plan.execute_batched``).
-    Returns a list of B CSC results, bit-identical to calling
-    :func:`spgemm` per element.  ``engine`` as in :func:`spgemm`.
+    (one sparsity pattern each, values ``[B, nnz]``).  The plan is planned
+    on element 0 as :func:`spgemm` plans, and all B value sets run through
+    one execution (``plan.execute_batched``).  Returns a list of B CSC
+    results, bit-identical to calling :func:`spgemm` per element.  The
+    other arguments as in :func:`spgemm`.
 
     With ``plan`` the symbolic phase is skipped (explicit arguments that
     conflict with it raise) and ``a``/``b`` may also be raw ``[B, nnz]``
     value stacks aligned with the planned patterns.
     """
     if plan is not None:
-        _check_plan_overrides(plan, method, backend, device)
-        return plan.execute_batched(a, b, engine=engine)
+        _check_plan_overrides(plan, method, backend, t, b_min, b_max, device)
+        return plan.execute_batched(a, b, validate=validate, engine=engine)
     if not isinstance(a, BatchedCSC) or not isinstance(b, BatchedCSC):
         raise TypeError(
             "spgemm_batched operands must be BatchedCSC (use BatchedCSC"
@@ -215,6 +317,6 @@ def spgemm_batched(
         raise ValueError(f"batch mismatch: {a.batch} vs {b.batch}")
     if a.batch < 1:
         raise ValueError("empty batch")
-    p = cached_plan(a.element(0), b.element(0), method, backend=backend,
-                    device=device)
-    return p.execute_batched(a, b, engine=engine)
+    p = _plan_for(a.element(0), b.element(0), method, backend, t, b_min,
+                  b_max, device, cache)
+    return p.execute_batched(a, b, validate=validate, engine=engine)

@@ -1,15 +1,18 @@
-"""Pattern-only intermediate-product expansion (the Gustavson product order).
+"""Intermediate-product expansion (the Gustavson product order).
 
 Every algorithm of the paper enumerates the same multiset of scalar
 products ``A[i,k] * B[k,j]``.  This module lists them once, vectorized, in
-host numpy; the product stream (``core.fast``) builds on it.  The
-counterpart of the JAX package's ``core/expand.py`` (``product_count`` and
-``expand_positions``), copied so that the port imports nothing of it.
+host numpy: by position (:func:`expand_positions`, which the product stream
+of ``core.fast`` builds on) and by value (:func:`expand_products`, which the
+host ``expand`` method and ESC consume).  The counterpart of the JAX
+package's ``core/expand.py``, copied so that the port imports nothing of it.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from repro_torch.sparse.format import CSC, COO, _np, as_tensor, csc_from_coo
 
 
 def product_count(a_col_ptr, b_col_ptr, b_row_indices) -> int:
@@ -51,3 +54,39 @@ def expand_positions(a_col_ptr, b_col_ptr, b_row_indices):
     cols = np.repeat(
         np.repeat(np.arange(n, dtype=np.int64), np.diff(b_cp)), seg_lens)
     return a_pos, b_pos, cols
+
+
+def expand_products(a: CSC, b: CSC) -> COO:
+    """All intermediate products as COO triples, in Gustavson column order:
+    for each column j of B, each stored B[k,j], each stored A[i,k], the
+    triple (i, j, A_ik * B_kj), multiplied in host numpy in the operands'
+    common dtype."""
+    a_rows = _np(a.row_indices)
+    a_vals = _np(a.values)
+    b_vals = _np(b.values)[: b.nnz]
+    shape = (a.shape[0], b.shape[1])
+    a_pos, b_pos, cols = expand_positions(
+        _np(a.col_ptr), _np(b.col_ptr), _np(b.row_indices))
+    if len(a_pos) == 0:
+        return COO(np.zeros(0, np.int32), np.zeros(0, np.int32),
+                   as_tensor(np.zeros(0, a_vals.dtype)), shape)
+    rows = a_rows[a_pos].astype(np.int32)
+    vals = a_vals[a_pos] * b_vals[b_pos]
+    return COO(rows, cols.astype(np.int32), as_tensor(vals), shape)
+
+
+def product_col_ptr(a: CSC, b: CSC) -> np.ndarray:
+    """Offsets of each C column's products in the expanded stream (length
+    n_B + 1; ``product_col_ptr[j+1] - product_col_ptr[j] == Op_j``)."""
+    from repro_torch.sparse.stats import ops_per_column
+
+    ops = ops_per_column(a, b)
+    cp = np.zeros(len(ops) + 1, np.int64)
+    np.cumsum(ops, out=cp[1:])
+    return cp
+
+
+def spgemm_expand(a: CSC, b: CSC) -> CSC:
+    """C = A @ B by expansion and merge (the host ``expand`` method): the
+    products of each (i, j) added in stream order, rows ascending."""
+    return csc_from_coo(expand_products(a, b), sum_duplicates=True)

@@ -25,8 +25,12 @@ already lie on the card copies nothing from the host and waits for nothing.
 
 **Batch.**  :func:`execute_fused_batched` replays the forward view once
 for B same-pattern value sets (``[B, nnz]`` stacks) in one K1-b launch;
-the B results share C's structure tensors.  The batched gradient (the JAX
-package's ``vmap`` of its custom vjp) is not ported yet.
+the B results share C's structure tensors.  :func:`fused_fn` takes such
+stacks too, the counterpart of the JAX package's ``vmap`` of its custom
+vjp: K1-b replays the forward view and, backward, both gradient views,
+each with the view's own long-slot list, and the compact sums are placed
+row by row; every value set's values and gradients equal an unbatched
+call's bit for bit.
 
 **Guard.**  A plan whose stream exceeds its ``stream_limit`` keeps no stream.
 :func:`execute_fused` and :func:`execute_fused_batched` then build the
@@ -45,12 +49,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.device_stream import (
+    _check_batch,
     _guard_error,
+    _operand,
+    _scatter,
     bilinear_custom_vjp,
     check_int32_stream,
+    grad_replay,
     stream_seg_ids,
 )
-from repro_torch.core.executor import _check_batch, _values
 from repro_torch.core.fast import ProductStream, build_product_stream
 from repro_torch.kernels.fused_stream import long_slots_of
 from repro_torch.sparse.format import CSC
@@ -133,13 +140,11 @@ def _grad_view(pos, other_pos, seg_ids, dev) -> FusedView:
 
     The replay gathers the output cotangent through ``seg_ids`` (x side)
     and the other operand's values through ``other_pos`` (y side); segment
-    r holds the products of the r-th distinct position, ``out_map[r]``.
+    r holds the products of the r-th distinct position, ``out_map[r]``
+    (``core.device_stream.grad_replay``).
     """
-    order = np.argsort(pos, kind="stable")
-    seq = np.asarray(pos)[order]
-    uniq, first = np.unique(seq, return_index=True)
-    return _view(np.asarray(seg_ids)[order], np.asarray(other_pos)[order],
-                 np.append(first, len(seq)), dev, out_map=uniq)
+    idx_x, idx_y, seg_ptr, out_map = grad_replay(pos, other_pos, seg_ids)
+    return _view(idx_x, idx_y, seg_ptr, dev, out_map=out_map)
 
 
 def _structure(s: ProductStream, dev):
@@ -176,30 +181,37 @@ def _fused_call(view: FusedView, x, y) -> torch.Tensor:
               long_slots=view.long_slots)
 
 
-def _scatter(view: FusedView, compact: torch.Tensor, n: int) -> torch.Tensor:
-    """The compact gradient sums placed at their value positions; positions
-    with no products get exactly 0."""
-    out = torch.zeros(n, dtype=compact.dtype, device=compact.device)
-    return out.index_copy_(0, view.out_map, compact)
+def _fused_call_batched(view: FusedView, x, y) -> torch.Tensor:
+    """K1-b over ``view`` for the ``[B, n]`` stacks ``x``, ``y``: the
+    ``[B, n_out]`` segment sums, one launch per ``MAX_BATCH`` value sets."""
+    from repro_torch.kernels import fused_stream_batched
+    from repro_torch.kernels._checks import batch_chunks
+
+    parts = [fused_stream_batched(view.idx_x, view.idx_y, view.seg_ptr,
+                                  xp, yp, long_slots=view.long_slots)
+             for xp, yp in batch_chunks(x, y)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _operand(x, dev) -> torch.Tensor:
-    return _values(x, dev).contiguous()
+def _k1(view: FusedView, x, y) -> torch.Tensor:
+    """K1 for value vectors, K1-b for ``[B, n]`` stacks."""
+    return (_fused_call_batched if x.dim() == 2 else _fused_call)(view, x, y)
 
 
 def _fused_contract(fs: FusedStream, dev):
-    """The differentiable fused contraction: forward and two grad replays."""
+    """The differentiable fused contraction: forward and two grad replays,
+    for vectors (K1) and ``[B, nnz]`` stacks (K1-b) alike."""
 
     def forward(a_values, b_values):
-        return _fused_call(fs.forward, a_values, b_values)
+        return _k1(fs.forward, a_values, b_values)
 
     def grad_a(g, a_values, b_values):
-        return _scatter(fs.grad_a, _fused_call(fs.grad_a, g, b_values),
-                        a_values.shape[0])
+        return _scatter(fs.grad_a, _k1(fs.grad_a, g, b_values),
+                        a_values.shape[-1])
 
     def grad_b(g, a_values, b_values):
-        return _scatter(fs.grad_b, _fused_call(fs.grad_b, g, a_values),
-                        b_values.shape[0])
+        return _scatter(fs.grad_b, _k1(fs.grad_b, g, a_values),
+                        b_values.shape[-1])
 
     contract = bilinear_custom_vjp(forward, grad_a, grad_b)
 
@@ -214,7 +226,8 @@ def _fused_contract(fs: FusedStream, dev):
 def fused_fn(plan):
     """The plan's differentiable fused function ``f(a_values, b_values) ->
     c_values`` (the values of C on the stream's structure, f32 on the plan's
-    device).  Kept on the plan; a guarded plan raises the guard error."""
+    device), for value vectors or ``[B, nnz]`` stacks.  Kept on the plan; a
+    guarded plan raises the guard error."""
     fs = fused_stream(plan)
     if fs is None:
         raise _guard_error(plan)
@@ -246,7 +259,8 @@ def _fused_stats(stats, plan, view, cached) -> None:
 
 
 def execute_fused(plan, a_values, b_values, *,
-                  stats: dict | None = None) -> CSC:
+                  stats: dict | None = None,
+                  validate: str | None = None) -> CSC:
     """Numeric phase through K1 (the executor's ``"fused"`` engine).
 
     One launch; the result's values lie on the plan's device, on the
@@ -255,8 +269,8 @@ def execute_fused(plan, a_values, b_values, *,
     cancel).  Not differentiable: use ``plan.stream_apply(..., engine=
     "fused")`` for that.
     """
-    plan.a.check_compatible(a_values)
-    plan.b.check_compatible(b_values)
+    plan.a.check_compatible(a_values, validate)
+    plan.b.check_compatible(b_values, validate)
     dev = plan.device
     view, c_rows, c_col_ptr, cached = _forward_of(plan)
     with torch.no_grad():
@@ -267,7 +281,8 @@ def execute_fused(plan, a_values, b_values, *,
 
 
 def execute_fused_batched(plan, a_values, b_values, *,
-                          stats: dict | None = None) -> list:
+                          stats: dict | None = None,
+                          validate: str | None = None) -> list:
     """Batched numeric phase through K1-b: B value sets, one launch (past
     ``MAX_BATCH`` value sets, one launch for each ``MAX_BATCH``).
 
@@ -281,8 +296,8 @@ def execute_fused_batched(plan, a_values, b_values, *,
     from repro_torch.kernels import fused_stream_batched
     from repro_torch.kernels._checks import batch_chunks
 
-    av = plan.a.batched_values(a_values)
-    bv = plan.b.batched_values(b_values)
+    av = plan.a.batched_values(a_values, validate)
+    bv = plan.b.batched_values(b_values, validate)
     batch = _check_batch(av, bv)
     dev = plan.device
     view, c_rows, c_col_ptr, cached = _forward_of(plan)

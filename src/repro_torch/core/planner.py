@@ -1,13 +1,22 @@
 """Symbolic SpGEMM planning: analyze a sparsity pattern once, execute often.
 
-``plan_spgemm`` runs every pattern-dependent step once — Op_j analysis,
-column sorting, blocking, hash-table sizing, padded kernel layouts,
-per-family column groups, per-block trip counts — on the host in numpy, and
-captures the result in an immutable :class:`SpgemmPlan` whose index arrays
-live on the plan's device.  Executing the plan (``core.executor``) does
-only value work: one gather per operand and one kernel launch per group, or,
-under ``engine="fused"``, one K1 launch over the plan's product stream
-(``core.fast``, built at first use).
+``plan_spgemm`` runs every pattern-dependent step once, on the host in
+numpy, and captures the result in an immutable :class:`SpgemmPlan`:
+
+- a ``"cuda"`` plan holds the per-group launch schedule — Op_j analysis,
+  column sorting, blocking, hash-table sizing, padded kernel layouts,
+  per-family column groups, per-block trip counts — with its index arrays
+  on the plan's device;
+- a ``"host"`` plan holds the patterns and, for the blocked methods, the
+  paper's pre-processing that its naive oracles consume;
+- a ``"torch"`` plan holds the patterns alone: its numeric phase is the
+  method-independent stream contraction, so every method spelling plans as
+  the canonical ``"expand"``.
+
+Every plan builds its product stream (``core.fast``) at first use, and the
+device engines lift it to the plan's device once (``core.device_stream``,
+``core.fused_stream``).  Executing a plan (``core.executor``) does only
+value work.
 
 Plans are keyed by :func:`pattern_fingerprint`, which hashes only structure
 (shape, col_ptr, row_indices) — never values — so ``core.api``'s bounded LRU
@@ -31,8 +40,8 @@ from repro_torch.sparse.format import CSC, BatchedCSC, ColumnSlots, _np, \
     as_tensor, csc_pad_gather
 from repro_torch.sparse.stats import ops_per_column, steps_per_column
 
-# method -> base kwargs; the paper's Section 5.3 configurations that have a
-# kernel family (the JAX package's host-only "esc" and "expand" have none)
+# method -> base kwargs; the paper's Section 5.3 configurations, and the
+# host-only executors (no kernel family on the cuda backend)
 ALGORITHMS = {
     "spa": {},
     "spars-16/64": dict(b_min=16, b_max=64),
@@ -43,19 +52,59 @@ ALGORITHMS = {
     "hash-256/256": dict(b_min=256, b_max=256),
     "h-hash-32/256": dict(t=40, b_min=32, b_max=256, accumulator="hash"),
     "h-hash-256/256": dict(t=40, b_min=256, b_max=256, accumulator="hash"),
+    "esc": {},
+    "expand": {},  # the host expansion executor (not a paper algorithm)
 }
+
+#: the prefixes of the method families whose bounds may be spelled out in
+#: an unregistered name (``spars-128/128``)
+FAMILY_PREFIXES = ("spars", "hash", "h-")
 
 #: lane-block width of the lock-step kernels, and C columns per launch
 BLOCK_COLS = 128
 
 
-def resolve_params(method: str) -> dict:
-    """The named method's parameters; raises on a method with no kernel
-    family."""
+def resolve_params(
+    method: str,
+    *,
+    t: float | None = None,
+    b_min: int | None = None,
+    b_max: int | None = None,
+) -> dict:
+    """The named method's parameters, with the given overrides.
+
+    An unregistered ``family-x/y`` name (``spars-128/128``) takes its block
+    bounds from the name itself, as in the JAX package.
+    """
+    params = dict(ALGORITHMS.get(method, ()))
     if method not in ALGORITHMS:
-        raise ValueError(
-            f"unknown method {method!r}; one of {list(ALGORITHMS)}")
-    return dict(ALGORITHMS[method])
+        if "-" in method:
+            bounds = method.rsplit("-", 1)[1]
+            # a trailing all-digit or x/y token is a bounds spec and must
+            # parse; anything else (a bare family prefix) is not
+            if "/" in bounds or bounds.isdigit():
+                try:
+                    bmin, bmax = (int(x) for x in bounds.split("/"))
+                except ValueError:
+                    raise ValueError(
+                        f"malformed block bounds in method {method!r}; "
+                        "expected 'family-bmin/bmax'") from None
+                params.setdefault("b_min", bmin)
+                params.setdefault("b_max", bmax)
+        if method.startswith("h-"):
+            params.setdefault("t", 40.0)
+            params.setdefault(
+                "accumulator", "hash" if "hash" in method else "spa")
+    if method.startswith(FAMILY_PREFIXES):
+        params.setdefault("b_min", 256)
+        params.setdefault("b_max", 256)
+    if t is not None:
+        params["t"] = t
+    if b_min is not None:
+        params["b_min"] = b_min
+    if b_max is not None:
+        params["b_max"] = b_max
+    return params
 
 
 def pattern_fingerprint(m: CSC) -> str:
@@ -92,8 +141,9 @@ class Pattern:
     def nnz(self) -> int:
         return int(self.col_ptr[-1])
 
-    def _check_structure(self, operand) -> None:
-        """Shape and nnz of a CSC or BatchedCSC operand (O(1))."""
+    def _check_structure(self, operand, validate) -> None:
+        """Shape and nnz of a CSC or BatchedCSC operand (O(1)), and with
+        ``validate="fingerprint"`` its whole structure (O(nnz))."""
         if tuple(operand.shape) != self.shape:
             raise ValueError(
                 f"operand shape {tuple(operand.shape)} != planned "
@@ -102,25 +152,41 @@ class Pattern:
             raise ValueError(
                 f"operand nnz {operand.nnz} != planned {self.nnz} "
                 "(sparsity pattern does not match this plan)")
+        if (validate == "fingerprint"
+                and pattern_fingerprint(operand) != self.fingerprint):
+            raise ValueError(
+                "operand sparsity pattern does not match this plan "
+                "(fingerprint mismatch despite equal shape and nnz)")
 
-    def check_compatible(self, operand) -> None:
-        """O(1) check of an execute-time operand (shape and nnz for a CSC,
-        length for a raw value vector)."""
+    def check_compatible(self, operand, validate: str | None = None) -> None:
+        """Check an execute-time operand: shape and nnz for a CSC, length
+        for a raw value vector (O(1)).
+
+        A same-shape same-nnz CSC with another pattern passes the default
+        check; ``validate="fingerprint"`` re-hashes its structure and
+        rejects it.  Raw value vectors carry no structure, so the
+        fingerprint check has nothing to read there.
+        """
+        _check_validate(validate)
         if isinstance(operand, CSC):
-            self._check_structure(operand)
+            self._check_structure(operand, validate)
             return
         shape = tuple(operand.shape)
         if len(shape) != 1:
-            raise ValueError(f"expected a 1-D value array, got shape {shape}")
+            raise ValueError(
+                f"expected a 1-D value array, got shape {shape} "
+                "(use execute_batched for [B, nnz] value stacks)")
         if shape[0] < self.nnz:
             raise ValueError(f"need >= {self.nnz} values, got {shape[0]}")
 
-    def check_batched_compatible(self, operand) -> None:
+    def check_batched_compatible(self, operand,
+                                 validate: str | None = None) -> None:
         """Batched twin of :meth:`check_compatible`: shape and nnz for a
         :class:`BatchedCSC`, ``[B, >= nnz]`` for a raw value stack.  A
         single CSC or a 1-D array is rejected (use ``execute``)."""
+        _check_validate(validate)
         if isinstance(operand, BatchedCSC):
-            self._check_structure(operand)
+            self._check_structure(operand, validate)
             return
         # a CSC's shape is (n_rows, n_cols): never read it as [B, nnz]
         shape = None if isinstance(operand, CSC) else np.shape(operand)
@@ -132,13 +198,26 @@ class Pattern:
             raise ValueError(f"need >= {self.nnz} values per batch element, "
                              f"got {shape[1]}")
 
-    def batched_values(self, operand) -> torch.Tensor:
+    def batched_values(self, operand,
+                       validate: str | None = None) -> torch.Tensor:
         """The ``[B, nnz]`` value stack (torch, where it lies) of a batched
         execute-time operand: a :class:`BatchedCSC` with this pattern or a
         raw ``[B, >= nnz]`` stack."""
-        self.check_batched_compatible(operand)
+        self.check_batched_compatible(operand, validate)
         v = operand.values if isinstance(operand, BatchedCSC) else operand
         return as_tensor(v)[:, : self.nnz]
+
+    def with_values(self, values, validate: str | None = None) -> CSC:
+        """This pattern with numeric values bound (a CSC or a raw vector)."""
+        self.check_compatible(values, validate)
+        v = values.values if isinstance(values, CSC) else values
+        return CSC(as_tensor(v), self.row_indices, self.col_ptr, self.shape)
+
+
+def _check_validate(validate) -> None:
+    if validate not in (None, "fingerprint"):
+        raise ValueError(
+            f"unknown validate mode {validate!r}; None or 'fingerprint'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,21 +269,26 @@ class KernelLayout:
 
 @dataclasses.dataclass(frozen=True)
 class SpgemmPlan:
-    """Immutable symbolic plan for C = A @ B with one algorithm, on one
-    device.  Execute with ``plan.execute(a_values, b_values)`` (CSC operands
-    or raw value vectors aligned with the planned patterns)."""
+    """Immutable symbolic plan for C = A @ B with one algorithm and backend,
+    on one device.  Execute with ``plan.execute(a_values, b_values)`` (CSC
+    operands or raw value vectors aligned with the planned patterns)."""
 
     method: str
     backend: str
     params: tuple             # sorted (key, value) pairs, hashable
     a: Pattern
     b: Pattern
-    pre: Optional[Preprocess]
-    layout: KernelLayout
+    pre: Optional[Preprocess]        # the paper's pre-processing, if used
+    layout: Optional[KernelLayout]   # the launch schedule ("cuda" plans)
     device: torch.device
     stream_limit: Optional[int] = None  # plan-memory guard (products)
     _stream_memo: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
+
+    @property
+    def contract(self) -> "backends.ExecutionContract":
+        """This plan's backend contract (``core.backends``)."""
+        return backends.get_backend(self.backend)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -212,7 +296,7 @@ class SpgemmPlan:
 
     @property
     def stream(self) -> Optional[ProductStream]:
-        """The product stream of the fused engine (``core.fast``), built at
+        """The product stream of the stream engines (``core.fast``), built at
         first access and kept on the plan, so per-group executions never
         pay for it.  ``None`` when it would exceed ``stream_limit``."""
         if "stream" not in self._stream_memo:
@@ -223,10 +307,17 @@ class SpgemmPlan:
     @property
     def stream_nbytes(self) -> int:
         """Host bytes of the stream this plan holds (0 before the first
-        fused execution and when the guard tripped); reads the memo
+        stream execution and when the guard tripped); reads the memo
         without building it."""
         s = self._stream_memo.get("stream")
         return s.nbytes if s is not None else 0
+
+    @property
+    def device_stream_nbytes(self) -> int:
+        """Device bytes of the torch stream's index tensors this plan holds
+        (``core.device_stream``); reads the memo without building them."""
+        d = self._stream_memo.get("device")
+        return d.nbytes if d is not None else 0
 
     @property
     def fused_stream_nbytes(self) -> int:
@@ -239,34 +330,53 @@ class SpgemmPlan:
         """Differentiable numeric phase: C's values only.
 
         ``a_values``/``b_values`` are value vectors (torch tensors, which
-        may require grad) aligned with the planned patterns; the result is
-        the ``[nnz_c]`` f32 value vector of C on the stream's structure
-        (``plan.stream.c_rows``/``c_col_ptr``), on the plan's device, and
-        ``torch.autograd`` differentiates it with two more K1 replays.
-        Only ``engine="fused"`` exists: the JAX package's XLA device stream
-        (``engine=None``/``"stream"``) has no counterpart in the port yet.
-        A guarded plan raises (there is no stream to differentiate through).
+        may require grad) aligned with the planned patterns, or ``[B, nnz]``
+        stacks of them; the result is C's ``[nnz_c]`` (or ``[B, nnz_c]``)
+        f32 values on the stream's structure (``plan.stream.c_rows``/
+        ``c_col_ptr``), on the plan's device, and ``torch.autograd``
+        differentiates it with two more replays of the stream.
+        ``engine=None``/``"stream"`` lowers the replays through PyTorch ops
+        (``core.device_stream``), ``"fused"`` through K1 (K1-b for stacks);
+        any plan takes either.  A guarded plan raises (there is no stream to
+        differentiate through).
         """
-        if engine != "fused":
+        if engine == "fused":
+            from repro_torch.core.fused_stream import fused_fn as make
+        elif engine in (None, "stream"):
+            from repro_torch.core.device_stream import stream_fn as make
+        else:
             raise ValueError(
-                f"stream_apply supports only engine='fused' in this port, "
-                f"got {engine!r}: the XLA device stream (engine=None/"
-                "'stream') is not ported")
-        from repro_torch.core.fused_stream import fused_fn
-
-        self.a.check_compatible(a_values)
-        self.b.check_compatible(b_values)
-        return fused_fn(self)(a_values, b_values)
+                f"stream_apply supports engine=None/'stream'/'fused', "
+                f"got {engine!r}")
+        if np.ndim(a_values) == 2 and np.ndim(b_values) == 2:
+            self.a.check_batched_compatible(a_values)
+            self.b.check_batched_compatible(b_values)
+            if a_values.shape[0] != b_values.shape[0]:
+                raise ValueError(
+                    f"batch mismatch: A has {a_values.shape[0]} value "
+                    f"sets, B has {b_values.shape[0]}")
+        else:
+            self.a.check_compatible(a_values)
+            self.b.check_compatible(b_values)
+        return make(self)(a_values, b_values)
 
     def execute(self, a_values, b_values, *, stats: dict | None = None,
+                validate: str | None = None,
                 engine: str | None = None) -> CSC:
-        """Numeric phase only: C for new values on the planned patterns."""
+        """Numeric phase only: C for new values on the planned patterns.
+
+        ``engine`` picks one of the backend's engines (``None``: its default
+        for the method); ``validate="fingerprint"`` re-hashes a CSC
+        operand's structure against the plan.
+        """
         from repro_torch.core.executor import execute
 
-        return execute(self, a_values, b_values, stats=stats, engine=engine)
+        return execute(self, a_values, b_values, stats=stats,
+                       validate=validate, engine=engine)
 
     def execute_batched(self, a_values, b_values, *,
                         stats: dict | None = None,
+                        validate: str | None = None,
                         engine: str | None = None) -> list:
         """Batched numeric phase: B same-pattern multiplies through one
         execution of the plan.
@@ -275,12 +385,41 @@ class SpgemmPlan:
         BatchedCSC` operands or raw ``[B, nnz]`` value stacks aligned with
         the planned patterns.  Returns the B results as a list of CSC
         matrices, bit-identical to a Python loop of :meth:`execute`.
-        ``engine`` as in :meth:`execute`.
+        ``engine`` and ``validate`` as in :meth:`execute`.
         """
         from repro_torch.core.executor import execute_batched
 
         return execute_batched(self, a_values, b_values, stats=stats,
-                               engine=engine)
+                               validate=validate, engine=engine)
+
+
+def plan_device(contract, device) -> torch.device:
+    """Where a plan of ``contract`` runs: a device backend's ``device``
+    (``None`` is the card, :func:`~repro_torch.device.resolve_device`); the
+    host backend's numpy always runs on the CPU, so ``None`` is the CPU
+    there and any other device raises."""
+    if contract.device_resident:
+        return resolve_device(device)
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type != "cpu":
+        raise ValueError(
+            f"backend={contract.name!r} runs numpy on the host; "
+            f"device={device!r} does not apply (use backend='cuda' or "
+            "'torch' on the card)")
+    return dev
+
+
+def check_method(method: str, contract) -> None:
+    """Reject a method the planner does not know, or one ``contract``
+    cannot plan (the host-only methods on the cuda backend)."""
+    if method not in ALGORITHMS and not method.startswith(FAMILY_PREFIXES):
+        raise ValueError(
+            f"unknown method {method!r}; one of {list(ALGORITHMS)} or a "
+            "'spars-*/hash-*/h-*' family name")
+    if method in contract.excluded_methods:
+        raise ValueError(
+            f"method {method!r} has no {contract.name} kernel family "
+            "(host-only)")
 
 
 def plan_spgemm(
@@ -289,26 +428,49 @@ def plan_spgemm(
     method: str = "h-hash-256/256",
     *,
     backend: str = "cuda",
+    t: float | None = None,
+    b_min: int | None = None,
+    b_max: int | None = None,
     device=None,
     stream_limit: int | None = None,
 ) -> SpgemmPlan:
     """Build the symbolic plan for C = A @ B (pattern-dependent work only).
 
-    ``device`` (default ``"cuda"``) is where the plan's index tensors live
-    and its kernels run.  Every launch covers at most ``BLOCK_COLS`` C
-    columns, one lane block of the lock-step kernels.  The fused engine's
-    product stream is kept on the plan while it has at most
-    ``stream_limit`` products (default ``fast.STREAM_MAX_PRODUCTS``);
-    above that each fused execution rebuilds it and keeps nothing.
+    ``backend`` is ``"cuda"`` (the per-group kernels; the default),
+    ``"torch"`` (the stream in PyTorch ops; every method spelling plans as
+    ``"expand"``) or ``"host"`` (numpy; ``device`` must be the CPU).
+    ``device`` (default ``"cuda"`` on the device backends) is where the
+    plan's index tensors live and its numeric phase runs.  ``t`` moves a
+    hybrid's split; ``b_min``/``b_max`` set the blocking of the host
+    oracles, while the cuda kernels block by ``BLOCK_COLS`` lanes whatever
+    they say (the method selects the family, as in the JAX package); the
+    torch backend rejects all three.  The product stream is kept on the
+    plan while it has at most ``stream_limit`` products (default
+    ``fast.STREAM_MAX_PRODUCTS``); above that each stream execution
+    rebuilds it and keeps nothing.
     """
     if a.n_cols != b.n_rows:
         raise ValueError(f"shape mismatch {a.shape} @ {b.shape}")
-    params = resolve_params(method)
-    backends.get_backend(backend)   # canonical unknown-backend error
-    dev = resolve_device(device)
-    pre, layout = _plan_groups(a, b, method, params, dev)
+    contract = backends.get_backend(backend)
+    check_method(method, contract)
+    backends.check_method_knobs(contract, t, b_min, b_max)
+    if contract.canonical_method:
+        method = contract.canonical_method
+    params = resolve_params(method, t=t, b_min=b_min, b_max=b_max)
+    dev = plan_device(contract, device)
     limit = (fast.STREAM_MAX_PRODUCTS if stream_limit is None
              else int(stream_limit))
+    pre = layout = None
+    if backend == "cuda":
+        pre, layout = _plan_groups(a, b, method, params, dev)
+    elif contract.bit_exact_oracle:
+        # the host oracles consume the paper's pre-processing
+        if method.startswith(("spars", "hash")):
+            pre = preprocess(a, b, t=np.inf, b_min=params["b_min"],
+                             b_max=params["b_max"])
+        elif method.startswith("h-"):
+            pre = preprocess(a, b, t=params["t"], b_min=params["b_min"],
+                             b_max=params["b_max"])
     return SpgemmPlan(method, backend, tuple(sorted(params.items())),
                       Pattern.of(a), Pattern.of(b), pre, layout, dev, limit)
 

@@ -10,7 +10,8 @@ forms launch once per group for B same-pattern value sets (``a_arrs``' and
 ``b_vals``' values carry a leading batch axis).
 
 ``spgemm_cuda`` is the counterpart of the JAX package's ``spgemm_pallas``:
-plan once, execute once, for direct use (tests, notebooks).
+plan once (or take a held plan), execute once, for direct use (tests,
+notebooks).
 """
 
 from __future__ import annotations
@@ -80,13 +81,22 @@ def run_hash_batched(group, a_arrs, b_vals, *, m: int, block_cols: int):
     return keys[:, :, : group.n_real], vals[:, :, : group.n_real]
 
 
-def spgemm_cuda(a: CSC, b: CSC, method: str = "spa", *, device=None) -> CSC:
+def spgemm_cuda(a: CSC, b: CSC, method: str = "spa", *, t: float = 40.0,
+                b_min: int | None = None, b_max: int | None = None,
+                plan=None, device=None) -> CSC:
     """C = A @ B through the per-group kernels (plan once, execute once).
 
-    The lock-step kernels use fixed-width column blocks, so the b_min/b_max
-    of the named method select the *family*; hybrids split at the paper's
-    t = 40.
+    The lock-step kernels use fixed-width column blocks, so ``b_min``/
+    ``b_max`` (or the bounds in the method's name) select the *family* and
+    not the blocking; hybrids split at ``t`` (the paper's 40).  A held
+    ``plan`` (from ``core.plan_spgemm``) skips the symbolic phase.  The
+    host-only methods have no kernel family and raise.
     """
-    from repro_torch.core.planner import plan_spgemm
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.planner import check_method, plan_spgemm
 
-    return plan_spgemm(a, b, method, device=device).execute(a, b)
+    check_method(method, get_backend("cuda"))
+    if plan is None:
+        plan = plan_spgemm(a, b, method, backend="cuda", t=t, b_min=b_min,
+                           b_max=b_max, device=device)
+    return plan.execute(a, b)

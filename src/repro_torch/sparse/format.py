@@ -86,6 +86,12 @@ class CSC:
         return CSC(self.values.to(device), _move(self.row_indices, device),
                    _move(self.col_ptr, device), self.shape)
 
+    def column(self, j: int):
+        """Host numpy (rows, vals) of column j."""
+        cp = _np(self.col_ptr)
+        lo, hi = int(cp[j]), int(cp[j + 1])
+        return _np(self.row_indices)[lo:hi], _np(self.values)[lo:hi]
+
 
 def _move(x, device):
     """A structure array on ``device`` (host numpy stays where it is)."""
@@ -183,6 +189,36 @@ class BatchedCSC:
                           _move(self.col_ptr, device), self.shape)
 
 
+@dataclasses.dataclass(frozen=True)
+class CSR:
+    """Compressed Sparse Row matrix (the transpose-dual of CSC): host numpy
+    structure, torch values, as :class:`CSC`."""
+
+    values: torch.Tensor
+    col_indices: Structure
+    row_ptr: Structure
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.row_ptr[-1])
+
+
+@dataclasses.dataclass(frozen=True)
+class COO:
+    """Coordinate format (row, col, value triplets): host numpy rows and
+    columns, torch values."""
+
+    rows: Structure
+    cols: Structure
+    values: torch.Tensor
+    shape: Tuple[int, int]
+
+    @property
+    def nnz(self) -> int:
+        return int(self.values.shape[0])
+
+
 def csc_from_numpy(values, row_indices, col_ptr, shape) -> CSC:
     """CSC from host arrays: numpy structure, torch values (no copy)."""
     return CSC(as_tensor(values), np.asarray(row_indices, np.int32),
@@ -206,13 +242,87 @@ def csc_to_dense(m: CSC) -> torch.Tensor:
     entries within a column accumulate (general CSC semantics)."""
     nnz = m.nnz
     dev = m.values.device
-    rows = torch.as_tensor(_np(m.row_indices)[:nnz], dtype=torch.int64,
+    rows = torch.as_tensor(_np(m.row_indices)[:nnz].astype(np.int64),
                            device=dev)
     cols = torch.as_tensor(
         np.repeat(np.arange(m.n_cols), np.diff(_np(m.col_ptr))),
         dtype=torch.int64, device=dev)
     out = torch.zeros(m.shape, dtype=m.values.dtype, device=dev)
     return out.index_put_((rows, cols), m.values[:nnz], accumulate=True)
+
+
+def csc_from_coo(coo: COO, sum_duplicates: bool = True) -> CSC:
+    """CSC of a COO, rows ascending in each column; with
+    ``sum_duplicates`` the entries of one (row, col) are added in their
+    COO order (``np.add.at``, host numpy, as in the JAX package)."""
+    rows = _np(coo.rows).astype(np.int64)
+    cols = _np(coo.cols).astype(np.int64)
+    vals = _np(coo.values)
+    n_rows, n_cols = coo.shape
+    order = np.lexsort((rows, cols))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    if sum_duplicates and len(rows):
+        key = cols * n_rows + rows
+        uniq, inv = np.unique(key, return_inverse=True)
+        acc = np.zeros(len(uniq), vals.dtype)
+        np.add.at(acc, inv, vals)
+        cols = uniq // n_rows
+        rows = uniq % n_rows
+        vals = acc
+    col_ptr = np.zeros(n_cols + 1, np.int32)
+    np.add.at(col_ptr[1:], cols, 1)
+    np.cumsum(col_ptr, out=col_ptr)
+    return csc_from_numpy(vals, rows.astype(np.int32), col_ptr,
+                          (n_rows, n_cols))
+
+
+def csc_to_csr(m: CSC) -> CSR:
+    """The same matrix in CSR, columns ascending in each row."""
+    vals = _np(m.values)[: m.nnz]
+    rows = _np(m.row_indices)[: m.nnz]
+    cp = _np(m.col_ptr)
+    cols = np.repeat(np.arange(m.n_cols, dtype=np.int32), np.diff(cp))
+    order = np.lexsort((cols, rows))
+    row_ptr = np.zeros(m.n_rows + 1, np.int32)
+    np.add.at(row_ptr[1:], rows, 1)
+    np.cumsum(row_ptr, out=row_ptr)
+    return CSR(as_tensor(vals[order]), cols[order], row_ptr,
+               tuple(m.shape))
+
+
+def csr_to_csc(m: CSR) -> CSC:
+    """The same matrix in CSC, rows ascending in each column."""
+    vals = _np(m.values)[: m.nnz]
+    cols = _np(m.col_indices)[: m.nnz]
+    rp = _np(m.row_ptr)
+    rows = np.repeat(np.arange(m.shape[0], dtype=np.int32), np.diff(rp))
+    order = np.lexsort((rows, cols))
+    col_ptr = np.zeros(m.shape[1] + 1, np.int32)
+    np.add.at(col_ptr[1:], cols, 1)
+    np.cumsum(col_ptr, out=col_ptr)
+    return csc_from_numpy(vals[order], rows[order], col_ptr, m.shape)
+
+
+def transpose_csc(m: CSC) -> CSC:
+    """C^T in CSC: C in CSR read as CSC."""
+    r = csc_to_csr(m)
+    return CSC(r.values, r.col_indices, r.row_ptr, (m.shape[1], m.shape[0]))
+
+
+def segment_reduce(values, seg_starts, axis: int = -1) -> np.ndarray:
+    """Per-segment sums of host numpy ``values`` along ``axis``: segment
+    ``i`` spans ``[seg_starts[i], seg_starts[i+1])``, the last to the end.
+
+    ``np.add.reduceat``, as in the JAX package's host stream engine (its
+    2-D ``axis=1`` form equals the 1-D one row by row), with the empty
+    segment list handled (reduceat rejects it).
+    """
+    v = np.asarray(values)
+    if len(seg_starts) == 0:
+        shape = list(v.shape)
+        shape[axis] = 0
+        return np.zeros(shape, v.dtype)
+    return np.add.reduceat(v, seg_starts, axis=axis)
 
 
 def csc_pad_gather(m: CSC, pad_to: int | None = None):
@@ -481,3 +591,16 @@ def csc_equal(a: CSC, b: CSC, rtol: float = 1e-6, atol: float = 1e-8) -> bool:
     da = csc_to_dense(a).cpu().to(torch.float64)
     db = csc_to_dense(b).cpu().to(torch.float64)
     return bool(torch.allclose(da, db, rtol=rtol, atol=atol))
+
+
+def csc_bit_identical(a: CSC, b: CSC) -> bool:
+    """Exact structural and value equality, storage order included: the
+    level at which plan reuse, batched == looped and the host backend's
+    parity with the JAX package are held."""
+    return (
+        tuple(a.shape) == tuple(b.shape)
+        and np.array_equal(_np(a.col_ptr), _np(b.col_ptr))
+        and np.array_equal(_np(a.row_indices)[: a.nnz],
+                           _np(b.row_indices)[: b.nnz])
+        and np.array_equal(_np(a.values)[: a.nnz], _np(b.values)[: b.nnz])
+    )

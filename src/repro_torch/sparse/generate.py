@@ -45,6 +45,27 @@ def random_density_csc(
     return csc_from_dense(dense.astype(dtype))
 
 
+def random_banded_csc(
+    n: int, bandwidth: int, *, fill: float = 1.0, seed: int = 0, dtype=np.float64
+) -> CSC:
+    """Banded matrix (PDE-like pattern, e.g. olm1000/tub1000 family)."""
+    rng = _rng(seed)
+    rows_l, vals_l, col_ptr = [], [], [0]
+    for j in range(n):
+        lo = max(0, j - bandwidth)
+        hi = min(n, j + bandwidth + 1)
+        cand = np.arange(lo, hi)
+        if fill < 1.0:
+            keep = rng.uniform(size=len(cand)) < fill
+            keep[cand == j] = True  # keep the diagonal
+            cand = cand[keep]
+        rows_l.append(cand.astype(np.int32))
+        vals_l.append(rng.uniform(0.5, 1.5, size=len(cand)).astype(dtype))
+        col_ptr.append(col_ptr[-1] + len(cand))
+    return csc_from_numpy(np.concatenate(vals_l), np.concatenate(rows_l),
+                          col_ptr, (n, n))
+
+
 def random_powerlaw_csc(
     n: int,
     avg_nnz: float,

@@ -22,7 +22,7 @@ import zlib
 
 import numpy as np
 
-from repro_torch.sparse.format import CSC, csc_from_numpy
+from repro_torch.sparse.format import CSC, _np, csc_from_numpy
 from repro_torch.sparse.stats import MatrixStats, matrix_stats
 
 
@@ -394,3 +394,35 @@ def synthesize_suitesparse(
     m = csc_from_numpy(np.concatenate(vals_l), np.concatenate(rows), col_ptr,
                        (n, n))
     return m, matrix_stats(m)
+
+
+def load_or_synthesize(
+    spec: MatrixSpec | str, *, seed: int = 0,
+    cache_dir: str | None = ".cache/matrices",
+) -> tuple[CSC, MatrixStats]:
+    """:func:`synthesize_suitesparse` behind a cache on the local disk (the
+    calibrated generation takes seconds): ``<cache_dir>/<name>_s<seed>.npz``
+    holds the matrix, written atomically; an entry that does not load is
+    generated and written again.  ``cache_dir=None`` skips the cache."""
+    import os
+
+    if isinstance(spec, str):
+        spec = by_name(spec)
+    if cache_dir is None:
+        return synthesize_suitesparse(spec, seed=seed)
+    os.makedirs(cache_dir, exist_ok=True)
+    path = os.path.join(cache_dir, f"{spec.name}_s{seed}.npz")
+    if os.path.exists(path):
+        try:
+            z = np.load(path)
+            m = csc_from_numpy(z["values"], z["row_indices"], z["col_ptr"],
+                               (int(z["n_rows"]), int(z["n_cols"])))
+            return m, matrix_stats(m)
+        except Exception:
+            pass  # a corrupt entry: generate it again
+    m, st = synthesize_suitesparse(spec, seed=seed)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, values=_np(m.values), row_indices=_np(m.row_indices),
+             col_ptr=_np(m.col_ptr), n_rows=m.shape[0], n_cols=m.shape[1])
+    os.replace(tmp, path)
+    return m, st

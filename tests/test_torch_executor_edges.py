@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 
 from repro.core import spgemm as ref_spgemm
 from repro_torch.core import plan_spgemm, spgemm, spgemm_batched
+from repro_torch.core.backends import HOST_ONLY_METHODS
 from repro_torch.core.planner import ALGORITHMS
 from repro_torch.kernels import _checks, bsr_spmm_batched
 from repro_torch.models import SparseMatmul
@@ -25,7 +26,8 @@ from repro_torch.sparse import generate
 from repro_torch.sparse.format import BatchedCSC, CSC, _np, csc_from_dense
 from torch_parity import assert_same_csc, to_ref, value_stack
 
-METHODS = (None,) + tuple(ALGORITHMS)   # None: spgemm()'s default
+# None: spgemm()'s default; the methods with a kernel family
+METHODS = (None,) + tuple(m for m in ALGORITHMS if m not in HOST_ONLY_METHODS)
 
 
 def _zero_row_operands():

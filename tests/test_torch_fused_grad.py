@@ -204,10 +204,18 @@ def test_unrequested_replay_is_skipped(monkeypatch):
 
 @pytest.mark.parametrize("engine", [None, "stream", "naive", "bogus"])
 def test_stream_apply_only_has_the_fused_engine(engine):
+    """Besides "fused", stream_apply takes the torch stream (None and
+    "stream", on this "cuda" plan too): it equals the torch backend's
+    execute; any other spelling raises."""
     a, b = adversarial("random")
     plan = plan_spgemm(a, b, device="cpu")
-    with pytest.raises(ValueError, match="engine='fused'"):
-        plan.stream_apply(a.values, b.values, engine=engine)
+    if engine in ("naive", "bogus"):
+        with pytest.raises(ValueError, match="engine=None/'stream'/'fused'"):
+            plan.stream_apply(a.values, b.values, engine=engine)
+        return
+    want = plan_spgemm(a, b, backend="torch", device="cpu").execute(a, b)
+    got = plan.stream_apply(a.values, b.values, engine=engine)
+    assert torch.equal(got, want.values)
 
 
 def test_stream_apply_checks_operand_lengths():

@@ -5,8 +5,11 @@ backward); the batched kernels K1-b … K4-b against their plain versions
 and, slice by slice, against the unbatched kernels, and the batched
 executes' host waits; K5 and K5-b (the BSR kernel) against their plain
 versions and each other, and the sparse FFN on the card against the same
-FFN on the CPU.  Every test needs a card (marker ``gpu``) and skips
-without one.
+FFN on the CPU; the torch stream (``backend="torch"``) on the card
+against its CPU run and the fused engine on integer values, bit-stable and
+batched == looped on real ones, with no host wait; and the gradient of
+``[B, nnz]`` stacks on both stream engines against a loop.  Every test
+needs a card (marker ``gpu``) and skips without one.
 
 On the card these run without the JAX-importing conftest, which that
 machine cannot import::
@@ -953,3 +956,109 @@ def test_bsr_layout_model_equals_the_kernels_choice(cuda):
             (32, 128, 130, 132, 200, 256, 2048), (1, 3, 8), (True, False)):
         args = (n_rb, bm, bk, n, batch, aligned)
         assert kernels.bsr_layout(*args) == model_layout(*args), args
+
+
+# --- the torch stream (backend="torch") and the batched gradient ------------
+
+
+def _int_operands(seed=12):
+    a = generate.random_powerlaw_csc(400, 6.0, seed=seed)
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(1, 4, a.nnz) * rng.choice([-1, 1], a.nnz)
+    return a, torch.from_numpy(vals.astype(np.float32))
+
+
+def test_torch_stream_on_card_equals_cpu_and_fused_on_integers(cuda):
+    """Integer values: every order gives the same sums, so the torch stream
+    on the card equals its CPU run and the fused engine bit for bit."""
+    a, v = _int_operands()
+    plan = plan_spgemm(a, a, backend="torch")
+    got = plan.execute(v.to(cuda), v.to(cuda))
+    assert got.values.device.type == "cuda"
+    cpu = plan_spgemm(a, a, backend="torch", device="cpu").execute(v, v)
+    for f in ("col_ptr", "row_indices", "values"):
+        assert np.array_equal(_np(getattr(got, f)), _np(getattr(cpu, f))), f
+    fused = plan.execute(v.to(cuda), v.to(cuda), engine="fused")
+    assert torch.equal(got.values, fused.values)
+
+
+def test_torch_stream_is_bit_stable_and_batched_equals_looped(cuda):
+    """Real values: two runs agree bit for bit, and a [B, nnz] stack (one
+    flat segmented sum) equals a loop of unbatched executes bit for bit at
+    B = 1, 3, 8 and at a stream length that is not a multiple of ALIGN."""
+    from repro_torch.core.device_stream import ALIGN
+
+    a = generate.random_powerlaw_csc(500, 9.0, seed=13)
+    plan = plan_spgemm(a, a, backend="torch")
+    assert plan.stream.n_products % ALIGN
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for batch in (1, 3, 8):
+        xs = torch.randn((batch, a.nnz), generator=gen, device=cuda)
+        ys = torch.randn((batch, a.nnz), generator=gen, device=cuda)
+        outs = plan.execute_batched(xs, ys)
+        for k in range(batch):
+            one = plan.execute(xs[k], ys[k]).values
+            assert torch.equal(outs[k].values.view(torch.int32),
+                               one.view(torch.int32))
+            assert torch.equal(one.view(torch.int32), plan.execute(
+                xs[k], ys[k]).values.view(torch.int32))
+
+
+def test_torch_stream_execute_never_waits_for_the_card(cuda):
+    a = generate.random_powerlaw_csc(600, 8.0, seed=5).to(cuda)
+    plan = plan_spgemm(a, a, backend="torch")
+    stack = torch.stack([a.values] * 3)
+    plan.execute(a, a)
+    plan.execute_batched(stack, stack)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        plan.execute(a, a)
+        plan.execute_batched(stack, stack)
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not syncs, [str(w.message) for w in syncs]
+
+
+@pytest.mark.parametrize("engine", [None, "fused"])
+def test_stacked_backward_on_card_equals_looped(cuda, engine):
+    """stream_apply on [B, nnz] stacks on the card: forward and both
+    gradients equal a loop of unbatched calls bit for bit (the fused
+    engine: K1-b on the forward view and on both gradient views, three
+    launches), and equal the CPU on integer values."""
+    a, v = _int_operands(seed=14)
+    plan = plan_spgemm(a, a)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for batch in (1, 3, 9):
+        xs = torch.randn((batch, a.nnz), generator=gen, device=cuda)
+        ys = torch.randn((batch, a.nnz), generator=gen, device=cuda)
+        w = torch.randn((batch, plan.stream.nnz), generator=gen,
+                        device=cuda)
+        x, y = xs.clone().requires_grad_(), ys.clone().requires_grad_()
+        before = kernels.fused_stream_batched.n_launches
+        c = plan.stream_apply(x, y, engine=engine)
+        gx, gy = torch.autograd.grad((w * c).sum(), (x, y))
+        torch.cuda.synchronize()
+        if engine == "fused":
+            assert kernels.fused_stream_batched.n_launches == before + 3
+        for k in range(batch):
+            xk = xs[k].clone().requires_grad_()
+            yk = ys[k].clone().requires_grad_()
+            ck = plan.stream_apply(xk, yk, engine=engine)
+            gxk, gyk = torch.autograd.grad((w[k] * ck).sum(), (xk, yk))
+            for got, want in ((c[k], ck), (gx[k], gxk), (gy[k], gyk)):
+                assert torch.equal(got.detach().view(torch.int32),
+                                   want.detach().view(torch.int32))
+    vs = torch.stack([v, v.flip(0)])
+    wv = torch.ones((2, plan.stream.nnz))
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        p = plan_spgemm(a, a, device=dev)
+        x = vs.to(dev).requires_grad_()
+        c = p.stream_apply(x, x, engine=engine)
+        g, = torch.autograd.grad((wv.to(dev) * c).sum(), x)
+        results.append((c.detach().cpu(), g.cpu()))
+    assert torch.equal(results[0][0], results[1][0])
+    assert torch.equal(results[0][1], results[1][1])

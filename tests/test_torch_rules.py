@@ -120,11 +120,13 @@ def test_cpu_tensor_with_cuda_device_raises(kernel):
 
 def test_no_fallback_in_wrappers():
     """No wrapper catches its kernel's failure: the kernel modules, the
-    fused engine and the sparse FFN hold no ``try`` at all, and
-    chip_smoke.py catches no phase failure."""
+    stream engines (fused, torch and host), the host oracles and the sparse
+    FFN hold no ``try`` at all, and chip_smoke.py catches no phase
+    failure."""
     for f in ("kernels/spa.py", "kernels/spars.py", "kernels/hash_spgemm.py",
               "kernels/fused_stream.py", "kernels/bsr_spmm.py",
               "kernels/ops.py", "core/fused_stream.py",
+              "core/device_stream.py", "core/naive.py", "core/fast.py",
               "models/sparse_ffn.py"):
         tree = ast.parse(open(os.path.join(PORT, f)).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), f

@@ -31,18 +31,22 @@ def test_spgemm_matches_reference(method, case, values):
 
 @pytest.mark.parametrize("method", ["esc", "expand", "spars-128/128", "auto"])
 def test_methods_without_kernel_family_raise(method):
-    """The JAX package's host-only methods, unregistered family names and
-    ``auto`` have no kernel family in this port."""
+    """The JAX package's host-only methods have no kernel family on the
+    "cuda" backend (its "pallas" error), and spgemm() knows neither
+    unregistered family names nor ``auto`` (tiling is not ported), as the
+    reference's spgemm() rejects unregistered names."""
     a, b = adversarial("random")
-    with pytest.raises(ValueError, match="unknown method"):
+    with pytest.raises(ValueError, match="unknown method|host-only"):
         spgemm(a, b, method, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(backend="jax"), dict(engine="stream"),
-                                dict(backend="pallas"), dict(backend="host")])
+                                dict(backend="pallas"), dict(backend="mesh")])
 def test_only_the_cuda_backend_and_naive_engine(kw):
-    """Only the "cuda" backend exists, and its engines are "naive" (the
-    default) and "fused" (tests/test_torch_fused.py)."""
+    """The reference's backend names "jax" and "pallas" are "torch" and
+    "cuda" here, the mesh is not ported, and the "cuda" backend's engines
+    are "naive" (the default) and "fused" (tests/test_torch_fused.py):
+    "stream" is the host and torch backends'."""
     a, b = adversarial("random")
     with pytest.raises(ValueError, match="backend|engine"):
         spgemm(a, b, device="cpu", **kw)

@@ -115,6 +115,20 @@ def assert_same_csc(got: CSC, want: RefCSC, *, exact: bool,
         np.testing.assert_allclose(gv, wv, rtol=rtol, atol=atol)
 
 
+def assert_bit_identical(got: CSC, want: RefCSC) -> None:
+    """The port's CSC equals the reference's bit for bit: shape, col_ptr,
+    each column's rows in storage order, and values of the same dtype."""
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_array_equal(_np(got.col_ptr), np.asarray(want.col_ptr))
+    nnz = got.nnz
+    np.testing.assert_array_equal(_np(got.row_indices)[:nnz],
+                                  np.asarray(want.row_indices)[:nnz])
+    gv, wv = _np(got.values)[:nnz], np.asarray(want.values)[:nnz]
+    assert gv.dtype == wv.dtype
+    assert np.array_equal(np.ascontiguousarray(gv).view(np.uint8),
+                          np.ascontiguousarray(wv).view(np.uint8))
+
+
 def check_spgemm_parity(a: CSC, b: CSC, method: str, values: str) -> None:
     """C = A·B through both packages' default device paths, compared.
 
