@@ -76,6 +76,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    f64 exactly and bit-identical to a looped execute, ``len(groups)``
    batched launches per naive execute and 1 per fused one, 1 and 0 host
    syncs on operands on the card; K1-b … K4-b must launch in this phase.
+7a. Tiled path (``method="auto"``, ``repro_torch.core.
+   plan_spgemm_tiled``): with the counts set to 0 just before, for every
+   matrix ``spgemm(A, A, method="auto")`` on the auto grid (a 1 x 1 grid
+   but for cage9's 3, ex22's 2 and Goodwin_013's 4 column blocks) and on
+   ``tile=(1024, 1024)`` (the k axis cut on nine matrices, so the merge of
+   row blocks runs on the card), ``spgemm_batched`` of the B = 8 stacks on
+   that grid, and a torch grid of K1 tiles (``backend="torch",
+   candidates=("fused",)``); K2, K3, K4, K1 and K2-b … K4-b must each
+   launch.  Every result equals ``scipy.sparse`` exactly; on real values a
+   one-row-block grid of one method equals the untiled plan of that method
+   bit for bit, the card's merge equals the host's numpy merge of the same
+   children bit for bit, two runs agree, and each batched element equals a
+   looped execute.  Per matrix and grid: the tiles' method mix, launches
+   and host syncs per execute (measured, equal to the executor's count:
+   one a per-group tile, one for the merge).
 8. Timing: per matrix and method, the host plan time, the execute time
    (median of ``--reps``), the host syncs of one execute on operands
    already on the card, each kernel's device time (CUDA events) and
@@ -104,6 +119,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    batched execute per multiply against a loop; and at the largest stream,
    the 1-D segmented sum beside ``torch.segment_reduce``'s ``axis=1`` path
    (which the port does not use) on the same products, each against K1.
+   Per matrix, ``method="auto"``'s execute on the auto grid and on
+   ``tile=(1024, 1024)`` beside the untiled default and each of the cuda
+   backend's auto candidates (``spa``, ``spars-40/40``,
+   ``hash-256/256``), with plan times and host syncs.
 9. Sparse FFN set-up: granite-20b's FFN at full width (d_model 6144, d_ff
    24576), weights from ``--seed`` through the port's ``init_params``,
    converted by ``SparseFFN.from_params`` at keep_density 0.9 (the dense
@@ -1599,6 +1618,240 @@ def check_batched_path(results, launches, stacks, fplans, dev):
 
 
 # ---------------------------------------------------------------------------
+# the tiled path: method="auto"
+# ---------------------------------------------------------------------------
+
+# an explicit grid that cuts the k axis of the nine matrices of more than
+# 1024 columns (the auto grid cuts none: their nnz stay far below
+# DEFAULT_KSPLIT_NNZ), so that the merge of row blocks runs on the card
+TILE = (1024, 1024)
+AUTO_FIXED = ("spa", "spars-40/40", "hash-256/256")   # cuda's candidates
+
+
+def csc_bits(c):
+    """(col_ptr, rows, f32 value bits) of a CSC on the host."""
+    from repro_torch.sparse.format import _np
+
+    cp = _np(c.col_ptr).astype(np.int64)
+    nnz = int(cp[-1])
+    vals = np.ascontiguousarray(_np(c.values)[:nnz].astype(np.float32))
+    return cp, _np(c.row_indices)[:nnz].astype(np.int64), vals.view(np.int32)
+
+
+def same_bits(x, y) -> bool:
+    return all(np.array_equal(u, v) for u, v in zip(csc_bits(x),
+                                                     csc_bits(y)))
+
+
+def check_scipy(c, want, label) -> None:
+    from repro_torch.sparse.format import _np
+
+    indptr, indices, data = want
+    check(c.values.device.type == "cuda", f"{label}: result on "
+          f"{c.values.device}")
+    check(np.array_equal(_np(c.col_ptr), indptr)
+          and np.array_equal(_np(c.row_indices), indices),
+          f"{label}: structure differs from scipy")
+    vals = _np(c.values)
+    check(np.isfinite(vals).all()
+          and np.array_equal(vals.astype(np.float64), data),
+          f"{label}: values differ from scipy")
+
+
+def method_mix(plan) -> dict:
+    mix: dict = {}
+    for m in plan.methods.values():
+        mix[m] = mix.get(m, 0) + 1
+    return mix
+
+
+def host_merged(plan, av, bv):
+    """The grid's children run one by one on the card and their results
+    merged on the host by the numpy merge (the JAX package's): what the
+    card's merge must equal bit for bit."""
+    from repro_torch.core.executor import _merge_and_stitch
+
+    per_block = {ni: [] for ni in range(plan.grid[1])}
+    for t in plan.tiles:
+        lo, hi = t.a_vals
+        c = t.plan.execute(av[lo:hi], bv[t.b_index])
+        per_block[t.n].append(c.to("cpu"))
+    return _merge_and_stitch(plan, per_block, np.float32)
+
+
+def tiled_path(mats, stacks):
+    """The tiled path as a user calls it, with the counts set to 0 just
+    before and read just after: per matrix ``spgemm(A, A, method="auto")``
+    on the auto grid and on ``tile=TILE``, ``spgemm_batched`` of the B = 8
+    stacks on ``TILE``, and a torch grid of K1 tiles (``backend="torch",
+    candidates=("fused",)``) on ``TILE``.  K2, K3, K4 and K1 (and K2-b ...
+    K4-b) must each launch."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import plan_cache_clear, spgemm, spgemm_batched
+
+    plan_cache_clear()
+    kernels.reset_launch_counts()
+    results = {}
+    for name in MATRICES:
+        a = mats[name]
+        results[name, "auto"] = spgemm(a, a, method="auto")
+        results[name, "tile"] = spgemm(a, a, method="auto", tile=TILE)
+        results[name, "batched"] = spgemm_batched(*stacks[name],
+                                                  method="auto", tile=TILE)
+        results[name, "fused"] = spgemm(a, a, method="auto", tile=TILE,
+                                        backend="torch",
+                                        candidates=("fused",))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    print(f"tiled path: {len(MATRICES)} matrices x (auto grid, tile={TILE}"
+          f", B = {BATCH} on tile={TILE}, a torch grid of K1 tiles); "
+          f"launches {json.dumps(counts)}", flush=True)
+    for kind in GROUP_KERNELS + ("fused",):
+        name = KERNELS[kind]["name"]
+        check(counts[name] > 0, f"{name} was not launched on the tiled path")
+    for kind in GROUP_KERNELS:
+        name = KERNELS[kind + "_b"]["name"]
+        check(counts[name] > 0, f"{name} was not launched on the tiled path")
+    return results, counts
+
+
+def check_tiled_path(results, mats, expected, stacks, dev, seed):
+    """(a) the auto grid equals scipy exactly, and a grid of one row block
+    whose tiles chose one method equals the untiled plan of that method bit
+    for bit on real values; (b) ``tile=TILE`` equals scipy exactly, the
+    card's merge equals the host's numpy merge of the same children bit for
+    bit on real values, and two runs agree bit for bit; (c) each element of
+    the B = 8 batched call equals scipy and, on real values, a loop of
+    executes bit for bit; (d) the torch grid of K1 tiles equals scipy.
+    Host syncs of one execute on card operands, measured, must equal the
+    executor's count (a per-group tile's one, and one for the merge)."""
+    import torch
+    from repro_torch.core import cached_plan, plan_spgemm_tiled
+
+    out = {}
+    for name in MATRICES:
+        a = mats[name]
+        ar = real_valued(a, seed)
+        a_dev, ar_dev = a.to(dev), ar.to(dev)
+        for key in ("auto", "tile", "fused"):
+            check_scipy(results[name, key], expected[name],
+                        f"{name} auto {key}")
+        auto = plan_spgemm_tiled(a, a)
+        tiled = plan_spgemm_tiled(a, a, tile=TILE)
+        # (a) one row block, one method: the untiled method's bits
+        mix = method_mix(auto)
+        if auto.grid[0] == 1 and len(mix) == 1:
+            (only,) = mix
+            check(same_bits(auto.execute(ar, ar),
+                            cached_plan(ar, ar, only).execute(ar, ar)),
+                  f"{name}: the {auto.grid} grid of {only} differs from "
+                  "the untiled plan")
+        # (b) the card's merge against the host's, and run to run
+        got = tiled.execute(ar_dev, ar_dev)
+        av = ar_dev.values.float()
+        check(same_bits(got, host_merged(tiled, av, av)),
+              f"{name} tile={TILE}: the card's merge differs from the "
+              "host's")
+        check(same_bits(got, tiled.execute(ar_dev, ar_dev)),
+              f"{name} tile={TILE}: two runs differ")
+        # (c) B = 8: scipy on integer stacks, a loop on real ones
+        sa, sb = stacks[name]
+        for b, c in enumerate(results[name, "batched"]):
+            check_scipy(c, scipy_product(sa[b], sb[b]),
+                        f"{name} auto batched element {b}")
+        rng = np.random.default_rng([seed, 7])
+        real = torch.from_numpy(rng.standard_normal(
+            (BATCH, a.nnz)).astype(np.float32)).to(dev)
+        batched = tiled.execute_batched(real, real)
+        for b, c in enumerate(batched):
+            check(same_bits(c, tiled.execute(real[b], real[b])),
+                  f"{name} tile={TILE}: batched element {b} differs from "
+                  "a loop")
+        line = {"matrix": name}
+        for label, plan in (("auto", auto), ("tile", tiled)):
+            stats: dict = {}
+            plan.execute(a_dev, a_dev, stats=stats)
+            syncs = host_syncs(lambda: plan.execute(a_dev, a_dev))
+            check(syncs == stats["host_syncs"], f"{name} {label}: {syncs} "
+                  f"host syncs, the executor counts {stats['host_syncs']}")
+            line[label] = dict(grid=plan.grid, tiles=len(plan.tiles),
+                               methods=method_mix(plan),
+                               merged_blocks=stats["merged_blocks"],
+                               launches=stats["n_launches"],
+                               host_syncs=syncs)
+        out[name] = line
+        print(json.dumps({"tiled": line}), flush=True)
+    print(f"tiled path: {len(MATRICES)} matrices equal scipy A@A exactly on "
+          f"the auto grid, on tile={TILE}, batched (B = {BATCH}) and "
+          "through K1 tiles; the card's merge equals the host's bit for "
+          "bit, bit-stable; batched equals a loop; host syncs as counted",
+          flush=True)
+    return out
+
+
+def tiled_timing_phase(mats, dev, reps):
+    """Per matrix, the execute time (host clock, host operands) of
+    ``method="auto"`` on the auto grid and on ``TILE`` beside the untiled
+    default (h-hash-256/256) and each of cuda's candidates untiled: the
+    six plans run in turn, ``reps`` rounds after two warm-up rounds, so a
+    drift of the host's pace touches all six alike; the median of each.
+    With each plan's plan time (the tiled ones: their children too, the LRU
+    emptied first) and host syncs on card operands; where the auto grid has
+    several tiles, the profiler's device time of one execute of auto and of
+    the default and the card's idle share."""
+    import torch
+    from repro_torch.core import cached_plan, plan_cache_clear, \
+        plan_spgemm_tiled
+
+    plan_cache_clear()
+    rows = {}
+    for name in MATRICES:
+        a = mats[name]
+        a_dev = a.to(dev)
+        plans, plan_ms = {}, {}
+        for label, build in (
+                ("auto", lambda: plan_spgemm_tiled(a, a)),
+                ("tile", lambda: plan_spgemm_tiled(a, a, tile=TILE)),
+                ("default", lambda: cached_plan(a, a)),
+                *((m, lambda m=m: cached_plan(a, a, m)) for m in AUTO_FIXED)):
+            t0 = time.perf_counter()
+            plans[label] = build()
+            torch.cuda.synchronize()
+            plan_ms[label] = (time.perf_counter() - t0) * 1e3
+        samples = {label: [] for label in plans}
+        for r in range(reps + 2):
+            for label, plan in plans.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plan.execute(a, a)
+                torch.cuda.synchronize()
+                if r >= 2:
+                    samples[label].append((time.perf_counter() - t0) * 1e3)
+        med = {label: statistics.median(v) for label, v in samples.items()}
+        row = {"matrix": name, "grid": plans["auto"].grid,
+               "methods": method_mix(plans["auto"]),
+               "tile_grid": plans["tile"].grid,
+               "tile_methods": method_mix(plans["tile"]),
+               "plan_ms": plan_ms, "execute_ms_median": med,
+               "host_syncs": {label: host_syncs(
+                   lambda: plan.execute(a_dev, a_dev))
+                   for label, plan in plans.items()},
+               "device_ms": {}, "idle_share": {}}
+        for label in ("auto", "default") if len(plans["auto"].tiles) > 1 \
+                else ():
+            d = profiled_device_ms(lambda: plans[label].execute(a, a), n=1)
+            row["device_ms"][label] = d
+            row["idle_share"][label] = idle_share(d, med[label])
+        row["auto_vs_default"] = med["auto"] / med["default"]
+        row["auto_vs_best_fixed"] = med["auto"] / min(med[m]
+                                                      for m in AUTO_FIXED)
+        rows[name] = row
+        print(json.dumps({"tiled_timing": row}), flush=True)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -2802,6 +3055,10 @@ def main(argv=None) -> int:
     b_syncs = timed(check_batched_path, b_results, b_launches, stacks,
                     fplans, dev)
     del b_results
+    t_results, _ = timed(tiled_path, mats, stacks)
+    timed(check_tiled_path, t_results, mats, expected, stacks, dev,
+          args.seed)
+    del t_results
     biggest, naive_ms, libs = timed(timing_phase, plans, mats, plan_ms, dev,
                                     args.reps)
     k1_biggest = timed(fused_timing_phase, fplans, mats, dev, args.reps,
@@ -2809,6 +3066,7 @@ def main(argv=None) -> int:
     timed(batched_timing_phase, stacks, fplans, dev, args.reps, b_syncs)
     timed(torch_timing_phase, tplans, fplans, mats, dev, args.reps)
     timed(segment_path_timing, tplans, fplans, mats, dev, args.reps)
+    timed(tiled_timing_phase, mats, dev, args.reps)
     rows = [timed(k1_report, k1_biggest, fused_counts["fused_stream"],
                   k1_err, libs, fplans, tplans, mats, args.reps)]
     rows += timed(kernel_report, biggest, plans, mats, counts, errs,

@@ -10,6 +10,9 @@ the numpy oracles and stream (its ``"host"`` backend).
 engine, on value vectors or ``[B, nnz]`` stacks.  ``spgemm_batched(a, b)``
 / ``plan.execute_batched`` run B same-pattern value sets through one
 execution (the batched kernels K1-b … K4-b on the card).
+``spgemm(a, b, method="auto")`` / ``plan_spgemm_tiled`` cut the product into
+a 2-D tile grid whose tiles each run the method the cost model
+(``core.cost``) picks, merged in a fixed order.
 """
 
 from repro_torch.core.analysis import (
@@ -34,10 +37,12 @@ from repro_torch.core.api import (
 )
 from repro_torch.core.backends import ExecutionContract, backend_names, \
     get_backend
+from repro_torch.core.cost import AUTO_CANDIDATES, DEFAULT_CONSTANTS, \
+    CostConstants, choose_method, estimate_cost
 from repro_torch.core.device_stream import DeviceStream, device_stream, \
     execute_torch, execute_torch_batched, stream_fn, stream_fn_batched
 from repro_torch.core.executor import execute, execute_batched, \
-    register_executor, resolve_engine
+    execute_tiled, execute_tiled_batched, register_executor, resolve_engine
 from repro_torch.core.fused_stream import FusedStream, execute_fused_batched, \
     fused_fn, fused_stream
 from repro_torch.core.reference import dense_product, spgemm_dense
@@ -47,8 +52,12 @@ from repro_torch.core.planner import (
     KernelLayout,
     Pattern,
     SpgemmPlan,
+    TiledSpgemmPlan,
+    TilePlan,
+    normalize_tile_spec,
     pattern_fingerprint,
     plan_spgemm,
+    plan_spgemm_tiled,
     resolve_params,
 )
 
@@ -72,6 +81,11 @@ __all__ = [
     "ExecutionContract",
     "backend_names",
     "get_backend",
+    "AUTO_CANDIDATES",
+    "DEFAULT_CONSTANTS",
+    "CostConstants",
+    "choose_method",
+    "estimate_cost",
     "DeviceStream",
     "device_stream",
     "execute_torch",
@@ -80,6 +94,8 @@ __all__ = [
     "stream_fn_batched",
     "execute",
     "execute_batched",
+    "execute_tiled",
+    "execute_tiled_batched",
     "register_executor",
     "resolve_engine",
     "FusedStream",
@@ -93,7 +109,11 @@ __all__ = [
     "KernelLayout",
     "Pattern",
     "SpgemmPlan",
+    "TiledSpgemmPlan",
+    "TilePlan",
+    "normalize_tile_spec",
     "pattern_fingerprint",
     "plan_spgemm",
+    "plan_spgemm_tiled",
     "resolve_params",
 ]

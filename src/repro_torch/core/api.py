@@ -28,6 +28,11 @@ re-hashes the operands' structure against the plan.
 (:class:`~repro_torch.sparse.format.BatchedCSC`) through one execution of
 the same plan.
 
+``method="auto"`` builds a :class:`~repro_torch.core.planner.
+TiledSpgemmPlan`: the operands are cut into a 2-D tile grid (sized from
+their nnz, or by ``tile=``) and each tile runs the candidate the cost model
+(``core.cost``) predicts cheapest; ``candidates=`` restricts the choice.
+
 ``device=None`` means the card (``"cuda"``) on the device backends, and
 raises without one; pass ``device="cpu"`` to run the kernels' plain
 versions and the torch stream on the host.  The host backend runs on the
@@ -42,13 +47,19 @@ from collections import OrderedDict
 import torch
 
 from repro_torch.core import backends, fast
+from repro_torch.core.cost import check_candidates
 from repro_torch.core.planner import (
     ALGORITHMS,
     SpgemmPlan,
+    TiledSpgemmPlan,
+    normalize_tile_spec,
     pattern_fingerprint,
     plan_device,
     plan_spgemm,
+    plan_spgemm_tiled,
     resolve_params,
+    tiled_device,
+    tiled_plan_key,
 )
 from repro_torch.sparse.format import CSC, BatchedCSC
 
@@ -57,8 +68,13 @@ DEFAULT_BACKEND = "cuda"
 
 
 def _held(plans, attr: str) -> int:
-    # entries other than plans hold no stream
-    return sum(getattr(p, attr, 0) for p in plans)
+    """Bytes ``attr`` over the plans, each plan once: a tiled plan counts
+    through its children, which the LRU may also hold on their own."""
+    seen = {}
+    for p in plans:
+        for sp in [t.plan for t in getattr(p, "tiles", ())] or [p]:
+            seen[id(sp)] = getattr(sp, attr, 0)
+    return sum(seen.values())
 
 
 class PlanCache:
@@ -137,7 +153,8 @@ def plan_cache_info() -> dict:
     devices (``core.device_stream``) and ``fused_stream_bytes`` the K1 views
     (``core.fused_stream``); each is built at a plan's first execution
     through its engine, one plan may hold all three, and a guarded plan
-    holds none.
+    holds none.  A tiled plan's streams are its children's, counted once
+    however many tiles or cache entries share a child.
     """
     return PLAN_CACHE.info()
 
@@ -156,9 +173,10 @@ def plan_cache_resize(n: int) -> dict:
 def _resolve_method_backend(method, backend):
     method = DEFAULT_METHOD if method is None else method
     backend = DEFAULT_BACKEND if backend is None else backend
-    if method not in ALGORITHMS:
+    if method != "auto" and method not in ALGORITHMS:
         raise ValueError(
-            f"unknown method {method!r}; one of {list(ALGORITHMS)}")
+            f"unknown method {method!r}; one of {list(ALGORITHMS)} or "
+            "'auto'")
     return method, backends.get_backend(backend)
 
 
@@ -187,6 +205,10 @@ def cached_plan(a: CSC, b: CSC, method: str | None = None, *,
     key); call :func:`plan_spgemm` with ``stream_limit=`` for another.
     """
     method, contract = _resolve_method_backend(method, backend)
+    if method == "auto":
+        raise ValueError(
+            "cached_plan builds single-method plans; use plan_spgemm_tiled "
+            "for method='auto'")
     backends.check_method_knobs(contract, t, b_min, b_max)
     params = resolve_params(method, t=t, b_min=b_min, b_max=b_max)
     dev = plan_device(contract, device)
@@ -196,19 +218,58 @@ def cached_plan(a: CSC, b: CSC, method: str | None = None, *,
                             b_min=b_min, b_max=b_max, device=dev))
 
 
-def _plan_for(a, b, method, backend, t, b_min, b_max, device, cache):
+def _cached_tiled_plan(a: CSC, b: CSC, contract, tile, candidates,
+                       device) -> TiledSpgemmPlan:
+    """Fetch-or-build a tiled plan through the LRU.  The default candidate
+    set is resolved before keying, so an explicit ``candidates=`` equal to
+    the backend's default hits the same entry."""
+    spec = normalize_tile_spec(tile)
+    cands = check_candidates(contract, candidates)
+    key = tiled_plan_key(pattern_fingerprint(a), pattern_fingerprint(b),
+                         contract.name, spec, cands, "default",
+                         fast.STREAM_MAX_PRODUCTS,
+                         tiled_device(contract, device))
+    return PLAN_CACHE.get_or_build(
+        key, lambda: plan_spgemm_tiled(a, b, backend=contract.name,
+                                       tile=tile, candidates=cands,
+                                       device=device))
+
+
+def _check_auto_only(method, t, b_min, b_max, tile, candidates) -> None:
+    """Arguments of one mode must not be passed with the other."""
+    if method != "auto" and (tile is not None or candidates is not None):
+        raise ValueError(
+            "tile=/candidates= only apply to method='auto' "
+            f"(got method={method!r})")
+    if method == "auto" and (t is not None or b_min is not None
+                             or b_max is not None):
+        raise ValueError(
+            "t/b_min/b_max do not apply to method='auto' (per-tile methods "
+            "use their own defaults; restrict candidates= instead)")
+
+
+def _plan_for(a, b, method, backend, t, b_min, b_max, device, cache,
+              tile=None, candidates=None):
     """The plan of a call that holds none: from the LRU, or with
-    ``cache=False`` built afresh."""
-    if cache:
-        return cached_plan(a, b, method, backend=backend, t=t, b_min=b_min,
-                           b_max=b_max, device=device)
+    ``cache=False`` built afresh; a tiled plan for ``method="auto"``."""
     method, contract = _resolve_method_backend(method, backend)
+    _check_auto_only(method, t, b_min, b_max, tile, candidates)
+    if method == "auto":
+        if cache:
+            return _cached_tiled_plan(a, b, contract, tile, candidates,
+                                      device)
+        return plan_spgemm_tiled(a, b, backend=contract.name, tile=tile,
+                                 candidates=candidates, cache=False,
+                                 device=device)
+    if cache:
+        return cached_plan(a, b, method, backend=contract.name, t=t,
+                           b_min=b_min, b_max=b_max, device=device)
     return plan_spgemm(a, b, method, backend=contract.name, t=t,
                        b_min=b_min, b_max=b_max, device=device)
 
 
 def _check_plan_overrides(plan, method, backend, t, b_min, b_max,
-                          device) -> None:
+                          device, tile=None, candidates=None) -> None:
     """Reject ``plan=`` calls whose explicit arguments conflict with what
     the held plan was built with."""
     own = dict(plan.params)
@@ -221,6 +282,14 @@ def _check_plan_overrides(plan, method, backend, t, b_min, b_max,
         if given is not None and (name not in own or own[name] != given):
             conflicts.append(
                 f"{name}={given!r} (plan has {own.get(name, '<unset>')})")
+    if tile is not None and own.get("tile") != normalize_tile_spec(tile):
+        conflicts.append(
+            f"tile={tile!r} (plan has {own.get('tile', '<unset>')})")
+    if candidates is not None \
+            and own.get("candidates") != tuple(candidates):
+        conflicts.append(
+            f"candidates={tuple(candidates)!r} "
+            f"(plan has {own.get('candidates', '<unset>')})")
     if device is not None and not _same_device(torch.device(device),
                                                plan.device):
         conflicts.append(f"device={device!r} (plan has {plan.device})")
@@ -247,13 +316,15 @@ def spgemm(
     t: float | None = None,
     b_min: int | None = None,
     b_max: int | None = None,
-    plan: SpgemmPlan | None = None,
+    tile=None,
+    candidates: tuple | None = None,
+    plan=None,
     cache: bool = True,
     validate: str | None = None,
     device=None,
     engine: str | None = None,
 ) -> CSC:
-    """Compute C = A @ B with one of the paper's algorithms.
+    """Compute C = A @ B with one of the paper's algorithms, or ``"auto"``.
 
     The default method is ``"h-hash-256/256"`` (the paper's best overall),
     the default backend ``"cuda"``.  ``t``/``b_min``/``b_max`` override the
@@ -270,11 +341,21 @@ def spgemm(
     ``"stream"`` or ``"fused"`` on torch, ``"naive"`` or ``"stream"`` on
     host; ``None`` is the backend's default for the method.  The result is
     a CSC whose values lie on the plan's device.
+
+    ``method="auto"`` plans a tile grid (``core.planner.
+    plan_spgemm_tiled``): ``tile=`` sets it (``None``: sized from nnz; an
+    int: the column width; a ``(k_width, n_width)`` pair), ``candidates=``
+    restricts the per-tile methods (default ``core.cost.AUTO_CANDIDATES``
+    of the backend), and ``t``/``b_min``/``b_max`` raise.  On
+    ``backend="host"`` the grid's ``"torch"``/``"fused"`` tiles run on
+    ``device`` (``None``: the card) and its numpy tiles on the CPU.
     """
     if plan is not None:
-        _check_plan_overrides(plan, method, backend, t, b_min, b_max, device)
+        _check_plan_overrides(plan, method, backend, t, b_min, b_max, device,
+                              tile, candidates)
         return plan.execute(a, b, validate=validate, engine=engine)
-    p = _plan_for(a, b, method, backend, t, b_min, b_max, device, cache)
+    p = _plan_for(a, b, method, backend, t, b_min, b_max, device, cache,
+                  tile, candidates)
     return p.execute(a, b, validate=validate, engine=engine)
 
 
@@ -287,7 +368,9 @@ def spgemm_batched(
     t: float | None = None,
     b_min: int | None = None,
     b_max: int | None = None,
-    plan: SpgemmPlan | None = None,
+    tile=None,
+    candidates: tuple | None = None,
+    plan=None,
     cache: bool = True,
     validate: str | None = None,
     device=None,
@@ -304,10 +387,13 @@ def spgemm_batched(
 
     With ``plan`` the symbolic phase is skipped (explicit arguments that
     conflict with it raise) and ``a``/``b`` may also be raw ``[B, nnz]``
-    value stacks aligned with the planned patterns.
+    value stacks aligned with the planned patterns.  ``method="auto"``
+    rides the tiled plan's batched path: each tile's child runs batched
+    once, and the merge runs per element.
     """
     if plan is not None:
-        _check_plan_overrides(plan, method, backend, t, b_min, b_max, device)
+        _check_plan_overrides(plan, method, backend, t, b_min, b_max, device,
+                              tile, candidates)
         return plan.execute_batched(a, b, validate=validate, engine=engine)
     if not isinstance(a, BatchedCSC) or not isinstance(b, BatchedCSC):
         raise TypeError(
@@ -318,5 +404,5 @@ def spgemm_batched(
     if a.batch < 1:
         raise ValueError("empty batch")
     p = _plan_for(a.element(0), b.element(0), method, backend, t, b_min,
-                  b_max, device, cache)
+                  b_max, device, cache, tile, candidates)
     return p.execute_batched(a, b, validate=validate, engine=engine)

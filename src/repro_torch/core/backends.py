@@ -65,6 +65,10 @@ class ExecutionContract:
     device_resident: bool = False
     #: plans carry a product stream (and obey the plan-memory guard)
     carries_stream: bool = False
+    #: unit of the backend's cost-model estimates (``core.cost``):
+    #: "seconds" (wall time, comparable across the seconds-domain backends
+    #: in a mixed tile grid) or "relative" (kernel work units)
+    cost_domain: str = "seconds"
     #: when set, every plannable method collapses to this one (torch: the
     #: numeric phase is the method-independent stream contraction, so
     #: method spellings share one plan and one stream in the LRU)
@@ -165,9 +169,12 @@ CUDA = register_backend(ExecutionContract(
     # "fused": one K1 launch over the plan's product stream
     engines=(None, "naive", "fused"),
     default_engine="naive",
-    excluded_methods=HOST_ONLY_METHODS,
+    # the host-only executors have no kernel family, and the "torch" auto
+    # candidate (the torch stream riding a tile grid) has no kernel lane
+    excluded_methods=HOST_ONLY_METHODS + ("torch",),
     device_resident=True,
     carries_stream=True,
+    cost_domain="relative",
 ))
 
 TORCH = register_backend(ExecutionContract(

@@ -35,6 +35,14 @@ result is bit-identical to a looped :func:`execute`.
 
 An A with no rows makes C an empty ``0 x n`` CSC: every per-group
 execution of such a plan returns it without a launch.
+
+``execute_tiled[_batched](plan, ...)`` runs a
+:class:`~repro_torch.core.planner.TiledSpgemmPlan` (``method="auto"``):
+every tile's child plan on its slices of the values, then the merge of
+row-block partials and the stitch of column blocks.  A host grid merges on
+the host in numpy (its device tiles' results come back for it, as in the
+JAX package); a cuda or torch grid merges on its device
+(``sparse.partition.merge_and_stitch_device``), in the same order.
 """
 
 from __future__ import annotations
@@ -50,9 +58,11 @@ from repro_torch.core.device_stream import _check_batch, _values, \
 from repro_torch.core.fused_stream import execute_fused, \
     execute_fused_batched
 from repro_torch.core.expand import spgemm_expand
-from repro_torch.core.planner import BLOCK_COLS, SpgemmPlan
+from repro_torch.core.planner import SpgemmPlan
 from repro_torch.sparse.format import CSC, BatchedCSCBuilder, CSCBuilder, \
     _np, as_tensor, padded_values, padded_values_batched
+from repro_torch.sparse.partition import csc_empty, csc_hstack, \
+    merge_and_stitch_device, merge_csc_partials
 
 # (backend, resolved engine) -> (execute_fn, execute_batched_fn), each
 # fn(plan, a_values, b_values, *, stats, validate)
@@ -293,7 +303,7 @@ def _run_groups(plan: SpgemmPlan, av, bv, builder, *, batched: bool,
         a_arrs = (lay.a_rows, pad(av, lay.a_gather, lay.a_mask), lay.a_nnz)
     for g in groups:
         out = run[g.kind](g, a_arrs, pad(bv, g.b_vgather, g.b_vmask), m=m,
-                          block_cols=BLOCK_COLS)
+                          block_cols=lay.block_cols)
         if g.kind == "hash":
             builder.add_hash_tables(g.cols_t, *out)
         else:
@@ -306,6 +316,193 @@ def _run_groups(plan: SpgemmPlan, av, bv, builder, *, batched: bool,
         stats["n_launches"] = len(groups)   # independent of the batch
         stats["result_shape"] = plan.shape
     return c
+
+
+# ---------------------------------------------------------------------------
+# tiled execution: per-tile plans + the merge/stitch reduction
+# ---------------------------------------------------------------------------
+
+
+def _check_tile_engines(plan, engine) -> None:
+    """An explicit engine must hold on every tile of the grid.
+
+    A host grid may mix numpy tiles with torch-backend device tiles;
+    silently swapping the engine of a tile that lacks the requested one
+    would hand back f32 device results where ``engine="naive"`` promised
+    the bit-exact oracles, so it raises instead (``engine=None`` runs each
+    tile's own engine).
+    """
+    if engine is None:
+        return
+    missing = sorted({t.plan.backend for t in plan.tiles
+                      if engine not in t.plan.contract.engines})
+    if missing:
+        raise ValueError(
+            f"engine={engine!r} is not available on every tile of this "
+            f"grid (missing on {missing} tile backends); use engine=None "
+            "for per-tile defaults, or restrict candidates= at plan time")
+
+
+def _grid_values(plan, x, batched: bool, pattern, validate):
+    """The operand's values as the grid slices them: host numpy (dtype
+    kept) on a host grid, f32 on the grid's device otherwise."""
+    if batched:
+        v = pattern.batched_values(x, validate)
+    else:
+        pattern.check_compatible(x, validate)
+        v = as_tensor(x.values if isinstance(x, CSC) else x)[: pattern.nnz]
+    if plan.contract.device_resident:
+        return v.to(device=plan.device, dtype=torch.float32)
+    return _np(v)
+
+
+def _tile_values(tile, av, bv):
+    """The parent values sliced down to one tile (pattern-static)."""
+    lo, hi = tile.a_vals
+    idx = tile.b_vals if tile.b_index is None else tile.b_index
+    return av[..., lo:hi], bv[..., idx]
+
+
+def _merge_and_stitch(plan, per_block, dtype) -> CSC:
+    """Reduce per-column-block partial lists into the final CSC, on the
+    host (numpy, the JAX package's merge).
+
+    ``per_block[ni]`` holds the row-block partials of column block ``ni``
+    in k-ascending order.  Each block merges (a single partial passes
+    through bit-identically), then the blocks stitch left to right; both
+    read a device tile's result back to the host.
+    """
+    m = plan.shape[0]
+    blocks = []
+    for ni, (j0, j1) in enumerate(zip(plan.n_bounds[:-1],
+                                      plan.n_bounds[1:])):
+        shape = (m, int(j1 - j0))
+        parts = per_block[ni]
+        if not parts:
+            blocks.append(csc_empty(shape, dtype))
+        else:
+            blocks.append(merge_csc_partials(parts, shape, dtype=dtype))
+    if not blocks:
+        return csc_empty((m, 0), dtype)
+    return csc_hstack(blocks, m)
+
+
+def _reduce(plan, per_block, dtype, merge_stats):
+    """The grid's result from its per-block partials: the device merge on
+    a cuda or torch grid, the host merge on a host grid."""
+    if plan.contract.device_resident:
+        return merge_and_stitch_device(per_block, plan.n_bounds,
+                                       plan.shape[0], plan.device,
+                                       stats=merge_stats)
+    return _merge_and_stitch(plan, per_block, dtype)
+
+
+def _record_tile_stats(plan, stats, child_stats, merge_syncs):
+    if stats is None:
+        return
+    stats["grid"] = plan.grid
+    stats["tiles"] = [
+        {"k": t.k, "n": t.n, "method": t.method} for t in plan.tiles]
+    stats["methods"] = sorted({t.method for t in plan.tiles})
+    stats["merged_blocks"] = len(
+        {t.n for t in plan.tiles
+         if sum(u.n == t.n for u in plan.tiles) > 1})
+    stats["result_shape"] = plan.shape
+    if child_stats:
+        stats["n_launches"] = sum(
+            s.get("n_launches", 0) for s in child_stats)
+        stats["peak_tile_elems"] = max(
+            (s.get("peak_tile_elems", 0) for s in child_stats), default=0)
+    if plan.contract.device_resident:
+        # a per-group child waits once for its result's nnz, a stream child
+        # never; the merge once for all merged blocks of one value set
+        stats["host_syncs"] = sum(
+            s.get("engine") == "naive" for s in child_stats) + merge_syncs
+
+
+def _child_stats(plan, stats):
+    return {} if stats is not None and plan.backend == "cuda" else None
+
+
+def execute_tiled(plan, a_values, b_values, *, stats: dict | None = None,
+                  validate: str | None = None,
+                  engine: str | None = None) -> CSC:
+    """Numeric phase of a :class:`~repro_torch.core.planner.TiledSpgemmPlan`.
+
+    Runs every tile's child plan on the tile's value slices, adds row-block
+    partials per column block (k ascending; a single row block passes
+    through bit-identically) and stitches the column blocks.  ``engine`` is
+    forwarded to every child plan and must exist on every tile's backend
+    (:func:`_check_tile_engines`); ``engine=None`` runs each tile's chosen
+    engine.  ``stats`` records the grid and the per-tile methods, and on a
+    cuda grid the launches summed over tiles, the peak tile, and
+    ``host_syncs`` (each per-group child's one, and the merge's).
+    """
+    check_engine(plan.contract, engine)
+    _check_tile_engines(plan, engine)
+    av = _grid_values(plan, a_values, False, plan.a, validate)
+    bv = _grid_values(plan, b_values, False, plan.b, validate)
+    dtype = np.result_type(av.dtype, bv.dtype) \
+        if isinstance(av, np.ndarray) else None
+    per_block = {ni: [] for ni in range(plan.grid[1])}
+    child_stats = []
+    for tile in plan.tiles:
+        ta, tb = _tile_values(tile, av, bv)
+        cs = _child_stats(plan, stats)
+        per_block[tile.n].append(tile.plan.execute(
+            ta, tb, stats=cs,
+            engine=engine if engine is not None else tile.engine))
+        if cs is not None:
+            child_stats.append(cs)
+    merge_stats: dict = {}
+    out = _reduce(plan, per_block, dtype, merge_stats)
+    _record_tile_stats(plan, stats, child_stats,
+                       merge_stats.get("merge_syncs", 0))
+    return out
+
+
+def execute_tiled_batched(plan, a_values, b_values, *,
+                          stats: dict | None = None,
+                          validate: str | None = None,
+                          engine: str | None = None) -> list:
+    """Batched tiled execution: B value sets through one plan traversal.
+
+    Each tile's child plan executes batched once (one launch set per tile,
+    independent of B on a cuda grid); the merge and stitch then run per
+    batch element, since a cuda child's structure may differ between
+    elements.  Each result is bit-identical to :func:`execute_tiled` on its
+    value set.  ``engine`` as in :func:`execute_tiled`.
+    """
+    check_engine(plan.contract, engine)
+    _check_tile_engines(plan, engine)
+    av = _grid_values(plan, a_values, True, plan.a, validate)
+    bv = _grid_values(plan, b_values, True, plan.b, validate)
+    batch = _check_batch(av, bv)
+    dtype = np.result_type(av.dtype, bv.dtype) \
+        if isinstance(av, np.ndarray) else None
+    per_block = [{ni: [] for ni in range(plan.grid[1])}
+                 for _ in range(batch)]
+    child_stats = []
+    for tile in plan.tiles:
+        ta, tb = _tile_values(tile, av, bv)
+        cs = _child_stats(plan, stats)
+        outs = tile.plan.execute_batched(
+            ta, tb, stats=cs,
+            engine=engine if engine is not None else tile.engine)
+        for bi, c in enumerate(outs):
+            per_block[bi][tile.n].append(c)
+        if cs is not None:
+            child_stats.append(cs)
+    merge_syncs = 0
+    out = []
+    for bi in range(batch):
+        merge_stats: dict = {}
+        out.append(_reduce(plan, per_block[bi], dtype, merge_stats))
+        merge_syncs += merge_stats.get("merge_syncs", 0)
+    _record_tile_stats(plan, stats, child_stats, merge_syncs)
+    if stats is not None:
+        stats["batch"] = batch
+    return out
 
 
 register_executor("host", "naive", _host_naive, _host_naive_batched)

@@ -11,7 +11,7 @@ forms launch once per group for B same-pattern value sets (``a_arrs``' and
 
 ``spgemm_cuda`` is the counterpart of the JAX package's ``spgemm_pallas``:
 plan once (or take a held plan), execute once, for direct use (tests,
-notebooks).
+notebooks); ``method="auto"`` plans a tile grid of kernel families.
 """
 
 from __future__ import annotations
@@ -83,20 +83,42 @@ def run_hash_batched(group, a_arrs, b_vals, *, m: int, block_cols: int):
 
 def spgemm_cuda(a: CSC, b: CSC, method: str = "spa", *, t: float = 40.0,
                 b_min: int | None = None, b_max: int | None = None,
-                plan=None, device=None) -> CSC:
+                block_cols: int = 128, tile_cols: int | None = None,
+                tile=None, plan=None, device=None) -> CSC:
     """C = A @ B through the per-group kernels (plan once, execute once).
 
-    The lock-step kernels use fixed-width column blocks, so ``b_min``/
-    ``b_max`` (or the bounds in the method's name) select the *family* and
-    not the blocking; hybrids split at ``t`` (the paper's 40).  A held
-    ``plan`` (from ``core.plan_spgemm``) skips the symbolic phase.  The
-    host-only methods have no kernel family and raise.
+    The lock-step kernels use fixed-width column blocks (``block_cols``), so
+    ``b_min``/``b_max`` (or the bounds in the method's name) select the
+    *family* and not the blocking; hybrids split at ``t`` (the paper's 40);
+    ``tile_cols`` (a multiple of ``block_cols``) bounds the C columns of one
+    launch.  ``method="auto"`` builds a tiled plan whose per-tile kernel
+    families the cost model picks (``tile=`` sets the grid).  A held
+    ``plan`` (from ``core.plan_spgemm`` or ``core.plan_spgemm_tiled``)
+    skips the symbolic phase.  The host-only methods have no kernel family
+    and raise.
     """
     from repro_torch.core.backends import get_backend
-    from repro_torch.core.planner import check_method, plan_spgemm
+    from repro_torch.core.planner import check_method, plan_spgemm, \
+        plan_spgemm_tiled
 
-    check_method(method, get_backend("cuda"))
+    if method != "auto":
+        check_method(method, get_backend("cuda"))
+    if tile is not None and (plan is not None or method != "auto"):
+        raise ValueError(
+            "tile= only applies to method='auto' without a held plan")
     if plan is None:
-        plan = plan_spgemm(a, b, method, backend="cuda", t=t, b_min=b_min,
-                           b_max=b_max, device=device)
+        if method == "auto":
+            if (t != 40.0 or b_min is not None or b_max is not None
+                    or block_cols != 128 or tile_cols is not None):
+                raise ValueError(
+                    "t/b_min/b_max/block_cols/tile_cols do not apply to "
+                    "method='auto' (per-tile methods use their own "
+                    "defaults)")
+            plan = plan_spgemm_tiled(a, b, backend="cuda", tile=tile,
+                                     device=device)
+        else:
+            plan = plan_spgemm(a, b, method, backend="cuda", t=t,
+                               b_min=b_min, b_max=b_max,
+                               block_cols=block_cols, tile_cols=tile_cols,
+                               device=device)
     return plan.execute(a, b)

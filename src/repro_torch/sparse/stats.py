@@ -47,6 +47,40 @@ def steps_per_column(a: CSC, b: CSC) -> np.ndarray:
 
 
 @dataclasses.dataclass(frozen=True)
+class TileStats:
+    """Cheap per-tile statistics feeding the auto cost model (``core.cost``).
+
+    One instance summarizes one tile-pair product ``A[:, k] @ B[k, n]``:
+    the per-output-column work profile (``ops``/``steps``) plus operand
+    occupancy.  Everything is pattern-only and O(nnz) to compute.
+    """
+
+    m: int                 # output rows  (= tile A rows)
+    k: int                 # contraction width (= tile A cols = tile B rows)
+    n: int                 # output cols  (= tile B cols)
+    nnz_a: int
+    nnz_b: int
+    ops: np.ndarray        # [n] Op_j per output column (scalar multiplies)
+    steps: np.ndarray      # [n] lock-step trip-count bound per column
+
+    @property
+    def flops(self) -> int:
+        return int(self.ops.sum())
+
+
+def tile_stats(a: CSC, b: CSC) -> TileStats:
+    """Per-tile Op_j / density profile of the product A @ B."""
+    if a.n_cols != b.n_rows:
+        raise ValueError(f"shape mismatch {a.shape} @ {b.shape}")
+    return TileStats(
+        m=a.n_rows, k=a.n_cols, n=b.n_cols,
+        nnz_a=a.nnz, nnz_b=b.nnz,
+        ops=ops_per_column(a, b),
+        steps=steps_per_column(a, b),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
 class MatrixStats:
     """The statistics columns of the paper's Table 1."""
 

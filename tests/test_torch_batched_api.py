@@ -226,7 +226,7 @@ def test_spgemm_batched_rejects_what_it_does_not_take():
                        a.shape)
     with pytest.raises(ValueError, match="empty batch"):
         spgemm_batched(empty, empty, "spa", device="cpu")
-    with pytest.raises(TypeError):
+    with pytest.raises(ValueError, match="only apply to method='auto'"):
         spgemm_batched(_stack(a, 2, 0), _stack(a, 2, 1), tile=64)
 
 

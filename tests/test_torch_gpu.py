@@ -8,8 +8,10 @@ versions and each other, and the sparse FFN on the card against the same
 FFN on the CPU; the torch stream (``backend="torch"``) on the card
 against its CPU run and the fused engine on integer values, bit-stable and
 batched == looped on real ones, with no host wait; and the gradient of
-``[B, nnz]`` stacks on both stream engines against a loop.  Every test
-needs a card (marker ``gpu``) and skips without one.
+``[B, nnz]`` stacks on both stream engines against a loop; and the tiled
+path (``method="auto"``): the card's merge of row blocks against the host's
+numpy merge of the same children, bit-stable, batched == looped, its host
+waits.  Every test needs a card (marker ``gpu``) and skips without one.
 
 On the card these run without the JAX-importing conftest, which that
 machine cannot import::
@@ -1062,3 +1064,106 @@ def test_stacked_backward_on_card_equals_looped(cuda, engine):
         results.append((c.detach().cpu(), g.cpu()))
     assert torch.equal(results[0][0], results[1][0])
     assert torch.equal(results[0][1], results[1][1])
+
+
+# --- the tiled path (method="auto") ------------------------------------------
+
+
+def _bits(c):
+    cp = _np(c.col_ptr).astype(np.int64)
+    nnz = int(cp[-1])
+    vals = np.ascontiguousarray(_np(c.values)[:nnz].astype(np.float32))
+    return cp, _np(c.row_indices)[:nnz].astype(np.int64), vals.view(np.int32)
+
+
+def _same_bits(x, y):
+    return all(np.array_equal(u, v) for u, v in zip(_bits(x), _bits(y)))
+
+
+def _count_syncs(fn):
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        fn()
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_tiled_card_merge_equals_host_merge(cuda, backend):
+    """A grid of several row blocks on the card: the card's merge equals the
+    host's numpy merge of the same children bit for bit on real values,
+    is bit-stable, and equals the same grid on the CPU."""
+    from repro_torch.core import plan_spgemm_tiled
+    from repro_torch.core.executor import _merge_and_stitch
+
+    a = generate.random_powerlaw_csc(300, 6.0, seed=21)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    v = torch.randn(a.nnz, generator=gen, device=cuda)
+    plan = plan_spgemm_tiled(a, a, backend=backend, tile=(70, 90),
+                             cache=False)
+    assert plan.grid[0] > 1 and plan.device.type == "cuda"
+    got = plan.execute(v, v)
+    assert got.values.device.type == "cuda"
+    per_block = {ni: [] for ni in range(plan.grid[1])}
+    for t in plan.tiles:
+        lo, hi = t.a_vals
+        per_block[t.n].append(t.plan.execute(v[lo:hi], v[t.b_index])
+                              .to("cpu"))
+    assert _same_bits(got, _merge_and_stitch(plan, per_block, np.float32))
+    assert _same_bits(got, plan.execute(v, v))
+    cpu = plan_spgemm_tiled(a, a, backend=backend, tile=(70, 90),
+                            cache=False, device="cpu")
+    assert cpu.methods == plan.methods
+    if backend == "cuda":
+        # the kernels equal their plain versions bit for bit
+        assert _same_bits(got, cpu.execute(v.cpu(), v.cpu()))
+
+
+def test_tiled_card_batched_equals_looped_and_syncs(cuda):
+    from repro_torch.core import plan_spgemm_tiled
+
+    a = generate.random_powerlaw_csc(300, 6.0, seed=22)
+    plan = plan_spgemm_tiled(a, a, tile=(100, 100), cache=False)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    vs = torch.randn((8, a.nnz), generator=gen, device=cuda)
+    stats = {}
+    batched = plan.execute_batched(vs, vs, stats=stats)
+    for b, c in enumerate(batched):
+        assert _same_bits(c, plan.execute(vs[b], vs[b]))
+    one = {}
+    plan.execute(vs[0], vs[0], stats=one)
+    assert one["host_syncs"] == len(plan.tiles) + 1
+    assert _count_syncs(lambda: plan.execute(vs[0], vs[0])) == \
+        one["host_syncs"]
+    torch_grid = plan_spgemm_tiled(a, a, backend="torch", tile=(100, 100),
+                                   candidates=("fused",), cache=False)
+    torch_grid.execute(vs[0], vs[0])    # the children's K1 views built
+    before = kernels.fused_stream.n_launches
+    assert _count_syncs(lambda: torch_grid.execute(vs[0], vs[0])) == 1
+    assert kernels.fused_stream.n_launches == before + len(torch_grid.tiles)
+
+
+def test_tiled_auto_on_card_exact_and_host_grid_device_tiles(cuda):
+    from repro_torch.core import spgemm
+
+    from repro_torch.sparse.format import CSC
+
+    a, v = _int_operands(seed=23)
+    a = CSC(v, a.row_indices, a.col_ptr, a.shape)
+    d = csc_to_dense_f64(a)
+    for kw in (dict(), dict(tile=(64, 64)),
+               dict(backend="torch", tile=(64, 64)),
+               dict(backend="host", candidates=("fused",), tile=(64, 64))):
+        c = spgemm(a, a, method="auto", cache=False, **kw)
+        want_dev = "cpu" if kw.get("backend") == "host" else "cuda"
+        assert c.values.device.type == want_dev
+        np.testing.assert_array_equal(csc_to_dense_f64(c), d @ d)
+
+
+def csc_to_dense_f64(c):
+    from repro_torch.sparse.format import csc_to_dense
+
+    return csc_to_dense(c).cpu().double().numpy()

@@ -32,12 +32,13 @@ def test_spgemm_matches_reference(method, case, values):
 @pytest.mark.parametrize("method", ["esc", "expand", "spars-128/128", "auto"])
 def test_methods_without_kernel_family_raise(method):
     """The JAX package's host-only methods have no kernel family on the
-    "cuda" backend (its "pallas" error), and spgemm() knows neither
-    unregistered family names nor ``auto`` (tiling is not ported), as the
-    reference's spgemm() rejects unregistered names."""
+    "cuda" backend (its "pallas" error), spgemm() does not know unregistered
+    family names, as the reference's spgemm() rejects them, and a cuda
+    ``auto`` grid takes no host-only candidate."""
     a, b = adversarial("random")
+    kw = dict(candidates=("expand",)) if method == "auto" else {}
     with pytest.raises(ValueError, match="unknown method|host-only"):
-        spgemm(a, b, method, device="cpu")
+        spgemm(a, b, method, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("kw", [dict(backend="jax"), dict(engine="stream"),
