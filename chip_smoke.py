@@ -91,6 +91,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    looped execute.  Per matrix and grid: the tiles' method mix, launches
    and host syncs per execute (measured, equal to the executor's count:
    one a per-group tile, one for the merge).
+7b. Calibration (``repro_torch.core.profile``; the run's profiles live in
+   a temporary ``REPRO_PROFILE_DIR`` of its own, set before anything
+   consults one): the torch and host backends' auto picks under the
+   default profile; then ``calibrate_profile(scale=0.25, reps=2,
+   save=True)`` on the card, with the counts set to 0 just before: K1 must
+   launch, the fingerprint must name the card ``nvidia-smi`` names (count
+   1), ``load_profile()`` must return the saved profile (equal tag), and a
+   tiled plan cached before and one cached after must be two LRU entries.
+   The fitted constants and the tuning are printed.  Under the measured
+   profile, per matrix and backend, the auto pick beside the default's;
+   each candidate (spa, expand, the torch stream, K1) untiled on host
+   operands, equal to scipy exactly and timed (median of 3; iprob, whose
+   streams are past the default guard, is not timed); Spearman's rank
+   correlation of predicted cost against measured time per backend.  Then
+   ``apply_tuning()``: iprob's ``cached_plan(..., stream_limit=None)``
+   fused execute must keep its stream, timed beside the transient path's
+   1505.0 ms; the guard and the default profile are restored.
 8. Timing: per matrix and method, the host plan time, the execute time
    (median of ``--reps``), the host syncs of one execute on operands
    already on the card, each kernel's device time (CUDA events) and
@@ -161,12 +178,15 @@ the repository beside it, the script exits non-zero before any result.
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1852,6 +1872,200 @@ def tiled_timing_phase(mats, dev, reps):
 
 
 # ---------------------------------------------------------------------------
+# calibration: the machine profile (core/profile.py) on the card
+# ---------------------------------------------------------------------------
+
+CAL_BACKENDS = ("torch", "host")   # the grids whose picks the profile moves
+# the matrices the phase times: iprob's stream (9.0M products) is past the
+# default guard, so its stream candidates rebuild it on every call, seconds
+# each; its guarded fused execute is timed after apply_tuning() instead
+CAL_TIMED = tuple(m for m in MATRICES if m != GUARDED_MATRIX)
+CAL_REPS = 3
+# iprob's fused execute past the default guard on the H100 (PERF.md §5)
+TRANSIENT_FUSED_MS = 1505.0
+
+
+def auto_picks(mats, dev) -> dict:
+    """Per (matrix, backend) of ``CAL_BACKENDS``, the auto grid's per-tile
+    method mix under the profile in force."""
+    from repro_torch.core import plan_spgemm_tiled
+
+    return {(name, be): method_mix(plan_spgemm_tiled(
+        mats[name], mats[name], backend=be, cache=False, device=dev))
+        for name in MATRICES for be in CAL_BACKENDS}
+
+
+def candidate_runs(a, dev) -> dict:
+    """Each auto candidate of the torch and host backends as an untiled
+    plan through the LRU, run on host operands as a tile of that method
+    runs: ``spa`` and ``expand`` (its stream engine) in numpy, ``torch``
+    (the torch stream) and ``fused`` (K1) on the card."""
+    from repro_torch.core import cached_plan
+
+    spa = cached_plan(a, a, "spa", backend="host")
+    expand = cached_plan(a, a, "expand", backend="host")
+    dplan = cached_plan(a, a, "expand", backend="torch", device=dev)
+    return {"spa": lambda: spa.execute(a, a),
+            "expand": lambda: expand.execute(a, a),
+            "torch": lambda: dplan.execute(a, a),
+            "fused": lambda: dplan.execute(a, a, engine="fused")}
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median host-clock ms of ``fn``, each call waited for on the card (the
+    caller has run ``fn`` once already: streams and views are built)."""
+    import torch
+
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def check_product(c, want, label) -> None:
+    """C equal to scipy's A@A exactly, wherever it lies and in whatever row
+    order each column holds (the host oracles keep discovery order)."""
+    import scipy.sparse as sps
+    from repro_torch.sparse.format import _np
+
+    cp = _np(c.col_ptr).astype(np.int64)
+    nnz = int(cp[-1])
+    got = sps.csc_matrix((_np(c.values)[:nnz].astype(np.float64),
+                          _np(c.row_indices)[:nnz], cp), shape=c.shape)
+    got.sort_indices()
+    indptr, indices, data = want
+    check(np.array_equal(got.indptr, indptr)
+          and np.array_equal(got.indices, indices),
+          f"{label}: structure differs from scipy")
+    check(np.isfinite(got.data).all() and np.array_equal(got.data, data),
+          f"{label}: values differ from scipy")
+
+
+def calibration_phase(mats, expected, dev, card):
+    """Phase 7b: ``calibrate_profile(scale=0.25, reps=2, save=True)`` on
+    the card, with the counts set to 0 just before: K1 must launch, the
+    fingerprint must name this card (``nvidia-smi``'s name, count 1),
+    ``load_profile()`` must return the saved profile, and a tiled plan
+    cached before and after must be two LRU entries.  Then, per matrix and
+    for the torch and host backends, the auto pick under the defaults and
+    under the measured profile; each candidate untiled, timed (median of
+    ``CAL_REPS``) and equal to scipy exactly; Spearman's rank correlation
+    of predicted cost against measured time per backend.  Then
+    ``apply_tuning()``: iprob's cached fused plan must keep its stream,
+    timed beside the transient path.  The guard and the default profile
+    are restored, so no later phase changes."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import cached_plan, fast, plan_cache_clear, \
+        profile, spgemm
+    from repro_torch.core.api import PLAN_CACHE
+    from repro_torch.core.cost import AUTO_CANDIDATES, estimate_cost
+    from repro_torch.core.planner import pattern_fingerprint
+    from repro_torch.sparse.stats import tile_stats
+
+    t_phase = time.perf_counter()
+    check(profile.current_profile().source == "default",
+          "a profile was in force before calibration")
+    default_picks = auto_picks(mats, dev)
+    probe = mats[MATRICES[0]]
+    spgemm(probe, probe, method="auto", backend="torch",
+           device=dev)   # its tag: "default"
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    prof = profile.calibrate_profile(scale=0.25, reps=2, save=True)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    fp = prof.fingerprint
+    name = card.split(",")[0].strip()
+    check(fp["platform"] == "cuda" and fp["device_kind"] == name
+          and fp["device_count"] == 1,
+          f"the fingerprint names {fp['device_kind']} x "
+          f"{fp['device_count']}, not {name} x 1")
+    k1 = KERNELS["fused"]["name"]
+    check(counts[k1] > 0, f"{k1} was not launched by the calibration")
+    loaded = profile.load_profile()
+    check(loaded is not None and loaded.tag == prof.tag
+          and loaded.constants == prof.constants,
+          "load_profile() does not return the saved profile")
+    check(profile.current_profile() is prof,
+          "the calibrated profile is not the current one")
+    spgemm(probe, probe, method="auto", backend="torch", device=dev)
+    fp_probe = pattern_fingerprint(probe)
+    tags = sorted(k[6] for k in PLAN_CACHE._plans
+                  if k[:4] == (fp_probe, fp_probe, "auto", "torch"))
+    check(tags == sorted(["default", prof.tag]),
+          f"tiled plans cached before and after calibration: {tags}")
+    print(json.dumps({"calibration_profile": dict(
+        seconds=cal_s, tag=prof.tag, fingerprint=fp, launches=counts,
+        fitted={f: getattr(prof.constants, f) for f in prof.fitted},
+        tuning=prof.tuning, path=prof.path)}), flush=True)
+
+    measured_picks = auto_picks(mats, dev)
+    points = {be: ([], []) for be in CAL_BACKENDS}
+    for mname in MATRICES:
+        a = mats[mname]
+        ms, pred = {}, {}
+        if mname in CAL_TIMED:
+            st = tile_stats(a, a)
+            for method, run in candidate_runs(a, dev).items():
+                check_product(run(), expected[mname],
+                              f"{mname} {method} under the measured profile")
+                ms[method] = median_ms(run, CAL_REPS)
+                pred[method] = estimate_cost(st, method, "host")
+        for be in CAL_BACKENDS:
+            line = dict(matrix=mname, backend=be,
+                        pick_default=default_picks[mname, be],
+                        pick_measured=measured_picks[mname, be])
+            if ms:
+                cands = AUTO_CANDIDATES[be]
+                line.update(ms={m: ms[m] for m in cands},
+                            predicted_ms={m: pred[m] * 1e3 for m in cands},
+                            fastest=min(cands, key=ms.get))
+                points[be][0].extend(pred[m] for m in cands)
+                points[be][1].extend(ms[m] for m in cands)
+            print(json.dumps({"calibration": line}), flush=True)
+    rho = {be: profile.rank_correlation(*points[be]) for be in CAL_BACKENDS}
+    print(json.dumps({"calibration_rank_correlation": dict(
+        rho, points={be: len(points[be][0]) for be in CAL_BACKENDS},
+        timed=list(CAL_TIMED))}), flush=True)
+
+    guard = fast.STREAM_MAX_PRODUCTS
+    applied = profile.apply_tuning()
+    a = mats[GUARDED_MATRIX]
+    plan = cached_plan(a, a, stream_limit=None, device=dev)
+    stats: dict = {}
+    check_scipy(plan.execute(a, a, engine="fused", stats=stats),
+                expected[GUARDED_MATRIX],
+                f"{GUARDED_MATRIX} fused under the tuned guard")
+    check(stats["stream_cached"], f"{GUARDED_MATRIX}'s cached fused plan "
+          f"rebuilt its stream under the tuned guard {applied}")
+    fused_ms = median_ms(lambda: plan.execute(a, a, engine="fused"),
+                         CAL_REPS)
+    print(json.dumps({"calibration_guard": dict(
+        default=guard, tuned=fast.STREAM_MAX_PRODUCTS, applied=applied,
+        matrix=GUARDED_MATRIX, stream_limit=plan.stream_limit,
+        stream_cached=stats["stream_cached"], fused_ms=fused_ms,
+        transient_fused_ms=TRANSIENT_FUSED_MS)}), flush=True)
+    fast.STREAM_MAX_PRODUCTS = guard
+    profile.set_profile(profile.default_profile())
+    del plan
+    plan_cache_clear()   # iprob's plan and views go back to the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"calibration: profile {prof.tag} fitted "
+          f"{len(prof.fitted)} constants in {cal_s:.1f} s; rank correlation "
+          f"torch {rho['torch']:.3f}, host {rho['host']:.3f}; the guard "
+          f"restored to {guard} and the default profile reinstalled; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
 
@@ -2989,6 +3203,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
+    # a profile directory of this run's own, pinned before anything consults
+    # a profile: no profile of the user's cache leaks into the phases, and
+    # phase 7b's calibration writes nowhere else
+    profiles = tempfile.mkdtemp(prefix="chip-smoke-profiles-")
+    atexit.register(shutil.rmtree, profiles, True)
+    os.environ["REPRO_PROFILE_DIR"] = profiles
+    os.environ.pop("REPRO_PROFILE_FILE", None)
+    os.environ.pop("REPRO_AUTO_CALIBRATE", None)
     import torch
 
     if not torch.cuda.is_available():
@@ -3059,6 +3281,7 @@ def main(argv=None) -> int:
     timed(check_tiled_path, t_results, mats, expected, stacks, dev,
           args.seed)
     del t_results
+    timed(calibration_phase, mats, expected, dev, card)
     biggest, naive_ms, libs = timed(timing_phase, plans, mats, plan_ms, dev,
                                     args.reps)
     k1_biggest = timed(fused_timing_phase, fplans, mats, dev, args.reps,

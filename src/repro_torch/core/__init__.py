@@ -12,7 +12,9 @@ engine, on value vectors or ``[B, nnz]`` stacks.  ``spgemm_batched(a, b)``
 execution (the batched kernels K1-b … K4-b on the card).
 ``spgemm(a, b, method="auto")`` / ``plan_spgemm_tiled`` cut the product into
 a 2-D tile grid whose tiles each run the method the cost model
-(``core.cost``) picks, merged in a fixed order.
+(``core.cost``) picks, merged in a fixed order; the model ranks on the
+machine profile (``core.profile``), measured on this machine by
+``calibrate_profile`` or else the defaults.
 """
 
 from repro_torch.core.analysis import (
@@ -45,6 +47,16 @@ from repro_torch.core.executor import execute, execute_batched, \
     execute_tiled, execute_tiled_batched, register_executor, resolve_engine
 from repro_torch.core.fused_stream import FusedStream, execute_fused_batched, \
     fused_fn, fused_stream
+from repro_torch.core.profile import (
+    MachineProfile,
+    calibrate_profile,
+    current_profile,
+    fingerprint_key,
+    load_profile,
+    machine_fingerprint,
+    rank_correlation,
+    save_profile,
+)
 from repro_torch.core.reference import dense_product, spgemm_dense
 from repro_torch.core.planner import (
     ALGORITHMS,
@@ -102,6 +114,14 @@ __all__ = [
     "execute_fused_batched",
     "fused_fn",
     "fused_stream",
+    "MachineProfile",
+    "calibrate_profile",
+    "current_profile",
+    "fingerprint_key",
+    "load_profile",
+    "machine_fingerprint",
+    "rank_correlation",
+    "save_profile",
     "dense_product",
     "spgemm_dense",
     "ALGORITHMS",

@@ -5,7 +5,7 @@ Methods mirror the paper's evaluated algorithms (and the host-only ``esc``
 and ``expand``); the default is the paper's best, ``"h-hash-256/256"``.
 ``spgemm`` builds — or fetches from a bounded, thread-safe LRU keyed on
 pattern fingerprints, the method, its resolved parameters, the backend, the
-stream guard and the device — a
+stream limit and the device — a
 :class:`~repro_torch.core.planner.SpgemmPlan` and executes it against the
 operand values::
 
@@ -46,7 +46,7 @@ from collections import OrderedDict
 
 import torch
 
-from repro_torch.core import backends, fast
+from repro_torch.core import backends, fast, profile
 from repro_torch.core.cost import check_candidates
 from repro_torch.core.planner import (
     ALGORITHMS,
@@ -154,9 +154,14 @@ def plan_cache_info() -> dict:
     (``core.fused_stream``); each is built at a plan's first execution
     through its engine, one plan may hold all three, and a guarded plan
     holds none.  A tiled plan's streams are its children's, counted once
-    however many tiles or cache entries share a child.
+    however many tiles or cache entries share a child.  ``profile`` is the
+    machine profile's provenance and counters (``core.profile``): which
+    constants auto plans rank under, how old the calibration is, and how
+    often auto ranked device engines on the uncalibrated defaults.
     """
-    return PLAN_CACHE.info()
+    out = PLAN_CACHE.info()
+    out["profile"] = profile.profile_info()
+    return out
 
 
 def plan_cache_clear() -> None:
@@ -167,7 +172,8 @@ def plan_cache_clear() -> None:
 def plan_cache_resize(n: int) -> dict:
     """Set the LRU capacity (evicting least-recently-used overflow);
     ``n == 0`` disables caching.  Returns :func:`plan_cache_info`."""
-    return PLAN_CACHE.resize(n)
+    PLAN_CACHE.resize(n)
+    return plan_cache_info()
 
 
 def _resolve_method_backend(method, backend):
@@ -181,28 +187,32 @@ def _resolve_method_backend(method, backend):
 
 
 def _plan_key(a: CSC, b: CSC, method: str, contract, params: dict,
-              dev) -> tuple:
+              dev, stream_limit: int | None = None) -> tuple:
     """The LRU key: both patterns, the method and its resolved parameters
     (the canonical method and its defaults on a canonical-method backend,
-    so every spelling shares one entry), the backend, the stream guard in
-    force at build time and the device."""
+    so every spelling shares one entry), the backend, the plan's stream
+    limit (``stream_limit``, else the guard in force at build time) and the
+    device."""
     if contract.canonical_method:
         method = contract.canonical_method
         params = resolve_params(method)
+    limit = (fast.STREAM_MAX_PRODUCTS if stream_limit is None
+             else int(stream_limit))
     return (pattern_fingerprint(a), pattern_fingerprint(b), method,
-            contract.name, tuple(sorted(params.items())),
-            fast.STREAM_MAX_PRODUCTS, str(dev))
+            contract.name, tuple(sorted(params.items())), limit, str(dev))
 
 
 def cached_plan(a: CSC, b: CSC, method: str | None = None, *,
                 backend: str | None = None, t: float | None = None,
                 b_min: int | None = None, b_max: int | None = None,
+                stream_limit: int | None = None,
                 device=None) -> SpgemmPlan:
     """Fetch-or-build a plan through the shared LRU.
 
-    Arguments as in :func:`spgemm`.  Cached plans keep the stream guard in
-    force when they were built (``fast.STREAM_MAX_PRODUCTS``, part of the
-    key); call :func:`plan_spgemm` with ``stream_limit=`` for another.
+    Arguments as in :func:`spgemm`.  ``stream_limit`` overrides the stream
+    guard for this plan only (part of the key), without touching the
+    global ``fast.STREAM_MAX_PRODUCTS``; with ``None`` the plan keeps the
+    guard in force when it was built, which is part of the key too.
     """
     method, contract = _resolve_method_backend(method, backend)
     if method == "auto":
@@ -213,20 +223,24 @@ def cached_plan(a: CSC, b: CSC, method: str | None = None, *,
     params = resolve_params(method, t=t, b_min=b_min, b_max=b_max)
     dev = plan_device(contract, device)
     return PLAN_CACHE.get_or_build(
-        _plan_key(a, b, method, contract, params, dev),
+        _plan_key(a, b, method, contract, params, dev, stream_limit),
         lambda: plan_spgemm(a, b, method, backend=contract.name, t=t,
-                            b_min=b_min, b_max=b_max, device=dev))
+                            b_min=b_min, b_max=b_max, device=dev,
+                            stream_limit=stream_limit))
 
 
 def _cached_tiled_plan(a: CSC, b: CSC, contract, tile, candidates,
                        device) -> TiledSpgemmPlan:
     """Fetch-or-build a tiled plan through the LRU.  The default candidate
     set is resolved before keying, so an explicit ``candidates=`` equal to
-    the backend's default hits the same entry."""
+    the backend's default hits the same entry; the machine profile's tag
+    keys it too, so picks ranked under one calibration are never handed to
+    a call running under another."""
     spec = normalize_tile_spec(tile)
     cands = check_candidates(contract, candidates)
     key = tiled_plan_key(pattern_fingerprint(a), pattern_fingerprint(b),
-                         contract.name, spec, cands, "default",
+                         contract.name, spec, cands,
+                         profile.current_profile().tag,
                          fast.STREAM_MAX_PRODUCTS,
                          tiled_device(contract, device))
     return PLAN_CACHE.get_or_build(

@@ -19,13 +19,16 @@ selection.  Two models, selected by the backend's ``cost_domain``:
   ``[H, L]`` table with ``H`` sized from the block's worst column, so
   sparse tiles favour HASH and dense tiles SPA: the paper's crossover.
 
-The constants are the JAX package's defaults, copied unchanged, so that the
-port's per-tile choices equal the reference's tile for tile.  They were
-measured on a CPU container: on the H100 they rank the engines wrongly (they
-put the torch stream ahead of K1, which the card runs 1.5-82x faster).
-Calibrating them for the card is the machine profile's work, which the port
-does not have yet; until then every plan ranks on :data:`DEFAULT_CONSTANTS`
-or on constants the caller passes.  The model reads only
+:data:`DEFAULT_CONSTANTS` are the JAX package's defaults, copied unchanged,
+so that with no profile the port's per-tile choices equal the reference's
+tile for tile.  They were measured on a CPU container, and on the H100 they
+rank the engines wrongly (they put the torch stream ahead of K1, which the
+card runs 1.5-82x faster).  So when no constants are passed the model
+consults the machine profile (``core.profile``): the fit measured on this
+machine's fingerprint, if one is persisted, else the defaults, and each
+such ranking of device engines on the defaults is counted and warned about
+once.  The relative ``p_*`` terms of the cuda domain are never fitted (the
+JAX package's calibration has no ladder for them).  The model reads only
 :class:`~repro_torch.sparse.stats.TileStats` (pattern statistics, O(nnz));
 it never looks at values.
 """
@@ -97,9 +100,24 @@ DEFAULT_CONSTANTS = CostConstants()
 
 
 def _resolve_constants(constants: CostConstants | None) -> CostConstants:
-    """Explicit constants win; otherwise the defaults (the port has no
-    machine profile to consult yet)."""
-    return DEFAULT_CONSTANTS if constants is None else constants
+    """Explicit constants win; otherwise the machine profile's (the fit
+    measured on this machine if one is persisted, else
+    :data:`DEFAULT_CONSTANTS`).  Imported late: ``core.profile`` imports
+    this module for :class:`CostConstants`."""
+    if constants is not None:
+        return constants
+    from repro_torch.core import profile
+
+    return profile.current_constants()
+
+
+def _note_if_default(backend: str, candidates: tuple) -> None:
+    """Count, and warn once, when auto ranks device engines on the
+    uncalibrated defaults."""
+    from repro_torch.core import profile
+
+    if profile.current_profile().source == "default":
+        profile.note_default_auto(backend, candidates)
 
 
 def _family(method: str) -> str:
@@ -219,8 +237,8 @@ def estimate_cost(stats: TileStats, method: str, backend: str = "cuda",
     The model follows the backend's ``cost_domain``: host and torch
     estimates are wall seconds (so a host grid can rank its numpy tiles
     against the device engines), cuda estimates relative work units.  Only
-    compare estimates within one cost domain.  ``constants=None`` is
-    :data:`DEFAULT_CONSTANTS`.
+    compare estimates within one cost domain.  ``constants=None`` consults
+    the machine profile (``core.profile``).
     """
     c = _resolve_constants(constants)
     if backends.get_backend(backend).cost_domain == "relative":
@@ -255,10 +273,12 @@ def choose_method(stats: TileStats, backend: str = "cuda",
         else tuple(candidates)
     if not cands:
         raise ValueError("empty candidate set")
-    c = _resolve_constants(constants)
+    if constants is None:
+        _note_if_default(backend, cands)
+        constants = _resolve_constants(None)
     best, best_cost = cands[0], None
     for m in cands:
-        cost = estimate_cost(stats, m, backend, c)
+        cost = estimate_cost(stats, m, backend, constants)
         if best_cost is None or cost < best_cost:
             best, best_cost = m, cost
     return best

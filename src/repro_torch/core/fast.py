@@ -33,10 +33,13 @@ import numpy as np
 from repro_torch.core.expand import expand_positions, product_count
 from repro_torch.sparse.format import CSC, _np, as_tensor, segment_reduce
 
-# plan-resident stream guard, in products: the JAX package's default, sized
-# there for host RAM and not yet measured against the card's memory;
-# plan_spgemm(stream_limit=) sets it per plan
-STREAM_MAX_PRODUCTS = 8_000_000
+# plan-resident stream guard, in products.  DEFAULT_STREAM_MAX_PRODUCTS is
+# the JAX package's shipped value, sized there for host RAM; the live knob
+# below is what plans read at build time.  core.profile.apply_tuning() sets it
+# from a calibrated profile, and plan_spgemm(stream_limit=) /
+# cached_plan(stream_limit=) set it per plan
+DEFAULT_STREAM_MAX_PRODUCTS = 8_000_000
+STREAM_MAX_PRODUCTS = DEFAULT_STREAM_MAX_PRODUCTS
 
 # batched host execution: streams up to this many products run the value
 # axis through 2-D gather/reduce passes; longer ones loop the 1-D pass row

@@ -717,7 +717,7 @@ def plan_spgemm_tiled(
     runs that method, so a grid with one row block is bit-identical to the
     untiled method.  ``cache=True`` routes child plans through the plan
     LRU, so tiles with identical patterns share one plan.  ``constants``
-    replaces the cost model's defaults.
+    replaces the machine profile's (``core.profile``).
 
     ``device``: a cuda or torch grid's device (``None`` is the card).  A
     host grid runs its numpy tiles on the CPU and its ``"torch"``/
@@ -787,10 +787,17 @@ def plan_spgemm_tiled(
                 b_index=(torch.as_tensor(b_vals, device=dev)
                          if contract.device_resident else None)))
 
+    # the constants the choices were ranked under: a plan built on one
+    # calibration never aliases one built on another, on the defaults or on
+    # caller-given constants
+    if constants is None:
+        from repro_torch.core import profile
+
+        profile_tag = profile.current_profile().tag
+    else:
+        profile_tag = "explicit"
     params = (("candidates", cands),
-              # the constants the choices were ranked under: a plan built on
-              # caller-given constants never aliases one built on defaults
-              ("profile", "default" if constants is None else "explicit"),
+              ("profile", profile_tag),
               # the guard steers the host and torch choices and bounds every
               # child plan's stream
               ("stream_guard", fast.STREAM_MAX_PRODUCTS),

@@ -82,11 +82,19 @@ def auto_tile_grid(a: CSC, b: CSC, *, n_target: int | None = None,
     Small operands get a 1x1 grid (tiling then degenerates to the untiled
     path, bit for bit); the n axis splits once B carries more than
     ``n_target`` stored values, the k axis only for much larger A.
-    Targets left as ``None`` are the module defaults: the port has no
-    machine profile yet, so nothing tunes them.
+    Targets left as ``None`` are the machine profile's tuned
+    ``tile_n_target``/``tile_k_target`` (``core.profile``), else the module
+    defaults.
     """
-    n_target = DEFAULT_TILE_NNZ if n_target is None else int(n_target)
-    k_target = DEFAULT_KSPLIT_NNZ if k_target is None else int(k_target)
+    if n_target is None or k_target is None:
+        from repro_torch.core import profile
+
+        tuning = profile.current_profile().tuning
+        if n_target is None:
+            n_target = int(tuning.get("tile_n_target", DEFAULT_TILE_NNZ))
+        if k_target is None:
+            k_target = int(tuning.get("tile_k_target", DEFAULT_KSPLIT_NNZ))
+    n_target, k_target = int(n_target), int(k_target)
     k_blocks = max(1, -(-a.nnz // k_target)) if a.n_cols else 1
     n_blocks = max(1, -(-b.nnz // n_target)) if b.n_cols else 1
     return min(k_blocks, max(a.n_cols, 1)), min(n_blocks, max(b.n_cols, 1))

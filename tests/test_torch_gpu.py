@@ -11,7 +11,14 @@ batched == looped on real ones, with no host wait; and the gradient of
 ``[B, nnz]`` stacks on both stream engines against a loop; and the tiled
 path (``method="auto"``): the card's merge of row blocks against the host's
 numpy merge of the same children, bit-stable, batched == looped, its host
-waits.  Every test needs a card (marker ``gpu``) and skips without one.
+waits; and the machine profile's calibration on the card (its fingerprint
+names the card, its ``fused`` ladder launches K1).  Every test needs a card
+(marker ``gpu``) and skips without one.
+
+The module pins ``REPRO_PROFILE_DIR`` to a path nothing writes before any
+profile is consulted (as ``tests/conftest.py`` does for the CPU suite,
+which this run skips), so a profile in the user's cache never re-ranks the
+tiled tests' picks; the calibration tests write into their own ``tmp_path``.
 
 On the card these run without the JAX-importing conftest, which that
 machine cannot import::
@@ -25,12 +32,20 @@ real-valued inputs too.
 """
 
 import itertools
+import os
+import tempfile
 import warnings
 
 import numpy as np
 import pytest
 
-torch = pytest.importorskip("torch")
+os.environ.setdefault(
+    "REPRO_PROFILE_DIR",
+    os.path.join(tempfile.gettempdir(), "repro-torch-gpu-profiles-unwritten"))
+os.environ.pop("REPRO_PROFILE_FILE", None)
+os.environ.pop("REPRO_AUTO_CALIBRATE", None)
+
+torch = pytest.importorskip("torch")  # noqa: E402
 
 from repro_torch import kernels
 from repro_torch.core import cached_plan, fused_stream, plan_spgemm, spgemm, \
@@ -1167,3 +1182,71 @@ def csc_to_dense_f64(c):
     from repro_torch.sparse.format import csc_to_dense
 
     return csc_to_dense(c).cpu().double().numpy()
+
+
+@pytest.fixture
+def own_profile_dir(tmp_path, monkeypatch):
+    """A profile directory of the test's own, the stock guard and no
+    installed profile before and after."""
+    from repro_torch.core import fast, profile
+
+    monkeypatch.setenv("REPRO_PROFILE_DIR", str(tmp_path))
+    guard = fast.STREAM_MAX_PRODUCTS
+    profile.reset()
+    yield str(tmp_path)
+    profile.reset()
+    fast.STREAM_MAX_PRODUCTS = guard
+
+
+def test_calibration_on_card_names_it_and_launches_k1(cuda, own_profile_dir):
+    """The device ladders on the card: the fingerprint names this card and
+    its count, the fused ladder launches K1 (``plan.execute(...,
+    engine="fused")``), the torch ladder launches no kernel of ours, and the
+    saved profile loads back with its tag."""
+    from repro_torch.core import profile
+
+    before = kernels.launch_counts()
+    first = profile.calibrate_profile(scale=0.25, reps=1,
+                                      sections=("torch",), tune=False,
+                                      save=True)
+    assert kernels.launch_counts() == before
+    assert first.fitted == ("torch_base", "torch_prod")
+    # the second calibration starts from the saved one and keeps its fit
+    prof = profile.calibrate_profile(scale=0.25, reps=1,
+                                     sections=("fused",), tune=False,
+                                     save=True)
+    assert prof.constants.torch_prod == first.constants.torch_prod
+    assert kernels.fused_stream.n_launches > before["fused_stream"]
+    fp = prof.fingerprint
+    assert fp["platform"] == "cuda"
+    assert fp["device_kind"] == torch.cuda.get_device_name(0)
+    assert fp["device_count"] == torch.cuda.device_count()
+    assert fp["cuda"] == torch.version.cuda
+    assert prof.fitted == ("fused_base", "fused_prod", "torch_base",
+                           "torch_prod")
+    back = profile.load_profile()
+    assert back.tag == prof.tag and back.constants == prof.constants
+    assert profile.current_profile() is prof
+
+
+def test_calibrated_profile_ranks_auto_on_card(cuda, own_profile_dir):
+    """A whole smoke calibration on the card, then auto plans under it: the
+    tuned guard applies, the tiled plans carry the profile's tag, and the
+    torch and host grids stay exact whatever they pick."""
+    from repro_torch.core import fast, plan_spgemm_tiled, profile, spgemm
+    from repro_torch.sparse.format import CSC
+
+    prof = profile.calibrate_profile(scale=0.25, reps=1)
+    assert set(prof.tuning) == set(profile.TUNING_KEYS)
+    assert profile.apply_tuning(prof) == {
+        "stream_max_products": prof.tuning["stream_max_products"]}
+    assert fast.STREAM_MAX_PRODUCTS == prof.tuning["stream_max_products"]
+    profile.set_profile(prof)
+    a, v = _int_operands(seed=24)
+    a = CSC(v, a.row_indices, a.col_ptr, a.shape)
+    d = csc_to_dense_f64(a)
+    for backend in ("torch", "host"):
+        plan = plan_spgemm_tiled(a, a, backend=backend, cache=False)
+        assert dict(plan.params)["profile"] == prof.tag
+        c = spgemm(a, a, method="auto", backend=backend)
+        np.testing.assert_array_equal(csc_to_dense_f64(c), d @ d)

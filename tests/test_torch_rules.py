@@ -21,6 +21,8 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    for f in ("torch_table1.py", "torch_calibrate_profile.py"):
+        yield os.path.join(REPO, "benchmarks", f)
 
 
 def _imported_roots(path):
@@ -163,3 +165,20 @@ def test_build_key_covers_the_shared_header(monkeypatch, tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build._key() != key
     assert {p.suffix for p in _build.sources()} == {".cu"}
+
+
+def test_profile_catches_only_file_and_json_errors():
+    """``core/profile.py`` catches no ``Exception``: a calibration on the
+    card that fails reaches the caller.  Its only handlers name the errors
+    of reading a file or parsing JSON (``json.JSONDecodeError`` is a
+    ``ValueError``) and of asking the OS for its memory size."""
+    allowed = {"OSError", "ValueError", "KeyError", "TypeError"}
+    tree = ast.parse(open(os.path.join(PORT, "core", "profile.py")).read())
+    handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    assert handlers
+    for h in handlers:
+        assert h.type is not None, f"bare except at line {h.lineno}"
+        names = h.type.elts if isinstance(h.type, ast.Tuple) else [h.type]
+        caught = {n.id for n in names if isinstance(n, ast.Name)}
+        assert len(caught) == len(names) and caught <= allowed, \
+            f"line {h.lineno} catches {ast.unparse(h.type)}"
