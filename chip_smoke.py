@@ -170,6 +170,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    order (a multiply and an add a product, twice the operation bound) and
    the launch's shape (``bsr_layout``).
 
+13. The model stack (``repro_torch.models.lm``) with its FFNs on the SpGEMM
+   stream: granite-20b at full width (d_model 6144, 48 heads, 1 KV head,
+   d_head 128, d_ff 24576, vocab 49152) with n_layers cut from 52 to 2
+   (n_rep 2, one shared pattern per matrix), f32 weights from ``--seed``
+   through ``init_model`` on the card, its FFNs converted by
+   ``sparsify_ffn_params(keep_density=0.1, stream_limit=2**26)`` (about
+   15.1M kept values per matrix) and the dense oracle by
+   ``densify_ffn_params``.  Each overlay matrix's one-token plan (15.1M
+   products) built and timed; then 4 requests of 8 prompt tokens from
+   ``--seed``, admitted one a tick, through ``decode_step(...,
+   sparse_ffn=overlay)`` with an f32 cache of 64 and a per-slot
+   ``cur_len``, each decoding 8 greedy tokens, with the counts set to 0
+   just before (the torch stream runs no kernel of ours: all must stay 0):
+   at every step the logits within 1e-4 normwise of ``decode_step`` on the
+   densified weights (cuBLAS on the pruned weights), fed the same tokens,
+   and every step after the first 0 host syncs; both greedy sequences
+   printed.  ``prefill(..., sparse_ffn=overlay)`` of a [1, 4] prompt (its
+   4-token plans, 60.4M products each, built and timed first) and one step
+   of ``decode_step_loop(..., sparse_host=True)`` (the host stream; its
+   host plans built and timed first) each within 1e-4 normwise of the
+   dense oracle and of ``decode_step``.  On each one-token plan, K1
+   (``stream_apply(..., engine="fused")``) equal to the torch stream bit
+   for bit on integer values and within 1e-5 normwise on real ones, K1's
+   count rising; both timed per call (CUDA events, queued) beside K1's
+   byte bound.  The sparse and dense decode-step times (median of
+   ``--reps``), the sparse step's device time and idle share
+   (``torch.profiler``), and the phase's seconds beside the card line.
+
 The last two lines are the kernels' JSON and the card line; the very last is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero before any result.
@@ -1219,7 +1247,7 @@ def torch_plans(mats, fplans, dev):
         else:
             plan = cached_plan(a, a, backend="torch")
         t1 = time.perf_counter()
-        device_stream(plan)
+        device_stream(plan, grads=True)
         torch.cuda.synchronize()
         out[name] = dict(plan=plan, plan_ms=(t1 - t0) * 1e3,
                          lift_ms=(time.perf_counter() - t1) * 1e3,
@@ -2496,7 +2524,7 @@ def torch_stream_ms(tplans, name, vname, x, y, reps) -> float:
     from repro_torch.core import device_stream
     from repro_torch.core.device_stream import replay
 
-    view = getattr(device_stream(tplans[name]["plan"]), vname)
+    view = getattr(device_stream(tplans[name]["plan"], grads=True), vname)
     return event_ms(lambda: replay(view, x, y), reps)
 
 
@@ -3184,6 +3212,337 @@ def bsr_kernel_report(data, counts, dev, reps):
     return rows
 
 
+# -- 13. the dense model stack with its FFNs on the SpGEMM stream ------------
+
+MODEL_ARCH = "granite-20b"
+MODEL_LAYERS = 2        # 52 in the config: n_rep 2, one shared pattern each
+MODEL_KEEP = 0.1        # keep_density of sparsify_ffn_params
+MODEL_STREAM_LIMIT = 2 ** 26   # products per plan (a 4-token prefill: 60.4M)
+SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 4, 8, 8
+SERVE_CACHE = 64
+PREFILL_LEN = 4         # the prefill's [1, 4] prompt: N = 4 plans
+MODEL_TOL = 1e-4        # normwise, sparse against the dense oracle
+STREAM_TOL = 1e-5       # normwise, K1 against the torch stream (C5)
+
+
+def model_setup(dev, seed):
+    """granite-20b at full width, cut to ``MODEL_LAYERS`` layers, f32 weights
+    from ``seed`` through the port's ``init_model`` on the card; its FFNs
+    converted by ``sparsify_ffn_params`` (keep ``MODEL_KEEP``, one pattern
+    per matrix shared by both reps) and the dense oracle on the pruned
+    weights by ``densify_ffn_params``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import densify_ffn_params, init_model, \
+        sparsify_ffn_params
+
+    cfg = dataclasses.replace(get_config(MODEL_ARCH), n_layers=MODEL_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_model(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sparse, overlay = sparsify_ffn_params(cfg, params, keep_density=MODEL_KEEP,
+                                          stream_limit=MODEL_STREAM_LIMIT)
+    del params
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dense = densify_ffn_params(cfg, sparse, overlay)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    n_params = sum(t.numel() for t in tree_leaves(sparse))
+    nnz = {name: getattr(overlay["l0"], name).w_csc.nnz
+           for name in FFN_MATRICES}
+    print(f"model: {MODEL_ARCH} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV head, d_head "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), "
+          f"{cfg.n_layers} layers; init {t1 - t0:.2f} s, sparsify (keep "
+          f"{MODEL_KEEP}) {t2 - t1:.2f} s, densify {t3 - t2:.2f} s; "
+          f"{n_params} sparse-model parameters; kept values per matrix "
+          f"{json.dumps(nnz)}", flush=True)
+    return dict(cfg=cfg, sparse=sparse, dense=dense, overlay=overlay,
+                gen=gen, setup_s=dict(init=t1 - t0, sparsify=t2 - t1,
+                                      densify=t3 - t2))
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def model_plans(data, n, backend="torch"):
+    """Build (and time) each overlay matrix's plan for ``n`` tokens on
+    ``backend`` before the first call that needs it: the symbolic phase
+    (``_spgemm_plan``: the LRU's plan and its host stream) and, on the
+    torch backend, the lift of the stream's forward replay to the card."""
+    import torch
+    from repro_torch.core import device_stream
+
+    out = {}
+    for name in FFN_MATRICES:
+        m = getattr(data["overlay"]["l0"], name)
+        t0 = time.perf_counter()
+        plan = m._spgemm_plan(n, backend)[0]
+        t1 = time.perf_counter()
+        if backend == "torch":
+            device_stream(plan)
+            torch.cuda.synchronize()
+        out[name] = dict(products=plan.stream.n_products,
+                         plan_ms=(t1 - t0) * 1e3,
+                         lift_ms=(time.perf_counter() - t1) * 1e3,
+                         host_mb=plan.stream_nbytes / 2 ** 20,
+                         device_mb=plan.device_stream_nbytes / 2 ** 20)
+    print(f"model plans: N = {n} on backend {backend!r}: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def serve_schedule():
+    """Tick by tick, each slot's feed index (the count of its tokens
+    already cached: its ``cur_len``) and whether the slot is live: slot b is
+    admitted at tick b and takes ``SERVE_PROMPT`` prompt tokens, then its
+    own greedy tokens, until ``SERVE_NEW`` are generated."""
+    feeds = SERVE_PROMPT + SERVE_NEW - 1
+    ticks = SERVE_SLOTS - 1 + feeds
+    t = np.arange(ticks)[:, None] - np.arange(SERVE_SLOTS)[None, :]
+    live = (t >= 0) & (t < feeds)
+    return np.clip(t, 0, feeds - 1), live
+
+
+def model_serve(data, dev, seed):
+    """Serve: ``SERVE_SLOTS`` requests of ``SERVE_PROMPT`` tokens from
+    ``seed``, admitted one a tick, through ``decode_step(...,
+    sparse_ffn=overlay)`` with an f32 cache and a per-slot ``cur_len``,
+    each decoding ``SERVE_NEW`` greedy tokens, with the counts set to 0
+    just before and read just after (the torch stream runs no kernel of
+    ours).  At every tick the dense oracle (``decode_step`` on the
+    densified weights, fed the same tokens) must agree within
+    ``MODEL_TOL`` normwise on every live slot's logits; every tick after
+    the first (which builds the plans) makes 0 host syncs."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import decode_step, init_cache
+
+    cfg = data["cfg"]
+    gen = torch.Generator().manual_seed(seed)
+    seq = torch.zeros((SERVE_SLOTS, SERVE_PROMPT + SERVE_NEW),
+                      dtype=torch.long)
+    seq[:, :SERVE_PROMPT] = torch.randint(
+        0, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT), generator=gen)
+    seq = seq.to(dev)
+    feed, live = serve_schedule()
+    feed_d = torch.from_numpy(feed).to(dev)
+    # a slot's greedy token is written after its feed SERVE_PROMPT - 1 on
+    write_d = torch.from_numpy(live & (feed >= SERVE_PROMPT - 1)).to(dev)
+    cache_s = init_cache(cfg, SERVE_SLOTS, SERVE_CACHE, dtype=torch.float32,
+                         device=dev)
+    cache_d = init_cache(cfg, SERVE_SLOTS, SERVE_CACHE, dtype=torch.float32,
+                         device=dev)
+    dense_next = torch.zeros((SERVE_SLOTS, len(feed)), dtype=torch.long,
+                             device=dev)
+    slots = torch.arange(SERVE_SLOTS, device=dev)
+    errs, syncs, tick_ms = [], [], []
+
+    def tick(t):
+        cur = feed_d[t]
+        token = seq[slots, cur][:, None]
+        logits, new_cache = decode_step(data["sparse"], cfg, token, cache_s,
+                                        cur.to(torch.int32),
+                                        sparse_ffn=data["overlay"])
+        nxt = logits[:, 0, :cfg.vocab].argmax(-1)
+        pos = (cur + 1).clamp(max=seq.shape[1] - 1)[:, None]
+        seq.scatter_(1, pos, torch.where(write_d[t][:, None], nxt[:, None],
+                                         seq.gather(1, pos)))
+        return logits, new_cache, token, cur
+
+    kernels.reset_launch_counts()
+    for t in range(len(feed)):
+        t0 = time.perf_counter()
+        if t == 0:
+            logits, cache_s, token, cur = tick(t)
+        else:
+            out = []
+            syncs.append(host_syncs(lambda: out.append(tick(t))))
+            logits, cache_s, token, cur = out[0]
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        want, cache_d = decode_step(data["dense"], cfg, token, cache_d,
+                                    cur.to(torch.int32))
+        dense_next[:, t] = want[:, 0, :cfg.vocab].argmax(-1)
+        for b in np.nonzero(live[t])[0]:
+            errs.append(rel_err(logits[b, 0, :cfg.vocab],
+                                want[b, 0, :cfg.vocab].double()))
+    counts = kernels.launch_counts()
+    generated = seq[:, SERVE_PROMPT:].cpu().tolist()
+    # the dense oracle's greedy token at each live slot's feed
+    dense_gen = [[int(dense_next[b, t]) for t in range(len(feed))
+                  if live[t, b] and feed[t, b] >= SERVE_PROMPT - 1]
+                 for b in range(SERVE_SLOTS)]
+    print(f"model serve: {SERVE_SLOTS} requests of {SERVE_PROMPT} prompt "
+          f"tokens, admitted one a tick, {SERVE_NEW} greedy tokens each, "
+          f"{len(feed)} decode steps at B = {SERVE_SLOTS}; first step "
+          f"(plans built) {tick_ms[0]:.1f} ms, later steps median "
+          f"{statistics.median(tick_ms[1:]):.2f} ms (host clock, one "
+          f"synchronize each); normwise error of the logits against the "
+          f"dense oracle max {max(errs):.3g} over {len(errs)} slot-steps; "
+          f"host syncs per warm step {sorted(set(syncs))}; launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}",
+          flush=True)
+    print(f"model serve: greedy tokens (sparse) {json.dumps(generated)}",
+          flush=True)
+    print(f"model serve: greedy tokens (dense oracle) "
+          f"{json.dumps(dense_gen)}; equal: {generated == dense_gen}",
+          flush=True)
+    check(max(errs) <= MODEL_TOL, f"model serve: sparse decode off the dense "
+          f"oracle by {max(errs):.3g} normwise (limit {MODEL_TOL})")
+    check(syncs and set(syncs) == {0}, f"model serve: host syncs per warm "
+          f"decode step {syncs}, expected 0")
+    check(not any(counts.values()), f"model serve: kernels launched on the "
+          f"torch stream's path: {counts}")
+    return dict(cache=cache_s, seq=seq, cur=feed_d[-1], errs=errs,
+                syncs=syncs, tick_ms=tick_ms, generated=generated,
+                dense_gen=dense_gen)
+
+
+def model_prefill_and_loop(data, served, dev, seed):
+    """Prefill ``[1, PREFILL_LEN]`` through ``prefill(...,
+    sparse_ffn=overlay)`` (the N = 4 plans, built and timed first) against
+    the dense oracle; then one step of ``decode_step_loop(...,
+    sparse_host=True)`` (the host stream, its N = 1 host plans built and
+    timed first) against ``decode_step`` on the served caches; each within
+    ``MODEL_TOL`` normwise."""
+    import torch
+    from repro_torch.models import decode_step, decode_step_loop, prefill
+
+    cfg = data["cfg"]
+    gen = torch.Generator().manual_seed(seed + 1)
+    prompt = torch.randint(0, cfg.vocab, (1, PREFILL_LEN),
+                           generator=gen).to(dev)
+    plans = model_plans(data, PREFILL_LEN)
+    t0 = time.perf_counter()
+    got = prefill(data["sparse"], cfg, prompt, sparse_ffn=data["overlay"])
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    want = prefill(data["dense"], cfg, prompt)
+    err_prefill = rel_err(got, want.double())
+    check(got.shape == (1, PREFILL_LEN, cfg.d_model)
+          and bool(torch.isfinite(got).all()), "model prefill: output")
+    check(err_prefill <= MODEL_TOL, f"model prefill: {err_prefill:.3g} "
+          f"normwise off the dense oracle (limit {MODEL_TOL})")
+
+    host_plans = model_plans(data, 1, backend="host")
+    token = served["seq"][torch.arange(SERVE_SLOTS, device=dev),
+                          served["cur"]][:, None]
+    cur = served["cur"].to(torch.int32)
+    t0 = time.perf_counter()
+    loop, _ = decode_step_loop(data["sparse"], cfg, token, served["cache"],
+                               cur, sparse_ffn=data["overlay"],
+                               sparse_host=True)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    step, _ = decode_step(data["sparse"], cfg, token, served["cache"], cur,
+                          sparse_ffn=data["overlay"])
+    err_loop = rel_err(loop, step.double())
+    check(err_loop <= MODEL_TOL, f"model host loop: {err_loop:.3g} normwise "
+          f"off decode_step (limit {MODEL_TOL})")
+    print(f"model prefill: [1, {PREFILL_LEN}] in {prefill_ms:.1f} ms "
+          f"(plans built before), normwise error against the dense oracle "
+          f"{err_prefill:.3g}; host loop: one decode_step_loop "
+          f"(sparse_host=True) at B = {SERVE_SLOTS} in {loop_ms:.1f} ms, "
+          f"normwise error against decode_step {err_loop:.3g}", flush=True)
+    return dict(plans_n4=plans, host_plans=host_plans, prefill_ms=prefill_ms,
+                err_prefill=err_prefill, loop_ms=loop_ms, err_loop=err_loop)
+
+
+def model_k1_phase(data, dev, reps):
+    """K1 against the torch stream on each overlay matrix's N = 1 plan:
+    ``stream_apply(..., engine="fused")`` equal to the default engine bit
+    for bit on integer-valued weights and activations, within
+    ``STREAM_TOL`` normwise on the real ones (rep 0's values and a normal
+    activation); K1's count must rise.  Then both engines' device time per
+    call (CUDA events, queued) on the real operands, with K1's byte
+    bound."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import fused_stream
+
+    gen = data["gen"]
+    rows = {}
+    before = kernels.launch_counts()["fused_stream"]
+    for name in FFN_MATRICES:
+        m = getattr(data["overlay"]["l0"], name)
+        plan = m._spgemm_plan(1)[0]
+        k = m.shape[1]
+        w_int = int_values((m.w_csc.nnz,), gen, dev)
+        x_int = int_values((k,), gen, dev)
+        t0 = time.perf_counter()
+        k1_int = plan.stream_apply(w_int, x_int, engine="fused")
+        torch.cuda.synchronize()
+        views_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(k1_int, plan.stream_apply(w_int, x_int)),
+              f"model K1 {name}: K1 differs from the torch stream on "
+              "integer values")
+        w = m.w_values
+        x = torch.randn((k,), generator=gen, device=dev)
+        k1 = plan.stream_apply(w, x, engine="fused")
+        ts = plan.stream_apply(w, x)
+        err = rel_err(k1, ts.double())
+        check(err <= STREAM_TOL, f"model K1 {name}: {err:.3g} normwise off "
+              f"the torch stream (limit {STREAM_TOL})")
+        view = fused_stream(plan).forward
+        _, nbytes = k1_work(view, w, x)
+        rows[name] = dict(
+            products=view.n_products, views_ms=views_ms, err=err,
+            max_abs_err=float((k1 - ts).abs().max()),
+            torch_stream_ms=event_ms(lambda: plan.stream_apply(w, x), reps),
+            k1_ms=event_ms(lambda: plan.stream_apply(w, x, engine="fused"),
+                           reps),
+            k1_bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3)
+    launched = kernels.launch_counts()["fused_stream"] - before
+    check(launched > 0, "model K1: fused_stream was not launched")
+    print(f"model K1 vs torch stream (N = 1 plans, one call, device ms "
+          f"queued): {json.dumps(rows)}; K1 launches {launched}", flush=True)
+    return rows
+
+
+def model_timing(data, served, dev, reps):
+    """Sparse and dense decode-step time (host clock ending in a
+    synchronize, median of ``reps``) at B = ``SERVE_SLOTS`` on the served
+    caches, and the device time and idle share of one sparse step
+    (``torch.profiler``)."""
+    import torch
+    from repro_torch.models import decode_step
+
+    cfg = data["cfg"]
+    token = served["seq"][torch.arange(SERVE_SLOTS, device=dev),
+                          served["cur"]][:, None]
+    cur = served["cur"].to(torch.int32)
+
+    def step(params, overlay):
+        return lambda: decode_step(params, cfg, token, served["cache"], cur,
+                                   sparse_ffn=overlay)
+
+    sparse = step(data["sparse"], data["overlay"])
+    dense = step(data["dense"], None)
+    sparse_ms = statistics.median(execute_ms(sparse, reps))
+    dense_ms = statistics.median(execute_ms(dense, reps))
+    prof = device_profile(sparse, n=1)
+    device_ms = sum(prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
+    out = dict(sparse_step_ms=sparse_ms, dense_step_ms=dense_ms,
+               sparse_device_ms=device_ms,
+               sparse_idle=idle_share(device_ms, sparse_ms),
+               top_device_ops={k: round(v, 4) for k, v in top})
+    print(f"model timing: decode step at B = {SERVE_SLOTS} (median of "
+          f"{reps}): {json.dumps(out)}", flush=True)
+    return out
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line saying how long it took."""
     import torch
@@ -3315,6 +3674,22 @@ def main(argv=None) -> int:
     timed(check_ffn_matmuls, ffn_data, dev)
     timed(ffn_timing_phase, ffn_data, args.reps)
     rows += timed(bsr_kernel_report, ffn_data, ffn_counts, dev, args.reps)
+
+    # the model phases hold granite-20b at full width: the FFN phases' data
+    # goes first
+    del ffn_data
+    plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_model = time.perf_counter()
+    model = timed(model_setup, dev, args.seed)
+    model_plans(model, 1)
+    served = timed(model_serve, model, dev, args.seed)
+    timed(model_prefill_and_loop, model, served, dev, args.seed)
+    timed(model_k1_phase, model, dev, args.reps)
+    timed(model_timing, model, served, dev, args.reps)
+    print(f"model phases: {time.perf_counter() - t_model:.1f} s; card: "
+          f"{card}", flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, build "
           "included", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

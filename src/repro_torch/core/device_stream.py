@@ -39,10 +39,12 @@ products, with no new symbolic work::
     dL/db[p] = sum_{q : b_pos[q] = p} g[seg(q)] * a[a_pos[q]]
 
 The reference scatters through the unsorted positions; here each gradient
-replay is built at plan time in the order K1's gradient views use (the
-products stably sorted by the operand's position, one segment per distinct
-position), summed by the same segmented sum, and placed by ``index_copy_``
-through the distinct positions, which writes each index once.
+replay is built, at the first backward through the plan, in the order K1's
+gradient views use (the products stably sorted by the operand's position,
+one segment per distinct position), summed by the same segmented sum, and
+placed by ``index_copy_`` through the distinct positions, which writes each
+index once.  A plan that only runs forward (a decode step) never pays for
+those two sorts.
 :func:`bilinear_custom_vjp` wraps a forward replay and the two gradient
 replays into a ``torch.autograd.Function`` (the fused engine's too).
 
@@ -177,8 +179,8 @@ class StreamView:
 @dataclasses.dataclass(frozen=True)
 class DeviceStream:
     """A plan's stream on its device: the forward replay, the two gradient
-    replays (None in a stream built for one execution past the guard) and
-    C's structure."""
+    replays (None until a backward asks for them, and in a stream built for
+    one execution past the guard) and C's structure."""
 
     forward: StreamView
     grad_a: Optional[StreamView]
@@ -219,34 +221,40 @@ def _view(idx_x, idx_y, seg_ptr, dev, out_map=None) -> StreamView:
         n_out=len(seg_ptr) - 1, n_products=p)
 
 
-def _lift_stream(plan, s: ProductStream, grads: bool) -> DeviceStream:
+def _grad_views(s: ProductStream, dev) -> dict:
+    """The two gradient replays of stream ``s`` on ``dev``."""
+    seg_ids = stream_seg_ids(s)
+    ga = grad_replay(s.a_pos, s.b_pos, seg_ids)
+    gb = grad_replay(s.b_pos, s.a_pos, seg_ids)
+    return dict(grad_a=_view(*ga[:3], dev, out_map=ga[3]),
+                grad_b=_view(*gb[:3], dev, out_map=gb[3]))
+
+
+def _lift_stream(plan, s: ProductStream) -> DeviceStream:
+    """The forward replay and C's structure on the plan's device."""
     check_int32_stream(plan, s)
     dev = plan.device
     forward = _view(s.a_pos, s.b_pos, np.append(s.seg_starts, s.n_products),
                     dev)
-    grad_a = grad_b = None
-    if grads:
-        seg_ids = stream_seg_ids(s)
-        ga = grad_replay(s.a_pos, s.b_pos, seg_ids)
-        gb = grad_replay(s.b_pos, s.a_pos, seg_ids)
-        grad_a = _view(*ga[:3], dev, out_map=ga[3])
-        grad_b = _view(*gb[:3], dev, out_map=gb[3])
-    return DeviceStream(forward, grad_a, grad_b,
-                        _lift(s.c_rows, np.int32, dev),
+    return DeviceStream(forward, None, None, _lift(s.c_rows, np.int32, dev),
                         _lift(s.c_col_ptr, np.int32, dev), s.shape)
 
 
-def device_stream(plan) -> Optional[DeviceStream]:
+def device_stream(plan, grads: bool = False) -> Optional[DeviceStream]:
     """The plan's device stream, built at first use and kept on the plan
     (``plan.device_stream_nbytes``; ``plan_cache_info()
-    ["device_stream_bytes"]``).  ``None`` when the plan-memory guard
-    tripped."""
+    ["device_stream_bytes"]``).  Its gradient replays are built by the first
+    call with ``grads=True`` (the first backward) and kept from then on.
+    ``None`` when the plan-memory guard tripped."""
     s = plan.stream
     if s is None:
         return None
     memo = plan._stream_memo
     if "device" not in memo:
-        memo["device"] = _lift_stream(plan, s, grads=True)
+        memo["device"] = _lift_stream(plan, s)
+    if grads and memo["device"].grad_a is None:
+        memo["device"] = dataclasses.replace(
+            memo["device"], **_grad_views(s, plan.device))
     return memo["device"]
 
 
@@ -306,22 +314,24 @@ def bilinear_custom_vjp(forward, grad_a, grad_b):
     return Contract.apply
 
 
-def _torch_contract(ds: DeviceStream, dev):
+def _torch_contract(plan, ds: DeviceStream):
     """The differentiable torch-stream contraction: forward and two
-    gradient replays, for vectors and ``[B, nnz]`` stacks alike."""
+    gradient replays (built at the first backward), for vectors and
+    ``[B, nnz]`` stacks alike."""
 
     def forward(a_values, b_values):
         return replay(ds.forward, a_values, b_values)
 
     def grad_a(g, a_values, b_values):
-        return _scatter(ds.grad_a, replay(ds.grad_a, g, b_values),
-                        a_values.shape[-1])
+        view = device_stream(plan, grads=True).grad_a
+        return _scatter(view, replay(view, g, b_values), a_values.shape[-1])
 
     def grad_b(g, a_values, b_values):
-        return _scatter(ds.grad_b, replay(ds.grad_b, g, a_values),
-                        b_values.shape[-1])
+        view = device_stream(plan, grads=True).grad_b
+        return _scatter(view, replay(view, g, a_values), b_values.shape[-1])
 
     contract = bilinear_custom_vjp(forward, grad_a, grad_b)
+    dev = plan.device
 
     def fn(a_values, b_values):
         return contract(_operand(a_values, dev), _operand(b_values, dev))
@@ -339,7 +349,7 @@ def stream_fn(plan):
         ds = device_stream(plan)
         if ds is None:
             raise _guard_error(plan)
-        memo["torch_fn"] = _torch_contract(ds, plan.device)
+        memo["torch_fn"] = _torch_contract(plan, ds)
     return memo["torch_fn"]
 
 
@@ -364,8 +374,7 @@ def _stream_of(plan) -> tuple:
     ds = device_stream(plan)
     if ds is not None:
         return ds, True
-    return _lift_stream(plan, build_product_stream(plan.a, plan.b),
-                        grads=False), False
+    return _lift_stream(plan, build_product_stream(plan.a, plan.b)), False
 
 
 def _stats(stats, plan, ds, cached) -> None:

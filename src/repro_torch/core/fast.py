@@ -112,9 +112,9 @@ def build_product_stream(a, b, max_products: int | None = None
     rows = a_rows[a_pos].astype(np.int64)
 
     # sort products to C slots (stable: stream order survives in each slot)
-    order = np.lexsort((rows, cols))
+    order = slot_order(rows, cols, m, n)
     rows, cols = rows[order], cols[order]
-    key = cols * m + rows                  # ascending after the lexsort
+    key = cols * m + rows                  # ascending after the sort
     boundary = np.empty(total, bool)
     boundary[0] = True
     np.not_equal(key[1:], key[:-1], out=boundary[1:])
@@ -124,6 +124,19 @@ def build_product_stream(a, b, max_products: int | None = None
     np.cumsum(np.bincount(cols[boundary], minlength=n), out=col_ptr[1:])
     return _frozen_stream(a_pos[order], b_pos[order], starts, c_rows,
                           col_ptr, (m, n))
+
+
+def slot_order(rows: np.ndarray, cols: np.ndarray, m: int,
+               n: int) -> np.ndarray:
+    """The stable sort of products to C slots: by column, then by row,
+    ties in stream order (``np.lexsort((rows, cols))``).  Where rows and
+    columns fit 16 bits, two stable passes of numpy's radix sort (row
+    first, then column) give that same permutation in linear time."""
+    if m <= 1 << 16 and n <= 1 << 16:
+        by_row = np.argsort(rows.astype(np.uint16), kind="stable")
+        return by_row[np.argsort(cols[by_row].astype(np.uint16),
+                                 kind="stable")]
+    return np.lexsort((rows, cols))
 
 
 def _frozen_stream(a_pos, b_pos, seg_starts, c_rows, c_col_ptr,

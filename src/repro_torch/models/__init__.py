@@ -1,26 +1,27 @@
 """The port's models, as far as the ported slices run them: the config
-dataclasses, parameter tables, the dense SwiGLU FFN, and the sparse FFN
-serving policy (dense path or the BSR kernel K5)."""
+dataclasses, parameter tables, layers, the dense-family model stack
+(``blocks``, ``lm``) and the sparse FFN (dense path, the BSR kernel K5, or
+the spgemm path on the product stream)."""
 
-from repro_torch.models.config import MoEConfig, ModelConfig, SSMConfig, \
-    smoke
+from repro_torch.models.config import (
+    ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, TRAIN_4K,
+    ModelConfig, MoEConfig, SSMConfig, ShapeConfig, shapes_for, smoke,
+)
 from repro_torch.models.layers import dense, ffn, ffn_table
+from repro_torch.models.lm import (
+    backbone, decode_step, decode_step_loop, init_cache, init_model,
+    model_tables, prefill, train_loss,
+)
 from repro_torch.models.params import Leaf, init_params, linear
 from repro_torch.models.sparse_ffn import SparseFFN, SparseMatmul, \
-    prune_blocks
+    densify_ffn_params, prune_blocks, sparsify_ffn_params
 
 __all__ = [
-    "Leaf",
-    "MoEConfig",
-    "ModelConfig",
-    "SSMConfig",
-    "SparseFFN",
-    "SparseMatmul",
-    "dense",
-    "ffn",
-    "ffn_table",
-    "init_params",
-    "linear",
-    "prune_blocks",
-    "smoke",
+    "ALL_SHAPES", "DECODE_32K", "LONG_500K", "PREFILL_32K", "TRAIN_4K",
+    "ModelConfig", "MoEConfig", "SSMConfig", "ShapeConfig", "shapes_for",
+    "smoke", "backbone", "decode_step", "decode_step_loop", "init_cache",
+    "init_model", "model_tables", "prefill", "train_loss",
+    "Leaf", "SparseFFN", "SparseMatmul", "dense", "densify_ffn_params",
+    "ffn", "ffn_table", "init_params", "linear", "prune_blocks",
+    "sparsify_ffn_params",
 ]

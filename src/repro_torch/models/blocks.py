@@ -1,0 +1,227 @@
+"""Super-block assembly: every architecture is a loop over repeated blocks.
+
+The port of the JAX package's ``repro/models/blocks.py``.  A *super-block*
+is the smallest repeating unit of a family (one layer for dense/MoE/SSM;
+``attn_every`` Mamba layers + one shared attention block for zamba2;
+``cross_attn_every`` layers with a trailing cross-attention layer for the
+VLM; an alternating dense/MoE pair for llama4).  Its params are stacked on
+a leading 'layers' axis; the reference scans over it (``lax.scan``), the
+port loops over it in Python, rep by rep, with the same arithmetic.
+
+Sub-layer kinds: "attn_ffn", "attn_moe", "mamba", "shared_attn" (applies the
+tied block), "attn_ffn_cross", "enc_attn_ffn", "dec_attn_cross_ffn".  The
+port runs "attn_ffn" (the dense family); :func:`block_structure` knows every
+family, and the other kinds (and the hybrid family's shared table, which
+the reference's functions here take as ``shared``) raise until the MoE,
+SSM and cross-attention slice ports them.  The reference's sharding hints (``distributed/hints.py``)
+are no-ops on one device and are left out until the mesh is ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import params as pp
+from repro_torch.models.layers import attention, attention_decode, \
+    attention_table, ffn, ffn_table, rms_norm
+
+PORTED_KINDS = ("attn_ffn",)
+
+
+def _waits(kind: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"sub-layer kind {kind!r} waits for the MoE/SSM/cross-attention "
+        f"slice of the port; the port runs {list(PORTED_KINDS)} (the dense "
+        "family)")
+
+
+def _check_kind(kind: str) -> None:
+    if kind not in PORTED_KINDS:
+        raise _waits(kind)
+
+
+def block_structure(cfg):
+    """(sub-layer kinds per super-block, n_rep, has_shared)."""
+    f = cfg.family
+    if f == "dense":
+        return ["attn_ffn"], cfg.n_layers, False
+    if f == "moe":
+        il = cfg.moe.interleave
+        if il == 1:
+            return ["attn_moe"], cfg.n_layers, False
+        _check_divides(cfg.n_layers, il)
+        return ["attn_ffn"] * (il - 1) + ["attn_moe"], cfg.n_layers // il, \
+            False
+    if f == "ssm":
+        return ["mamba"], cfg.n_layers, False
+    if f == "hybrid":
+        k = cfg.attn_every
+        _check_divides(cfg.n_layers, k)
+        return ["mamba"] * k + ["shared_attn"], cfg.n_layers // k, True
+    if f == "vlm":
+        k = cfg.cross_attn_every
+        _check_divides(cfg.n_layers, k)
+        return ["attn_ffn"] * (k - 1) + ["attn_ffn_cross"], \
+            cfg.n_layers // k, False
+    if f == "encdec":
+        return ["dec_attn_cross_ffn"], cfg.n_layers, False
+    raise ValueError(f)
+
+
+def _check_divides(n_layers: int, k: int) -> None:
+    if n_layers % k:
+        raise ValueError(f"{n_layers} layers do not split into super-blocks "
+                         f"of {k}")
+
+
+def _sub_table(cfg, kind):
+    _check_kind(kind)
+    return {"ln1": pp.rmsnorm(cfg.d_model), "attn": attention_table(cfg),
+            "ln2": pp.rmsnorm(cfg.d_model), "ffn": ffn_table(cfg)}
+
+
+def superblock_table(cfg):
+    kinds, n_rep, _ = block_structure(cfg)
+    table = {f"l{i}": _sub_table(cfg, k) for i, k in enumerate(kinds)}
+    # only the hybrid family has a shared table, and its mamba kinds raise
+    # above
+    return table, kinds, n_rep, None
+
+
+def _rep(tree, r: int):
+    """Rep ``r`` of a stacked tree (every leaf indexed on its first axis)."""
+    if isinstance(tree, dict):
+        return {k: _rep(v, r) for k, v in tree.items()}
+    return tree[r]
+
+
+def _n_rep(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return int(tree.shape[0])
+
+
+def _stack(per_rep: list):
+    """The reps' trees stacked leaf by leaf on a new first axis."""
+    first = per_rep[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in per_rep]) for k in first}
+    return torch.stack(per_rep)
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _sub_forward(p, cfg, kind, h, *, sffn=None):
+    """One sub-layer, full sequence. Returns (h, aux_loss).
+
+    ``sffn`` is this sub-layer's spgemm-path FFN overlay: a shared-pattern
+    :class:`~repro_torch.models.sparse_ffn.SparseFFN` applied with the
+    rep's value stacks ``p["ffn"]`` in place of the dense SwiGLU.
+    """
+    _check_kind(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h = h + attention(p["attn"], cfg, rms_norm(p["ln1"], h, cfg.norm_eps))
+    hn = rms_norm(p["ln2"], h, cfg.norm_eps)
+    if sffn is not None:
+        h = h + sffn.apply(p["ffn"], hn)
+    else:
+        h = h + ffn(p["ffn"], hn)
+    return h, aux
+
+
+def stage_forward(stacked, cfg, kinds, h, *, sparse_ffn=None):
+    """Run the super-block over its reps. Returns (h, total_aux).
+
+    ``cfg.remat`` has no effect here: it is the reference's checkpoint
+    policy, which changes what a backward recomputes and never a value of
+    the forward pass.
+    """
+    sparse_ffn = sparse_ffn or {}
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for r in range(_n_rep(stacked)):
+        p_rep = _rep(stacked, r)
+        for i, kind in enumerate(kinds):
+            h, a = _sub_forward(p_rep.get(f"l{i}", {}), cfg, kind, h,
+                                sffn=sparse_ffn.get(f"l{i}"))
+            aux = aux + a
+    return h, aux
+
+
+# ---------------------------------------------------------------------------
+# decode (one token against caches)
+# ---------------------------------------------------------------------------
+
+
+def sub_cache_shape(cfg, kind, batch, cache_len, dtype=torch.bfloat16,
+                    device=None):
+    """Zero cache for one sub-layer, on ``device`` (default the card)."""
+    _check_kind(kind)
+    device = resolve_device(device)
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _sub_decode(p, cfg, kind, h, cache, cur_len, *, sffn=None,
+                sffn_host=False):
+    _check_kind(kind)
+    a, ck, cv = attention_decode(
+        p["attn"], cfg, rms_norm(p["ln1"], h, cfg.norm_eps),
+        cache["k"], cache["v"], cur_len)
+    h = h + a
+    cache = dict(cache, k=ck, v=cv)
+    hn = rms_norm(p["ln2"], h, cfg.norm_eps)
+    if sffn is not None:
+        # spgemm-path FFN overlay; sffn_host runs the host product stream
+        # on the host's copy of hn (the serving fallback)
+        y = (sffn.apply_host(p["ffn"], hn) if sffn_host
+             else sffn.apply(p["ffn"], hn))
+        h = h + torch.as_tensor(y, dtype=h.dtype, device=h.device)
+    else:
+        h = h + ffn(p["ffn"], hn)
+    return h, cache
+
+
+def _decode_reps(stacked, cfg, kinds, h, caches, cur_len, sparse_ffn,
+                 sffn_host):
+    sparse_ffn = sparse_ffn or {}
+    per_rep = []
+    for r in range(_n_rep(stacked)):
+        p_rep, c_rep = _rep(stacked, r), _rep(caches, r)
+        new_c = {}
+        for i, kind in enumerate(kinds):
+            h, new_c[f"l{i}"] = _sub_decode(
+                p_rep.get(f"l{i}", {}), cfg, kind, h,
+                c_rep[f"l{i}"], cur_len, sffn=sparse_ffn.get(f"l{i}"),
+                sffn_host=sffn_host)
+        per_rep.append(new_c)
+    return h, _stack(per_rep)
+
+
+def stage_decode(stacked, cfg, kinds, h, caches, cur_len, *,
+                 sparse_ffn=None):
+    """Decode over reps; caches stacked on the rep axis.  Overlay FFNs run
+    the plans' device stream."""
+    return _decode_reps(stacked, cfg, kinds, h, caches, cur_len,
+                        sparse_ffn, False)
+
+
+def stage_decode_loop(stacked, cfg, kinds, h, caches, cur_len, *,
+                      sparse_ffn=None, sparse_host=True):
+    """:func:`stage_decode` with overlay FFNs on the host product stream
+    (``sparse_host=True``): the serving fallback, which needs no device
+    plan.  The reference's eager spelling of its scan; here both are the
+    same loop."""
+    return _decode_reps(stacked, cfg, kinds, h, caches, cur_len,
+                        sparse_ffn, sparse_host)
+
+
+def stage_cache(cfg, kinds, n_rep, batch, cache_len, dtype=torch.bfloat16,
+                device=None):
+    one = {f"l{i}": sub_cache_shape(cfg, k, batch, cache_len, dtype, device)
+           for i, k in enumerate(kinds)}
+    return _stack([one] * n_rep)

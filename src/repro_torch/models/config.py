@@ -1,9 +1,5 @@
-"""Model configuration dataclasses, copied from the JAX package's
-``repro/models/config.py``.
-
-The input-shape half of that module (``ShapeConfig``, ``shapes_for``) waits
-for the slice that ports the model stack.
-"""
+"""Model + input-shape configuration dataclasses, copied from the JAX
+package's ``repro/models/config.py``."""
 
 from __future__ import annotations
 
@@ -91,6 +87,32 @@ class ModelConfig:
     @property
     def d_inner(self) -> int:
         return (self.ssm.expand if self.ssm else 2) * self.d_model
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shapes_for(cfg: ModelConfig):
+    """The assignment's applicability rules (DESIGN.md §4)."""
+    out = [TRAIN_4K, PREFILL_32K]
+    if cfg.has_decoder:
+        out.append(DECODE_32K)
+        if cfg.supports_long_context:
+            out.append(LONG_500K)
+    return tuple(out)
 
 
 def smoke(cfg: ModelConfig) -> ModelConfig:

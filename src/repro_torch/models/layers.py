@@ -1,8 +1,18 @@
-"""The layers of the model stack that the sparse FFN needs: ``dense``,
-``ffn_table`` and ``ffn`` (dense SwiGLU), as in the JAX package's
-``repro/models/layers.py``.  ``ffn`` on the pruned weights is the oracle of
-:mod:`repro_torch.models.sparse_ffn`, and its arithmetic is the dense
-path's.  The rest of that module waits for the model-stack slice.
+"""Model primitives: norm, rotary, chunked (flash-style) attention, FFN, loss.
+
+The port of the JAX package's ``repro/models/layers.py`` for the dense
+family.  All functions are pure; parameters come from ``params.py`` tables.
+Attention is two-level chunked with online softmax, so no ``[S, S]`` score
+tensor is ever materialised (the 32k prefill shapes need that), in plain
+PyTorch ops: these are the reference's plain-jnp computations outside any
+Pallas kernel.  ``scaled_dot_product_attention`` is not used, so the
+softmax runs in ``_chunked_attn``'s order, the reference's.
+
+Every product is full f32 (:func:`check_full_f32`); a bf16 operand (a bf16
+KV cache) is widened before its product, as the reference's
+``preferred_element_type=float32`` accumulates it.  Cross-attention against
+a cached memory (``cross_attention_cached``) waits for the VLM and
+encoder-decoder kinds.
 """
 
 from __future__ import annotations
@@ -11,12 +21,186 @@ import torch
 
 from repro_torch.models import params as pp
 
+NEG_INF = -1e30
+
+
+def check_full_f32(x: torch.Tensor) -> None:
+    """The model's products are full f32: TF32 would keep about three
+    decimal digits, so a caller that switched it on is refused (on the
+    card; the CPU has no TF32)."""
+    if x.is_cuda and torch.get_float32_matmul_precision() != "highest":
+        raise RuntimeError(
+            "the model computes its products in full f32, but float32 "
+            f"matmul precision is {torch.get_float32_matmul_precision()!r} "
+            "(TF32); set torch.set_float32_matmul_precision('highest')")
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` of the operands widened to f32, with an f32 result."""
+    check_full_f32(a)
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def rms_norm(p, x, eps=1e-5):
+    # variance in f32; the data path stays in x.dtype, as in the reference
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * p["scale"].to(x.dtype)
+
 
 def dense(p, x):
+    check_full_f32(x)
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope(x, positions, theta: float):
+    """x [..., S, H, D]; positions [..., S] (broadcastable)."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    ang = positions[..., None].float() * freq             # [..., S, half]
+    ang = ang[..., None, :]                               # head axis
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def attention_table(cfg):
+    """QKV + out projections; fused head dims."""
+    d, bias = cfg.d_model, cfg.qkv_bias
+    return {
+        "wq": pp.linear(d, cfg.qkv_fused_q, "embed", "heads", bias=bias),
+        "wk": pp.linear(d, cfg.qkv_fused_kv, "embed", "heads", bias=bias),
+        "wv": pp.linear(d, cfg.qkv_fused_kv, "embed", "heads", bias=bias),
+        "wo": pp.linear(cfg.qkv_fused_q, d, "heads", "embed"),
+    }
+
+
+def _chunked_attn(q, k, v, *, causal: bool, q_offset, q_chunk, kv_chunk):
+    """Online-softmax attention. q [B,Sq,Hkv,G,D], k/v [B,Skv,Hkv,D].
+
+    The reference's two levels (a map over query chunks, a scan over key
+    chunks) as two Python loops, every key chunk visited in order, so each
+    query row's running max, sum and accumulator see the same sequence of
+    updates."""
+    b, sq, hkv, g, dh = q.shape
+    skv = k.shape[1]
+    cq = min(q_chunk, sq)
+    ck = min(kv_chunk, skv)
+    if sq % cq:
+        cq = sq   # non-divisible: single chunk
+    if skv % ck:
+        ck = skv
+    nq, nk = sq // cq, skv // ck
+    scale = dh ** -0.5
+    dev = q.device
+
+    qs = q.reshape(b, nq, cq, hkv, g, dh)
+    ks = k.reshape(b, nk, ck, hkv, dh)
+    vs = v.reshape(b, nk, ck, hkv, dh)
+    outs = []
+    for iq in range(nq):
+        qb = qs[:, iq] * scale                             # [B,cq,Hkv,G,D]
+        q_pos = q_offset + iq * cq + torch.arange(cq, device=dev)
+        m = torch.full((b, hkv, g, cq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, hkv, g, cq), dtype=torch.float32, device=dev)
+        acc = torch.zeros((b, hkv, g, cq, dh), dtype=torch.float32,
+                          device=dev)
+        for ik in range(nk):
+            s = _einsum("bqhgd,bkhd->bhgqk", qb, ks[:, ik])
+            if causal:
+                k_pos = ik * ck + torch.arange(ck, device=dev)
+                mask = q_pos[:, None] >= k_pos[None, :]
+                s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            vb = vs[:, ik]
+            acc = acc * alpha[..., None] + _einsum(
+                "bhgqk,bkhd->bhgqd", p.to(vb.dtype), vb)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))            # [B,cq,Hkv,G,D]
+    return torch.stack(outs, dim=1).reshape(b, sq, hkv, g, dh)
+
+
+def attention(p, cfg, x):
+    """Causal self-attention over full sequences (train/prefill), rotary
+    positions 0..S-1."""
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = hq // hkv
+    q = dense(p["wq"], x).reshape(b, s, hkv, g, dh)
+    k = dense(p["wk"], x).reshape(b, s, hkv, dh)
+    v = dense(p["wv"], x).reshape(b, s, hkv, dh)
+    positions = torch.arange(s, device=x.device)[None, :]
+    q = rope(q.reshape(b, s, hkv * g, dh), positions,
+             cfg.rope_theta).reshape(b, s, hkv, g, dh)
+    k = rope(k, positions, cfg.rope_theta)
+    out = _chunked_attn(q, k, v, causal=True, q_offset=0,
+                        q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
+    return dense(p["wo"], out.reshape(b, s, hq * dh).to(x.dtype))
+
+
+def attention_decode(p, cfg, x, cache_k, cache_v, cur_len):
+    """One-token decode against a KV cache.
+
+    x [B,1,D]; cache_k/v [B,S,Hkv,Dh]; cur_len: an int or a ``[B]`` tensor
+    of per-slot counts of tokens already cached (continuous batching).  The
+    new K/V is written at each slot's ``cur_len`` by ``torch.where`` on a
+    slot mask, and the scores are masked past it: no index depends on the
+    data and nothing waits for the host.  Returns (out [B,1,D], new_k,
+    new_v).
+    """
+    b = x.shape[0]
+    s_max = cache_k.shape[1]
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = hq // hkv
+    cur = torch.broadcast_to(
+        torch.as_tensor(cur_len, dtype=torch.int32, device=x.device), (b,))
+    q = dense(p["wq"], x).reshape(b, 1, hkv, g, dh)
+    k = dense(p["wk"], x).reshape(b, 1, hkv, dh)
+    v = dense(p["wv"], x).reshape(b, 1, hkv, dh)
+    pos = cur[:, None]
+    q = rope(q.reshape(b, 1, hkv * g, dh), pos,
+             cfg.rope_theta).reshape(b, 1, hkv, g, dh)
+    k = rope(k, pos, cfg.rope_theta)
+    # per-slot write of the new KV at position cur_len[b]
+    steps = torch.arange(s_max, device=x.device)[None, :]
+    slot = (steps == cur[:, None])[..., None, None]
+    cache_k = torch.where(slot, k.to(cache_k.dtype), cache_k)
+    cache_v = torch.where(slot, v.to(cache_v.dtype), cache_v)
+    s = _einsum("bqhgd,bkhd->bhgqk", q * dh ** -0.5,
+                cache_k.to(q.dtype))
+    mask = (steps <= cur[:, None])[:, None, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = _einsum("bhgqk,bkhd->bqhgd", w.to(cache_v.dtype), cache_v)
+    out = out.reshape(b, 1, hq * dh).to(x.dtype)
+    return dense(p["wo"], out), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
 
 
 def ffn_table(cfg, d_ff=None):
@@ -31,3 +215,56 @@ def ffn_table(cfg, d_ff=None):
 def ffn(p, x):
     return dense(p["down"], torch.nn.functional.silu(dense(p["gate"], x))
                  * dense(p["up"], x))
+
+
+# ---------------------------------------------------------------------------
+# embedding + chunked LM loss
+# ---------------------------------------------------------------------------
+
+
+def embed_table(cfg):
+    return {"embedding": pp.Leaf((cfg.vocab_padded, cfg.d_model),
+                                 ("vocab", "embed"), "normal:0.02")}
+
+
+def embed(p, tokens):
+    return p["embedding"][tokens]
+
+
+def unembed_table(cfg):
+    return pp.linear(cfg.d_model, cfg.vocab_padded, "embed", "vocab")
+
+
+def lm_loss(p_unembed, cfg, h, labels):
+    """Mean next-token cross-entropy; seq-chunked so [B,S,Vpad] never exists.
+
+    h [B,S,D] (already final-normed); labels [B,S] int (-1 = ignore).
+    """
+    b, s, _ = h.shape
+    c = min(cfg.logits_chunk, s)
+    if s % c:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"logits chunk {c}")
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, s, c):
+        logits = lm_logits(p_unembed, cfg, h[:, i:i + c])
+        lc = labels[:, i:i + c].long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+        valid = (lc >= 0).float()
+        tot = tot + ((lse - gold) * valid).sum()
+        cnt = cnt + valid.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_logits(p_unembed, cfg, h):
+    """f32 logits of ``h``, the padded vocabulary masked to ``NEG_INF``
+    (serve path; callers keep S tiny, and ``lm_loss`` calls it a chunk at a
+    time)."""
+    check_full_f32(h)
+    logits = (h @ p_unembed["w"].to(h.dtype)).float()
+    if cfg.vocab_padded > cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab
+        logits = torch.where(pad, NEG_INF, logits)
+    return logits

@@ -5,10 +5,13 @@ A *table* is a nested dict whose leaves are ``Leaf(shape, axes, init)``:
   axes  : tuple of logical axis names (len == len(shape)); None = replicated
   init  : "normal:<std>" | "zeros" | "ones" | "fan_in"
 
-The port of the JAX package's ``repro/models/params.py`` as far as one FFN
-needs it: :func:`init_params` draws every leaf from one explicit
-``torch.Generator``.  The sharding half (``partition_specs``,
-``stack_tables``) and the SSM inits wait for the slices that use them.
+The port of the JAX package's ``repro/models/params.py`` as far as the
+dense model stack needs it: :func:`init_params` draws every leaf from one
+explicit ``torch.Generator``; :func:`stack_tables` prepends the reps' axis
+that ``models.blocks`` loops over.  ``abstract_params`` and
+``partition_specs`` wait for the mesh and the dry run, the only callers of
+a table's shapes and shardings without its values; the SSM inits wait for
+the SSM slice.
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ def _init_leaf(leaf: Leaf, generator, device):
     if kind.startswith("normal:"):
         std = float(kind.split(":")[1])
     elif kind == "fan_in":
+        # the reference's rule: the first axis, which on a stacked leaf is
+        # the reps' axis (std 1 / sqrt(n_rep)), kept as it is
         std = 1.0 / math.sqrt(max(shape[0], 1))
     else:
         raise ValueError(kind)
@@ -72,3 +77,14 @@ def linear(d_in, d_out, ax_in, ax_out, *, bias=False, init="fan_in"):
     if bias:
         t["b"] = Leaf((d_out,), (ax_out,), "zeros")
     return t
+
+
+def stack_tables(table, n: int):
+    """Prepend a scan ('layers') axis of length n to every leaf."""
+    if isinstance(table, Leaf):
+        return Leaf((n,) + table.shape, ("layers",) + table.axes, table.init)
+    return {k: stack_tables(v, n) for k, v in table.items()}
+
+
+def rmsnorm(d, ax="embed"):
+    return {"scale": Leaf((d,), (ax,), "ones")}

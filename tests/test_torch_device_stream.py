@@ -414,8 +414,14 @@ def test_device_stream_bytes_reported_separately():
     assert info["fused_stream_bytes"] == 0
     # the torch plan keeps the host stream it was lifted from
     assert plan.stream_nbytes > 0
-    # the gradient replays are held from the first execute on
+    # the gradient replays are built by the first backward, and counted
+    assert ds.grad_a is None and ds.grad_b is None
+    x = torch.ones(a.nnz, requires_grad=True)
+    plan.stream_apply(x, x).sum().backward()
+    ds = device_stream(plan)
     assert ds.grad_a is not None and ds.grad_b is not None
+    assert plan_cache_info()["device_stream_bytes"] == ds.nbytes \
+        > info["device_stream_bytes"]
     plan_cache_clear()
 
 

@@ -12,7 +12,10 @@ batched == looped on real ones, with no host wait; and the gradient of
 path (``method="auto"``): the card's merge of row blocks against the host's
 numpy merge of the same children, bit-stable, batched == looped, its host
 waits; and the machine profile's calibration on the card (its fingerprint
-names the card, its ``fused`` ladder launches K1).  Every test needs a card
+names the card, its ``fused`` ladder launches K1); and the dense model stack
+with its FFNs on the SpGEMM stream: a smoke-size sparse ``decode_step`` on
+the card against the dense oracle, with no host wait after its first step,
+and K1 against the torch stream on one FFN plan.  Every test needs a card
 (marker ``gpu``) and skips without one.
 
 The module pins ``REPRO_PROFILE_DIR`` to a path nothing writes before any
@@ -1250,3 +1253,97 @@ def test_calibrated_profile_ranks_auto_on_card(cuda, own_profile_dir):
         assert dict(plan.params)["profile"] == prof.tag
         c = spgemm(a, a, method="auto", backend=backend)
         np.testing.assert_array_equal(csc_to_dense_f64(c), d @ d)
+
+
+# -- the dense model stack with its FFNs on the SpGEMM stream ------------------
+
+
+@pytest.fixture
+def smoke_model(cuda):
+    """smoke(granite-20b) on the card, its FFNs on the spgemm path (keep
+    0.5), and the dense oracle on the pruned weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import plan_cache_clear
+    from repro_torch.models import densify_ffn_params, init_model, smoke, \
+        sparsify_ffn_params
+
+    plan_cache_clear()
+    cfg = smoke(get_config("granite-20b"))
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0))
+    sparse, overlay = sparsify_ffn_params(cfg, params, keep_density=0.5)
+    yield cfg, sparse, overlay, densify_ffn_params(cfg, sparse, overlay)
+    plan_cache_clear()
+
+
+def _decode_inputs(cfg, cuda):
+    from repro_torch.models import init_cache
+
+    cache = init_cache(cfg, 3, 16, dtype=torch.float32)
+    token = torch.tensor([[3], [5], [7]], device=cuda)
+    cur = torch.tensor([0, 2, 5], dtype=torch.int32, device=cuda)
+    return token, cache, cur
+
+
+def test_sparse_decode_on_card_matches_dense_oracle(smoke_model, cuda):
+    """decode_step with the overlay (the torch stream on the card) against
+    decode_step on the densified weights (cuBLAS), and against the host
+    stream's decode_step_loop; no kernel of ours runs."""
+    from repro_torch.models import decode_step, decode_step_loop
+
+    cfg, sparse, overlay, dense = smoke_model
+    token, cache, cur = _decode_inputs(cfg, cuda)
+    kernels.reset_launch_counts()
+    got, _ = decode_step(sparse, cfg, token, cache, cur, sparse_ffn=overlay)
+    assert set(kernels.launch_counts().values()) == {0}
+    want, _ = decode_step(dense, cfg, token, cache, cur)
+    loop, _ = decode_step_loop(sparse, cfg, token, cache, cur,
+                               sparse_ffn=overlay, sparse_host=True)
+    assert got.is_cuda and got.shape == (3, 1, cfg.vocab_padded)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(loop.cpu().numpy(), got.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_sparse_decode_step_never_waits_for_the_card(smoke_model, cuda):
+    """After the first step has built the plans, a sparse decode step on
+    operands already on the card makes no host sync."""
+    from repro_torch.models import decode_step
+
+    cfg, sparse, overlay, _ = smoke_model
+    token, cache, cur = _decode_inputs(cfg, cuda)
+    _, cache = decode_step(sparse, cfg, token, cache, cur, sparse_ffn=overlay)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        logits, _ = decode_step(sparse, cfg, token, cache, cur + 1,
+                                sparse_ffn=overlay)
+        logits.argmax(-1)
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not syncs, [str(w.message) for w in syncs]
+
+
+def test_fused_engine_equals_torch_stream_on_an_ffn_plan(smoke_model, cuda):
+    """K1 (``stream_apply(..., engine="fused")``) against the torch stream
+    on an overlay matrix's one-token plan: bit for bit on integer values,
+    within 1e-5 normwise on real ones (C5); K1 launches."""
+    cfg, _, overlay, _ = smoke_model
+    m = overlay["l0"].down
+    plan = m._spgemm_plan(1)[0]
+    assert plan.device.type == "cuda"
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    w_int = torch.randint(-2, 3, (m.w_csc.nnz,), generator=gen,
+                          device=cuda).float()
+    x_int = torch.randint(-2, 3, (m.shape[1],), generator=gen,
+                          device=cuda).float()
+    kernels.reset_launch_counts()
+    assert torch.equal(plan.stream_apply(w_int, x_int, engine="fused"),
+                       plan.stream_apply(w_int, x_int))
+    assert kernels.launch_counts()["fused_stream"] == 1
+    x = torch.randn((m.shape[1],), generator=gen, device=cuda)
+    k1 = plan.stream_apply(m.w_values, x, engine="fused").double()
+    ts = plan.stream_apply(m.w_values, x).double()
+    assert float((k1 - ts).norm() / ts.norm()) <= 1e-5

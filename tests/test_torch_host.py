@@ -275,3 +275,18 @@ def test_batched_host_matches_reference_and_loop(method, engine):
         assert_bit_identical(again[k], want[k])
         assert_bit_identical(plan.execute(sa[k], sa[k], engine=engine),
                              want[k])
+
+
+@pytest.mark.parametrize("m,n", [(1 << 16, 3), (3, 1 << 16), (70000, 4),
+                                 (4, 70000), (1, 1)])
+def test_slot_order_is_lexsort(m, n):
+    """The product stream's sort to C slots: two radix passes where rows
+    and columns fit 16 bits, ``np.lexsort`` past them; the same stable
+    permutation either way, on sorted and unsorted columns."""
+    from repro_torch.core.fast import slot_order
+
+    rng = np.random.default_rng(m + n)
+    rows = rng.integers(0, m, 5000).astype(np.int64)
+    for cols in (np.sort(rng.integers(0, n, 5000)), rng.integers(0, n, 5000)):
+        np.testing.assert_array_equal(slot_order(rows, cols, m, n),
+                                      np.lexsort((rows, cols)))
