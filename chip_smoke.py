@@ -197,6 +197,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    byte bound.  The sparse and dense decode-step times (median of
    ``--reps``), the sparse step's device time and idle share
    (``torch.profiler``), and the phase's seconds beside the card line.
+14. The MoE family: qwen3-moe-30b-a3b at full width (d_model 2048, 32
+   heads, 4 KV heads, d_head 128, 128 experts, top-8, d_ff_expert 768, vocab
+   151936) with n_layers cut from 48 to 2, f32 weights from ``--seed``
+   through ``init_model`` (7.5 GB); phase 13's model freed first.
+   ``moe_ffn`` on layer 0's params at [4, 1] (no drop) and on a [1, 4096]
+   prefill (32 groups of 128 tokens, cap 16: pairs drop) against an f64
+   oracle on the card (the same top-k, the capacity rule recomputed on the
+   host, each kept pair's expert FFN) within 1e-5 normwise, two runs bit
+   for bit.  Serving at capacity factor 16 (no drop): 4 slots, slot b
+   starting b ticks late, 16 teacher-forced steps each from an f32 cache, 0
+   host syncs a warm step; on the weights as ``init_model`` draws them the
+   error against ``prefill`` is printed by position, and on the same weights
+   rescaled to std 1/sqrt(d_in) (``well_scaled``: the reference's
+   ``fan_in`` rule gives stacked leaves std 1/sqrt(n_rep), which saturates
+   the attention softmax at full width) every live slot's logits lie within
+   1e-4 normwise of prefill's.  ``moe_dispatch_spgemm`` on layer 0's router
+   top-8 for a [1, 256] prompt's embeddings (X [256, 2048], R [256, 128],
+   4.2M products), with the counts set to 0 just before: K2 must launch,
+   the result within 1e-5 of the f64 R^T X and exact on integer values,
+   its plan and execute times.  The decode step at B = 4, its device time,
+   idle share and byte floor, the [1, 4096] prefill and ``moe_ffn``'s share
+   of it.  (``llama4-maverick-400b-a17b`` does not fit one card: 64 GB of
+   f32 experts a MoE layer.)
+15. The SSM and hybrid families: falcon-mamba-7b at full width (d_model
+   4096, d_inner 8192, d_state 16, dt_rank 256, chunk 64) with n_layers cut
+   from 64 to 2, then zamba2-2.7b (d_model 2560, Mamba2 of 80 heads of 64,
+   d_state 64, chunk 32; the shared block 32 heads of d_head 80, d_ff
+   10240) cut from 54 to 6 layers, one super-block.  Each: a [2, 128]
+   prefill (2 or 4 scan chunks) and 128 teacher-forced decode steps from an
+   empty f32 state and cache, printed against the prefill on the weights as
+   drawn and held within 1e-4 normwise on the well-scaled ones; 0 host
+   syncs a warm step; prefill and a decode step bit-stable; the chunked
+   scan on layer 0's real (a, u) within 1e-5 normwise of a sequential f64
+   recurrence on the card; decode-step and prefill times, device time and
+   idle share, the phase's seconds beside the card line.
 
 The last two lines are the kernels' JSON and the card line; the very last is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -3543,6 +3578,517 @@ def model_timing(data, served, dev, reps):
     return out
 
 
+# -- 14. the MoE family: qwen3-moe-30b-a3b at full width --------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_LAYERS = 2          # 48 in the config: n_rep 2
+MOE_TOL = 1e-5          # normwise, moe_ffn against its f64 oracle
+MOE_DECODE = (4, 1)     # moe_ffn's decode-size input [4, 1, D]: no drop
+MOE_PREFILL = 4096      # a [1, 4096] prefill: 32 groups of 128, cap 16
+MOE_SERVE_CF = 16.0     # the reference's decode-test capacity factor
+MOE_SERVE_SLOTS, MOE_SERVE_STEPS = 4, 16
+MOE_DISPATCH_TOKENS = 256
+SERVE_TOL = 1e-4        # normwise, decode against prefill at a position
+
+
+def moe_setup(dev, seed):
+    """qwen3-moe-30b-a3b at full width (128 experts, top-8, d_ff_expert
+    768), cut to ``MOE_LAYERS`` layers, f32 weights from ``seed`` through
+    ``init_model`` on the card."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_model(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * 4 for t in tree_leaves(params))
+    m = cfg.moe
+    print(f"moe model: {MOE_ARCH} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, d_head "
+          f"{cfg.d_head}, {m.n_experts} experts, top-{m.top_k}, d_ff_expert "
+          f"{m.d_ff_expert}, vocab {cfg.vocab}), {cfg.n_layers} layers; "
+          f"init {time.perf_counter() - t0:.2f} s; {n_bytes / 1e9:.3f} GB "
+          "of f32 weights", flush=True)
+    return dict(cfg=cfg, params=params, gen=gen, n_bytes=n_bytes)
+
+
+def moe_oracle(p, cfg, x):
+    """moe_ffn in f64 on the card, pair by pair: the port's own top-k and
+    gates (f32 routing), the keep mask by the reference's capacity rule
+    recomputed on the host (per group, each expert keeps its first ``cap``
+    pairs in token order), and each expert's FFN on its kept tokens.
+    Returns (y [T, D] f64, number of dropped pairs)."""
+    import torch
+    from repro_torch.models import moe
+
+    m = cfg.moe
+    d = x.shape[-1]
+    xf = x.reshape(-1, d)
+    t = xf.shape[0]
+    gates, idx = moe._top_k(moe._route(p["moe"], xf), m.top_k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    g = moe._n_groups(t)
+    cap = moe._capacity(t // g, cfg)
+    e_h = idx.cpu().numpy()
+    keep = np.zeros(e_h.shape, bool)
+    for grp in range(g):
+        lo, hi = grp * (t // g), (grp + 1) * (t // g)
+        seen = np.zeros(m.n_experts, np.int64)
+        for tok in range(lo, hi):
+            for j in range(m.top_k):
+                e = e_h[tok, j]
+                keep[tok, j] = seen[e] < cap
+                seen[e] += 1
+    x64 = xf.double()
+    y = torch.zeros_like(x64)
+    w = gates.double() * torch.from_numpy(keep).to(x.device)
+    for e in range(m.n_experts):
+        toks, js = np.nonzero((e_h == e) & keep)
+        if not len(toks):
+            continue
+        toks_d = torch.from_numpy(toks).to(x.device)
+        xe = x64[toks_d]
+        h = xe @ p["moe"]["gate"][e].double()
+        u = xe @ p["moe"]["up"][e].double()
+        ye = (torch.nn.functional.silu(h) * u) @ p["moe"]["down"][e].double()
+        y.index_add_(0, toks_d, ye * w[toks_d, torch.from_numpy(js).to(
+            x.device)][:, None])
+    return y, int((~keep).sum())
+
+
+def moe_ffn_phase(data, dev):
+    """``moe_ffn`` on layer 0's params at the decode size and on a
+    [1, 4096] prefill (32 groups, cap 16: pairs drop) against its f64
+    oracle within ``MOE_TOL`` normwise; two runs equal bit for bit."""
+    import torch
+    from repro_torch.models import moe_ffn
+    from repro_torch.models.blocks import _rep
+
+    cfg, gen = data["cfg"], data["gen"]
+    p = {"moe": _rep(data["params"]["blocks"]["l0"]["moe"], 0)}
+    out = {}
+    for label, shape in (("decode", MOE_DECODE), ("prefill",
+                                                  (1, MOE_PREFILL))):
+        x = torch.randn(shape + (cfg.d_model,), generator=gen, device=dev)
+        t0 = time.perf_counter()
+        got = moe_ffn(p["moe"], cfg, x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        again = moe_ffn(p["moe"], cfg, x)
+        t0 = time.perf_counter()
+        want, drops = moe_oracle(p, cfg, x)
+        oracle_s = time.perf_counter() - t0
+        err = rel_err(got.reshape(-1, cfg.d_model), want)
+        out[label] = dict(tokens=int(np.prod(shape)), dropped_pairs=drops,
+                          normwise_err=err, bit_stable=torch.equal(got,
+                                                                   again),
+                          first_call_ms=ms, oracle_s=oracle_s)
+        check(bool(torch.isfinite(got).all()), f"moe_ffn {label}: output")
+        check(err <= MOE_TOL, f"moe_ffn {label}: {err:.3g} normwise off the "
+              f"f64 oracle (limit {MOE_TOL})")
+        check(torch.equal(got, again), f"moe_ffn {label}: two runs differ")
+    check(out["decode"]["dropped_pairs"] == 0
+          and out["prefill"]["dropped_pairs"] > 0,
+          f"moe_ffn: drops {out}")
+    print(f"moe_ffn vs f64 oracle (layer 0): {json.dumps(out)}", flush=True)
+    return out
+
+
+def well_scaled(cfg, params):
+    """``params`` with every stacked ``fan_in`` leaf rescaled to std
+    1/sqrt(d_in), its input width, where ``init_model`` (the reference's
+    rule) draws it with std 1/sqrt(n_rep) (0.71 at n_rep 2): at full width
+    those weights put attention scores near 1e3, so the softmax is an
+    argmax whose last-place rounding moves a logit, and two correct
+    summation orders (decode and prefill) then differ by far more than
+    their arithmetic does.  The other leaves are shared, not copied."""
+    from repro_torch.models import model_tables
+    from repro_torch.models.params import Leaf
+
+    def walk(t, p):
+        if isinstance(t, Leaf):
+            if t.init == "fan_in" and t.axes[0] == "layers" \
+                    and len(t.shape) >= 3:
+                return p * (t.shape[0] / t.shape[-2]) ** 0.5
+            return p
+        return {k: walk(t[k], p[k]) for k in p}
+
+    return walk(model_tables(cfg), params)
+
+
+def moe_serve_walk(params, cfg, tok, dev):
+    """Teacher-forced decode of ``tok`` [B, S] at slots starting b ticks
+    late, from an f32 cache, against ``prefill``'s logits: the normwise
+    error per (slot, position), the host syncs of every warm step, the
+    greedy tokens, and the last step's cache and inputs."""
+    import torch
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models.layers import lm_logits
+
+    b, s = tok.shape
+    full = lm_logits(params["unembed"], cfg, prefill(params, cfg, tok))[
+        ..., :cfg.vocab]
+    cache = init_cache(cfg, b, s, dtype=torch.float32, device=dev)
+    start = torch.arange(b, device=dev)
+    slots = torch.arange(b, device=dev)
+    errs = np.zeros((b, s))
+    syncs, greedy = [], [[] for _ in range(b)]
+    for t in range(s + b - 1):
+        cur = (t - start).clamp(min=0, max=s - 1)
+        token = tok[slots, cur][:, None]
+        res = []
+        n = host_syncs(lambda: res.append(decode_step(
+            params, cfg, token, cache, cur.to(torch.int32))))
+        if t:
+            syncs.append(n)
+        logits, cache = res[0]
+        nxt = logits[:, 0, :cfg.vocab].argmax(-1).cpu().tolist()
+        for i in range(b):
+            if 0 <= t - i < s:
+                errs[i, t - i] = rel_err(logits[i, 0, :cfg.vocab],
+                                         full[i, t - i].double())
+                greedy[i].append(nxt[i])
+    return dict(errs=errs, syncs=syncs, greedy=greedy, cache=cache,
+                token=token, cur=cur)
+
+
+def moe_serve(data, dev, seed):
+    """Serve at capacity factor 16 (no pair drops, so decode can equal
+    prefill): ``MOE_SERVE_SLOTS`` slots, slot b starting b ticks late
+    (per-slot ``cur_len``), ``MOE_SERVE_STEPS`` teacher-forced steps each
+    from an f32 cache, 0 host syncs per warm step.  On the weights as
+    ``init_model`` draws them the error against ``prefill`` is printed by
+    position; on the same weights :func:`well_scaled` every live slot's
+    logits must lie within ``SERVE_TOL`` normwise of ``prefill``'s at that
+    position.  The greedy tokens are printed."""
+    import dataclasses
+
+    import torch
+
+    cfg = dataclasses.replace(data["cfg"], moe=dataclasses.replace(
+        data["cfg"].moe, capacity_factor=MOE_SERVE_CF))
+    gen = torch.Generator().manual_seed(seed + 2)
+    tok = torch.randint(0, cfg.vocab, (MOE_SERVE_SLOTS, MOE_SERVE_STEPS),
+                        generator=gen).to(dev)
+    t0 = time.perf_counter()
+    drawn = moe_serve_walk(data["params"], cfg, tok, dev)
+    scaled_params = well_scaled(cfg, data["params"])
+    scaled = moe_serve_walk(scaled_params, cfg, tok, dev)
+    walk_s = time.perf_counter() - t0
+    syncs = drawn["syncs"] + scaled["syncs"]
+    err, err_drawn = scaled["errs"].max(), drawn["errs"].max()
+    print(f"moe serve: {MOE_SERVE_SLOTS} slots, slot b starting b ticks "
+          f"late, {MOE_SERVE_STEPS} teacher-forced steps each (capacity "
+          f"factor {MOE_SERVE_CF}), twice in {walk_s:.1f} s; normwise error "
+          f"of the logits against prefill's: well-scaled weights max "
+          f"{err:.3g}, weights as drawn max {err_drawn:.3g}; host syncs per "
+          f"warm step {sorted(set(syncs))}", flush=True)
+    print(f"moe serve: error by position, as drawn (max over slots) "
+          f"{json.dumps([float(f'{e:.3g}') for e in drawn['errs'].max(0)])}"
+          f"; well-scaled {json.dumps([float(f'{e:.3g}') for e in scaled['errs'].max(0)])}",
+          flush=True)
+    print(f"moe serve: greedy tokens (well-scaled) "
+          f"{json.dumps(scaled['greedy'])}", flush=True)
+    check(err <= SERVE_TOL, f"moe serve: decode off prefill by {err:.3g} "
+          f"normwise on well-scaled weights (limit {SERVE_TOL})")
+    check(syncs and set(syncs) == {0}, f"moe serve: host syncs per warm "
+          f"decode step {sorted(set(syncs))}, expected 0")
+    return dict(cfg=cfg, cache=scaled["cache"], token=scaled["token"],
+                cur=scaled["cur"], max_err=err, max_err_drawn=err_drawn,
+                syncs=syncs)
+
+
+def moe_dispatch_phase(data, dev, seed):
+    """``moe_dispatch_spgemm`` on layer 0's router top-8 for a
+    [1, ``MOE_DISPATCH_TOKENS``] prompt's embeddings, with the counts set
+    to 0 just before: K2 must launch; the [E, D] result within ``MOE_TOL``
+    normwise of the f64 R^T X, and exact on integer x in {-2..2} and gates
+    in {1, 2, 3}; the plan's and the execute's times."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import plan_cache_clear, plan_spgemm
+    from repro_torch.models import moe, moe_dispatch_spgemm
+    from repro_torch.models.blocks import _rep
+    from repro_torch.sparse.format import csc_to_dense
+
+    cfg, params = data["cfg"], data["params"]
+    m = cfg.moe
+    gen = torch.Generator().manual_seed(seed + 3)
+    prompt = torch.randint(0, cfg.vocab, (MOE_DISPATCH_TOKENS,),
+                           generator=gen).to(dev)
+    x = params["embed"]["embedding"][prompt]
+    layer0 = _rep(params["blocks"]["l0"]["moe"], 0)
+    gates, idx = moe._top_k(moe._route(layer0, x), m.top_k)
+    r = torch.zeros((x.shape[0], m.n_experts), dtype=torch.float64,
+                    device=dev).scatter_(1, idx, gates.double())
+    plan_cache_clear()
+    kernels.reset_launch_counts()
+    got = moe_dispatch_spgemm(x, idx, gates, m.n_experts)
+    counts = kernels.launch_counts()
+    err = rel_err(got, r.T @ x.double())
+    xi = int_values(tuple(x.shape), torch.Generator(device=dev).manual_seed(
+        seed + 4), dev)
+    gi = torch.randint(1, 4, tuple(gates.shape), generator=gen).float().to(
+        dev)
+    ri = torch.zeros_like(r).scatter_(1, idx, gi.double())
+    exact = torch.equal(moe_dispatch_spgemm(xi, idx, gi, m.n_experts)
+                        .double(), ri.T @ xi.double())
+    xt, rc, _ = moe.dispatch_operands(x, idx, gates, m.n_experts)
+    t0 = time.perf_counter()
+    plan = plan_spgemm(xt, rc, device=dev)
+    torch.cuda.synchronize()
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    exec_ms = statistics.median(execute_ms(lambda: plan.execute(xt, rc), 10))
+    again = csc_to_dense(plan.execute(xt, rc)).T
+    launched = {k: v for k, v in counts.items() if v}
+    out = dict(x=list(x.shape), r=[x.shape[0], m.n_experts],
+               r_entries=int(idx.numel()), products=int(idx.numel())
+               * cfg.d_model, normwise_err=err, integer_exact=exact,
+               launches=launched, plan_ms=plan_ms, execute_ms=exec_ms,
+               groups={k: int(v) for k, v in plan_kinds(plan).items()},
+               bit_stable=torch.equal(again, got))
+    print(f"moe dispatch as SpGEMM: {json.dumps(out)}", flush=True)
+    check(counts["spa_spgemm"] > 0, f"moe dispatch: K2 did not launch "
+          f"{counts}")
+    check(err <= MOE_TOL, f"moe dispatch: {err:.3g} normwise off f64 "
+          f"(limit {MOE_TOL})")
+    check(exact, "moe dispatch: not exact on integer values")
+    check(torch.equal(again, got), "moe dispatch: two runs differ")
+    return out
+
+
+def plan_kinds(plan) -> dict:
+    """How many groups of each kind a cuda plan holds."""
+    kinds = {}
+    for g in plan.layout.groups if plan.layout else ():
+        kinds[g.kind] = kinds.get(g.kind, 0) + 1
+    return kinds
+
+
+def moe_timing(data, served, dev, reps):
+    """The decode step at B = 4 (host clock ending in a synchronize,
+    median of ``reps``), its device time and idle share
+    (``torch.profiler``), beside its byte floor (every weight read once:
+    the capacity dispatch computes all E x cap slots, so every expert is
+    read); the [1, 4096] prefill and ``moe_ffn``'s share of it."""
+    import torch
+    from repro_torch.models import decode_step, moe_ffn, prefill
+    from repro_torch.models.blocks import _rep
+
+    cfg, params = served["cfg"], data["params"]
+
+    def step():
+        return decode_step(params, cfg, served["token"], served["cache"],
+                           served["cur"].to(torch.int32))
+
+    step_ms = statistics.median(execute_ms(step, reps))
+    prof = device_profile(step, n=3)
+    device_ms = sum(prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
+    floor = (data["n_bytes"] - params["embed"]["embedding"].numel() * 4) \
+        / PEAK_BYTES_PER_S * 1e3
+    gen = torch.Generator().manual_seed(5)
+    tok = torch.randint(0, cfg.vocab, (1, MOE_PREFILL), generator=gen).to(dev)
+    base = data["cfg"]
+    prefill_ms = statistics.median(execute_ms(
+        lambda: prefill(params, base, tok), 3))
+    x = torch.randn((1, MOE_PREFILL, cfg.d_model), device=dev)
+    p0 = _rep(params["blocks"]["l0"]["moe"], 0)
+    moe_ms = statistics.median(execute_ms(lambda: moe_ffn(p0, base, x), 3))
+    out = dict(decode_step_ms=step_ms, decode_device_ms=device_ms,
+               decode_idle=idle_share(device_ms, step_ms),
+               decode_byte_floor_ms=floor,
+               top_device_ops={k: round(v, 4) for k, v in top},
+               prefill_4096_ms=prefill_ms, moe_ffn_4096_ms=moe_ms,
+               moe_share_of_prefill=MOE_LAYERS * moe_ms / prefill_ms)
+    print(f"moe timing: {json.dumps(out)}", flush=True)
+    return out
+
+
+# -- 15. the SSM and hybrid families: falcon-mamba-7b and zamba2-2.7b -------
+
+SSM_MODELS = {"falcon-mamba-7b": 2,   # 64 layers in the config
+              "zamba2-2.7b": 6}       # 54: one super-block (6 mamba + shared)
+SSM_B, SSM_S = 2, 128
+SCAN_TOL = 1e-5         # normwise, the chunked scan against f64 sequential
+
+
+def ssm_setup(arch, dev, seed):
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=SSM_MODELS[arch])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_model(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * 4 for t in tree_leaves(params))
+    s = cfg.ssm
+    print(f"ssm model: {arch} at full width (d_model {cfg.d_model}, "
+          f"d_inner {cfg.d_inner}, d_state {s.d_state}, Mamba{s.version}"
+          + (f", dt_rank {cfg.dt_rank_actual}" if s.version == 1 else
+             f", {cfg.d_inner // s.head_dim} heads of {s.head_dim}; shared "
+             f"block {cfg.n_heads} heads of d_head {cfg.d_head}, d_ff "
+             f"{cfg.d_ff}") + f", chunk {s.chunk}, vocab {cfg.vocab}), "
+          f"{cfg.n_layers} layers; init {time.perf_counter() - t0:.2f} s; "
+          f"{n_bytes / 1e9:.3f} GB of f32 weights", flush=True)
+    return dict(cfg=cfg, params=params, arch=arch, n_bytes=n_bytes)
+
+
+def ssm_scan_check(data, tok):
+    """The port's chunked scan on layer 0's real (a, u) of the prefill
+    (captured at ``_scan_chunks``) against a sequential f64 recurrence on
+    the card."""
+    import torch
+    from repro_torch.models import ssm
+    from repro_torch.models.blocks import _rep
+    from repro_torch.models.layers import embed, rms_norm
+
+    cfg, params = data["cfg"], data["params"]
+    p0 = _rep(params["blocks"]["l0"], 0)
+    x = rms_norm(p0["ln"], embed(params["embed"], tok), cfg.norm_eps)
+    chunks = []
+    real = ssm._scan_chunks
+
+    def spy(a, u, h0):
+        chunks.append((a.contiguous(), u.contiguous()))
+        return real(a, u, h0)
+
+    ssm._scan_chunks = spy       # a failure ends the run: no restore needed
+    ssm.mamba_forward(p0["mamba"], cfg, x)
+    ssm._scan_chunks = real
+    a = torch.cat([c[0] for c in chunks], dim=1)
+    u = torch.cat([c[1] for c in chunks], dim=1)
+    del chunks
+    h0 = torch.zeros_like(a[:, 0])
+
+    def build(ch):
+        return ch[0], ch[1], lambda h_all: h_all
+
+    got, _ = ssm._chunked_ssm_apply(build, (a, u), h0, cfg.ssm.chunk,
+                                    a.shape[1])
+    h = h0.double()
+    err_num = err_den = 0.0
+    for t in range(a.shape[1]):
+        h = a[:, t].double() * h + u[:, t].double()
+        err_num += float(((got[:, t].double() - h) ** 2).sum())
+        err_den += float((h ** 2).sum())
+    return (err_num / err_den) ** 0.5, list(a.shape)
+
+
+def ssm_decode_walk(params, cfg, tok, dev):
+    """``tok.shape[1]`` teacher-forced decode steps from an empty f32 state
+    and cache against ``prefill``'s logits: the normwise error per step
+    (max over slots), the host syncs of every warm step, whether the middle
+    step equals a second run bit for bit, and that step's cache and
+    inputs."""
+    import torch
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models.layers import lm_logits
+
+    b, s = tok.shape
+    full = lm_logits(params["unembed"], cfg, prefill(params, cfg, tok))[
+        ..., :cfg.vocab]
+    cache = init_cache(cfg, b, s, dtype=torch.float32, device=dev)
+    errs, syncs = [], []
+    for t in range(s):
+        cur = torch.full((b,), t, dtype=torch.int32, device=dev)
+        res = []
+        n = host_syncs(lambda: res.append(decode_step(
+            params, cfg, tok[:, t:t + 1], cache, cur)))
+        if t:
+            syncs.append(n)
+        logits, new_cache = res[0]
+        if t == s // 2:
+            again, _ = decode_step(params, cfg, tok[:, t:t + 1], cache, cur)
+            mid = dict(stable=torch.equal(again, logits), cache=cache,
+                       cur=cur, token=tok[:, t:t + 1])
+        cache = new_cache
+        errs.append(max(rel_err(logits[i, 0, :cfg.vocab],
+                                full[i, t].double()) for i in range(b)))
+    return dict(errs=np.array(errs), syncs=syncs, mid=mid)
+
+
+def ssm_phase(arch, dev, seed, reps):
+    """One SSM or hybrid model at full width: prefill [2, 128] (several scan
+    chunks) and 128 teacher-forced decode steps from an empty f32 state
+    and cache.  On the weights as ``init_model`` draws them the error
+    against the prefill's logits is printed; on the same weights
+    :func:`well_scaled` each step must lie within ``SERVE_TOL`` normwise of
+    the prefill's logits at that position.  0 host syncs per warm step;
+    prefill and a decode step each equal to a second run bit for bit; the
+    chunked scan on layer 0's real (a, u) against a sequential f64
+    recurrence; the decode step's, the prefill's and the device times."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+
+    t_phase = time.perf_counter()
+    data = ssm_setup(arch, dev, seed)
+    cfg, params = data["cfg"], data["params"]
+    gen = torch.Generator().manual_seed(seed + 6)
+    tok = torch.randint(0, cfg.vocab, (SSM_B, SSM_S), generator=gen).to(dev)
+    t0 = time.perf_counter()
+    h = prefill(params, cfg, tok)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_stable = torch.equal(h, prefill(params, cfg, tok))
+    del h
+    drawn = ssm_decode_walk(params, cfg, tok, dev)
+    scaled = ssm_decode_walk(well_scaled(cfg, params), cfg, tok, dev)
+    errs = scaled["errs"]
+    syncs = drawn["syncs"] + scaled["syncs"]
+    step_stable = drawn["mid"]["stable"] and scaled["mid"]["stable"]
+    scan_err, scan_shape = ssm_scan_check(data, tok)
+    mid = drawn["mid"]
+
+    def step():
+        return decode_step(params, cfg, mid["token"], mid["cache"],
+                           mid["cur"])
+
+    step_ms = statistics.median(execute_ms(step, reps))
+    prof = device_profile(step, n=3)
+    device_ms = sum(prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
+    prefill_med = statistics.median(execute_ms(
+        lambda: prefill(params, cfg, tok), 3))
+    out = dict(arch=arch, layers=cfg.n_layers, max_err=float(errs.max()),
+               worst_step=int(np.argmax(errs)),
+               max_err_drawn=float(drawn["errs"].max()),
+               worst_step_drawn=int(np.argmax(drawn["errs"])),
+               syncs=sorted(set(syncs)), prefill_bit_stable=prefill_stable,
+               step_bit_stable=step_stable, scan_err=scan_err,
+               scan_shape=scan_shape, decode_step_ms=step_ms,
+               decode_device_ms=device_ms,
+               decode_idle=idle_share(device_ms, step_ms),
+               decode_byte_floor_ms=(data["n_bytes"] - params["embed"][
+                   "embedding"].numel() * 4) / PEAK_BYTES_PER_S * 1e3,
+               top_device_ops={k: round(v, 4) for k, v in top},
+               prefill_first_ms=prefill_ms, prefill_ms=prefill_med,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"ssm {arch}: {json.dumps(out)}", flush=True)
+    print(f"ssm {arch}: error by step every 8th, as drawn "
+          f"{json.dumps([float(f'{e:.3g}') for e in drawn['errs'][::8]])}; "
+          f"well-scaled {json.dumps([float(f'{e:.3g}') for e in errs[::8]])}",
+          flush=True)
+    check(errs.max() <= SERVE_TOL, f"ssm {arch}: decode off prefill by "
+          f"{errs.max():.3g} normwise at step {out['worst_step']} on "
+          f"well-scaled weights (limit {SERVE_TOL})")
+    check(syncs and set(syncs) == {0}, f"ssm {arch}: host syncs per warm "
+          f"decode step {sorted(set(syncs))}, expected 0")
+    check(prefill_stable and step_stable, f"ssm {arch}: two runs differ")
+    check(scan_err <= SCAN_TOL, f"ssm {arch}: chunked scan {scan_err:.3g} "
+          f"normwise off the f64 recurrence (limit {SCAN_TOL})")
+    return out
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line saying how long it took."""
     import torch
@@ -3690,6 +4236,39 @@ def main(argv=None) -> int:
     timed(model_timing, model, served, dev, args.reps)
     print(f"model phases: {time.perf_counter() - t_model:.1f} s; card: "
           f"{card}", flush=True)
+
+    # phase 14 holds qwen3-moe-30b-a3b at full width: phase 13's model goes
+    # first
+    del model, served
+    plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_moe = time.perf_counter()
+    moe = timed(moe_setup, dev, args.seed)
+    timed(moe_ffn_phase, moe, dev)
+    moe_served = timed(moe_serve, moe, dev, args.seed)
+    dispatch = timed(moe_dispatch_phase, moe, dev, args.seed)
+    timed(moe_timing, moe, moe_served, dev, args.reps)
+    for row in rows:
+        if row["name"] == KERNELS["spa"]["name"]:
+            row["launches_by_path"] = dict(
+                main=row["launches"],
+                moe_dispatch=dispatch["launches"]["spa_spgemm"])
+    print(f"moe phases: {time.perf_counter() - t_moe:.1f} s; card: {card}",
+          flush=True)
+    del moe, moe_served
+    plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 15: the SSM and hybrid models, one at a time
+    t_ssm = time.perf_counter()
+    for arch in SSM_MODELS:
+        timed(ssm_phase, arch, dev, args.seed, args.reps)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"ssm phases: {time.perf_counter() - t_ssm:.1f} s; card: {card}",
+          flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, build "
           "included", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

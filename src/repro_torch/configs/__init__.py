@@ -1,18 +1,26 @@
 """Architecture registry of the port: the configs ported so far (--arch <id>).
 
 The JAX package's registry (``repro/configs``) holds ten; the port adds
-each with the slice whose path runs it.  The four dense-family configs run
-the model stack (``models.lm``) with its ``attn_ffn`` sub-layers; the MoE,
-SSM, hybrid, VLM and encoder-decoder configs wait for the slice that ports
-their sub-layer kinds.
+each with the slice whose path runs it.  The four dense configs run the
+model stack (``models.lm``) with its ``attn_ffn`` sub-layers, the two MoE
+configs add ``attn_moe`` (``models.moe``), the SSM config ``mamba``
+(``models.ssm``) and the hybrid config ``mamba`` with the weight-tied
+``shared_attn`` block.  The VLM and encoder-decoder configs
+(``llama-3.2-vision-90b``, ``seamless-m4t-large-v2``) wait for the
+cross-attention slice.
 """
 
 from repro_torch.configs.deepseek_coder_33b import CONFIG as DEEPSEEK
+from repro_torch.configs.falcon_mamba_7b import CONFIG as FALCON_MAMBA
 from repro_torch.configs.granite_20b import CONFIG as GRANITE
+from repro_torch.configs.llama4_maverick_400b import CONFIG as LLAMA4
 from repro_torch.configs.qwen2_0p5b import CONFIG as QWEN2
+from repro_torch.configs.qwen3_moe_30b import CONFIG as QWEN3_MOE
 from repro_torch.configs.yi_34b import CONFIG as YI
+from repro_torch.configs.zamba2_2p7b import CONFIG as ZAMBA2
 
-ARCHS = {c.name: c for c in (GRANITE, YI, DEEPSEEK, QWEN2)}
+ARCHS = {c.name: c for c in (GRANITE, YI, DEEPSEEK, QWEN2, QWEN3_MOE, LLAMA4,
+                             FALCON_MAMBA, ZAMBA2)}
 
 
 def get_config(name: str):

@@ -51,8 +51,10 @@ def batched_csc_from_reference(values, row_indices, col_ptr, shape,
 def model_params_from_reference(params, device=None) -> dict:
     """The port's param tree (nested dicts of f32 tensors on ``device``,
     default the card) of a JAX-package param tree given as numpy arrays:
-    a whole LM's (stacked ``[n_rep, ...]`` leaves, and ``[n_rep, nnz]``
-    FFN value stacks after ``sparsify_ffn_params``) or one FFN's."""
+    a whole LM's (stacked ``[n_rep, ...]`` leaves, the MoE layers'
+    ``[n_rep, E, d, f]`` expert stacks, the hybrid family's unstacked
+    ``shared`` table, and ``[n_rep, nnz]`` FFN value stacks after
+    ``sparsify_ffn_params``) or one FFN's, subtree for subtree."""
     dev = resolve_device(device)
 
     def walk(node):

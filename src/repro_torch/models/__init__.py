@@ -1,7 +1,8 @@
 """The port's models, as far as the ported slices run them: the config
-dataclasses, parameter tables, layers, the dense-family model stack
-(``blocks``, ``lm``) and the sparse FFN (dense path, the BSR kernel K5, or
-the spgemm path on the product stream)."""
+dataclasses, parameter tables, layers, the model stack (``blocks``, ``lm``)
+of the dense, MoE (``moe``), SSM (``ssm``) and hybrid families, and the
+sparse FFN (dense path, the BSR kernel K5, or the spgemm path on the
+product stream)."""
 
 from repro_torch.models.config import (
     ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, TRAIN_4K,
@@ -12,9 +13,13 @@ from repro_torch.models.lm import (
     backbone, decode_step, decode_step_loop, init_cache, init_model,
     model_tables, prefill, train_loss,
 )
+from repro_torch.models.moe import moe_aux_loss, moe_dispatch_spgemm, \
+    moe_ffn, moe_table
 from repro_torch.models.params import Leaf, init_params, linear
 from repro_torch.models.sparse_ffn import SparseFFN, SparseMatmul, \
     densify_ffn_params, prune_blocks, sparsify_ffn_params
+from repro_torch.models.ssm import mamba1_forward, mamba2_forward, \
+    mamba_forward, mamba_init_state, mamba_table
 
 __all__ = [
     "ALL_SHAPES", "DECODE_32K", "LONG_500K", "PREFILL_32K", "TRAIN_4K",
@@ -22,6 +27,8 @@ __all__ = [
     "smoke", "backbone", "decode_step", "decode_step_loop", "init_cache",
     "init_model", "model_tables", "prefill", "train_loss",
     "Leaf", "SparseFFN", "SparseMatmul", "dense", "densify_ffn_params",
-    "ffn", "ffn_table", "init_params", "linear", "prune_blocks",
-    "sparsify_ffn_params",
+    "ffn", "ffn_table", "init_params", "linear", "mamba1_forward",
+    "mamba2_forward", "mamba_forward", "mamba_init_state", "mamba_table",
+    "moe_aux_loss", "moe_dispatch_spgemm", "moe_ffn", "moe_table",
+    "prune_blocks", "sparsify_ffn_params",
 ]

@@ -9,12 +9,13 @@ a leading 'layers' axis; the reference scans over it (``lax.scan``), the
 port loops over it in Python, rep by rep, with the same arithmetic.
 
 Sub-layer kinds: "attn_ffn", "attn_moe", "mamba", "shared_attn" (applies the
-tied block), "attn_ffn_cross", "enc_attn_ffn", "dec_attn_cross_ffn".  The
-port runs "attn_ffn" (the dense family); :func:`block_structure` knows every
-family, and the other kinds (and the hybrid family's shared table, which
-the reference's functions here take as ``shared``) raise until the MoE,
-SSM and cross-attention slice ports them.  The reference's sharding hints (``distributed/hints.py``)
-are no-ops on one device and are left out until the mesh is ported.
+tied block of the hybrid family's shared table, which the functions here
+take as ``shared``), "attn_ffn_cross", "enc_attn_ffn", "dec_attn_cross_ffn".
+The port runs the first four (the dense, MoE, SSM and hybrid families);
+:func:`block_structure` knows every family, and the three cross-attention
+kinds raise until the cross-attention slice ports them.  The reference's
+sharding hints (``distributed/hints.py``) are no-ops on one device and are
+left out until the mesh is ported.
 """
 
 from __future__ import annotations
@@ -25,15 +26,18 @@ from repro_torch.device import resolve_device
 from repro_torch.models import params as pp
 from repro_torch.models.layers import attention, attention_decode, \
     attention_table, ffn, ffn_table, rms_norm
+from repro_torch.models.moe import moe_aux_loss, moe_ffn, moe_table
+from repro_torch.models.ssm import mamba_forward, mamba_init_state, \
+    mamba_table
 
-PORTED_KINDS = ("attn_ffn",)
+PORTED_KINDS = ("attn_ffn", "attn_moe", "mamba", "shared_attn")
 
 
 def _waits(kind: str) -> NotImplementedError:
     return NotImplementedError(
-        f"sub-layer kind {kind!r} waits for the MoE/SSM/cross-attention "
-        f"slice of the port; the port runs {list(PORTED_KINDS)} (the dense "
-        "family)")
+        f"sub-layer kind {kind!r} waits for the cross-attention slice of "
+        f"the port; the port runs {list(PORTED_KINDS)} (the dense, MoE, "
+        "SSM and hybrid families)")
 
 
 def _check_kind(kind: str) -> None:
@@ -77,16 +81,24 @@ def _check_divides(n_layers: int, k: int) -> None:
 
 def _sub_table(cfg, kind):
     _check_kind(kind)
-    return {"ln1": pp.rmsnorm(cfg.d_model), "attn": attention_table(cfg),
-            "ln2": pp.rmsnorm(cfg.d_model), "ffn": ffn_table(cfg)}
+    if kind == "attn_ffn":
+        return {"ln1": pp.rmsnorm(cfg.d_model), "attn": attention_table(cfg),
+                "ln2": pp.rmsnorm(cfg.d_model), "ffn": ffn_table(cfg)}
+    if kind == "attn_moe":
+        return {"ln1": pp.rmsnorm(cfg.d_model), "attn": attention_table(cfg),
+                "ln2": pp.rmsnorm(cfg.d_model), "moe": moe_table(cfg)}
+    if kind == "mamba":
+        return {"ln": pp.rmsnorm(cfg.d_model), "mamba": mamba_table(cfg)}
+    return {}   # shared_attn: its weights live in the shared table
 
 
 def superblock_table(cfg):
-    kinds, n_rep, _ = block_structure(cfg)
+    """(table of one super-block, kinds, n_rep, shared table or None)."""
+    kinds, n_rep, has_shared = block_structure(cfg)
     table = {f"l{i}": _sub_table(cfg, k) for i, k in enumerate(kinds)}
-    # only the hybrid family has a shared table, and its mamba kinds raise
-    # above
-    return table, kinds, n_rep, None
+    # the hybrid's tied block is an attn_ffn sub-layer, not stacked
+    shared = _sub_table(cfg, "attn_ffn") if has_shared else None
+    return table, kinds, n_rep, shared
 
 
 def _rep(tree, r: int):
@@ -96,9 +108,15 @@ def _rep(tree, r: int):
     return tree[r]
 
 
-def _n_rep(tree) -> int:
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
+def _n_rep(tree) -> int | None:
+    """The length of the reps' axis: the first axis of the tree's first
+    leaf (a shared_attn sub-layer's subtree is empty)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            n = _n_rep(v)
+            if n is not None:
+                return n
+        return None
     return int(tree.shape[0])
 
 
@@ -115,25 +133,37 @@ def _stack(per_rep: list):
 # ---------------------------------------------------------------------------
 
 
-def _sub_forward(p, cfg, kind, h, *, sffn=None):
+def _sub_forward(p, shared, cfg, kind, h, *, sffn=None):
     """One sub-layer, full sequence. Returns (h, aux_loss).
 
-    ``sffn`` is this sub-layer's spgemm-path FFN overlay: a shared-pattern
+    ``shared`` is the hybrid family's tied block (``shared_attn``), None
+    for the other families.  ``sffn`` is this sub-layer's spgemm-path FFN
+    overlay: a shared-pattern
     :class:`~repro_torch.models.sparse_ffn.SparseFFN` applied with the
     rep's value stacks ``p["ffn"]`` in place of the dense SwiGLU.
     """
     _check_kind(kind)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    h = h + attention(p["attn"], cfg, rms_norm(p["ln1"], h, cfg.norm_eps))
-    hn = rms_norm(p["ln2"], h, cfg.norm_eps)
-    if sffn is not None:
-        h = h + sffn.apply(p["ffn"], hn)
-    else:
-        h = h + ffn(p["ffn"], hn)
-    return h, aux
+    if kind in ("attn_ffn", "attn_moe"):
+        h = h + attention(p["attn"], cfg,
+                          rms_norm(p["ln1"], h, cfg.norm_eps))
+        hn = rms_norm(p["ln2"], h, cfg.norm_eps)
+        if kind == "attn_moe":
+            aux = moe_aux_loss(p["moe"], cfg, hn)
+            h = h + moe_ffn(p["moe"], cfg, hn)
+        elif sffn is not None:
+            h = h + sffn.apply(p["ffn"], hn)
+        else:
+            h = h + ffn(p["ffn"], hn)
+        return h, aux
+    if kind == "mamba":
+        y, _ = mamba_forward(p["mamba"], cfg,
+                             rms_norm(p["ln"], h, cfg.norm_eps))
+        return h + y, aux
+    return _sub_forward(shared, None, cfg, "attn_ffn", h)   # shared_attn
 
 
-def stage_forward(stacked, cfg, kinds, h, *, sparse_ffn=None):
+def stage_forward(stacked, shared, cfg, kinds, h, *, sparse_ffn=None):
     """Run the super-block over its reps. Returns (h, total_aux).
 
     ``cfg.remat`` has no effect here: it is the reference's checkpoint
@@ -145,7 +175,7 @@ def stage_forward(stacked, cfg, kinds, h, *, sparse_ffn=None):
     for r in range(_n_rep(stacked)):
         p_rep = _rep(stacked, r)
         for i, kind in enumerate(kinds):
-            h, a = _sub_forward(p_rep.get(f"l{i}", {}), cfg, kind, h,
+            h, a = _sub_forward(p_rep.get(f"l{i}", {}), shared, cfg, kind, h,
                                 sffn=sparse_ffn.get(f"l{i}"))
             aux = aux + a
     return h, aux
@@ -158,24 +188,37 @@ def stage_forward(stacked, cfg, kinds, h, *, sparse_ffn=None):
 
 def sub_cache_shape(cfg, kind, batch, cache_len, dtype=torch.bfloat16,
                     device=None):
-    """Zero cache for one sub-layer, on ``device`` (default the card)."""
+    """Zero cache for one sub-layer, on ``device`` (default the card): K/V
+    for an attention kind, (conv window, SSM state) for a mamba one."""
     _check_kind(kind)
     device = resolve_device(device)
+    if kind == "mamba":
+        conv, h = mamba_init_state(cfg, batch, dtype, device)
+        return {"conv": conv, "h": h}
     shape = (batch, cache_len, cfg.n_kv_heads, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _sub_decode(p, cfg, kind, h, cache, cur_len, *, sffn=None,
+def _sub_decode(p, shared, cfg, kind, h, cache, cur_len, *, sffn=None,
                 sffn_host=False):
     _check_kind(kind)
+    if kind == "mamba":
+        y, (conv, hs) = mamba_forward(
+            p["mamba"], cfg, rms_norm(p["ln"], h, cfg.norm_eps),
+            state=(cache["conv"], cache["h"]))
+        return h + y, {"conv": conv, "h": hs}
+    if kind == "shared_attn":
+        return _sub_decode(shared, None, cfg, "attn_ffn", h, cache, cur_len)
     a, ck, cv = attention_decode(
         p["attn"], cfg, rms_norm(p["ln1"], h, cfg.norm_eps),
         cache["k"], cache["v"], cur_len)
     h = h + a
     cache = dict(cache, k=ck, v=cv)
     hn = rms_norm(p["ln2"], h, cfg.norm_eps)
-    if sffn is not None:
+    if kind == "attn_moe":
+        h = h + moe_ffn(p["moe"], cfg, hn)
+    elif sffn is not None:
         # spgemm-path FFN overlay; sffn_host runs the host product stream
         # on the host's copy of hn (the serving fallback)
         y = (sffn.apply_host(p["ffn"], hn) if sffn_host
@@ -186,7 +229,7 @@ def _sub_decode(p, cfg, kind, h, cache, cur_len, *, sffn=None,
     return h, cache
 
 
-def _decode_reps(stacked, cfg, kinds, h, caches, cur_len, sparse_ffn,
+def _decode_reps(stacked, shared, cfg, kinds, h, caches, cur_len, sparse_ffn,
                  sffn_host):
     sparse_ffn = sparse_ffn or {}
     per_rep = []
@@ -195,28 +238,28 @@ def _decode_reps(stacked, cfg, kinds, h, caches, cur_len, sparse_ffn,
         new_c = {}
         for i, kind in enumerate(kinds):
             h, new_c[f"l{i}"] = _sub_decode(
-                p_rep.get(f"l{i}", {}), cfg, kind, h,
+                p_rep.get(f"l{i}", {}), shared, cfg, kind, h,
                 c_rep[f"l{i}"], cur_len, sffn=sparse_ffn.get(f"l{i}"),
                 sffn_host=sffn_host)
         per_rep.append(new_c)
     return h, _stack(per_rep)
 
 
-def stage_decode(stacked, cfg, kinds, h, caches, cur_len, *,
+def stage_decode(stacked, shared, cfg, kinds, h, caches, cur_len, *,
                  sparse_ffn=None):
     """Decode over reps; caches stacked on the rep axis.  Overlay FFNs run
     the plans' device stream."""
-    return _decode_reps(stacked, cfg, kinds, h, caches, cur_len,
+    return _decode_reps(stacked, shared, cfg, kinds, h, caches, cur_len,
                         sparse_ffn, False)
 
 
-def stage_decode_loop(stacked, cfg, kinds, h, caches, cur_len, *,
+def stage_decode_loop(stacked, shared, cfg, kinds, h, caches, cur_len, *,
                       sparse_ffn=None, sparse_host=True):
     """:func:`stage_decode` with overlay FFNs on the host product stream
     (``sparse_host=True``): the serving fallback, which needs no device
     plan.  The reference's eager spelling of its scan; here both are the
     same loop."""
-    return _decode_reps(stacked, cfg, kinds, h, caches, cur_len,
+    return _decode_reps(stacked, shared, cfg, kinds, h, caches, cur_len,
                         sparse_ffn, sparse_host)
 
 

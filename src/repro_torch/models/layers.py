@@ -1,7 +1,7 @@
 """Model primitives: norm, rotary, chunked (flash-style) attention, FFN, loss.
 
-The port of the JAX package's ``repro/models/layers.py`` for the dense
-family.  All functions are pure; parameters come from ``params.py`` tables.
+The port of the JAX package's ``repro/models/layers.py`` for the dense,
+MoE, SSM and hybrid families.  All functions are pure; parameters come from ``params.py`` tables.
 Attention is two-level chunked with online softmax, so no ``[S, S]`` score
 tensor is ever materialised (the 32k prefill shapes need that), in plain
 PyTorch ops: these are the reference's plain-jnp computations outside any
@@ -11,8 +11,8 @@ softmax runs in ``_chunked_attn``'s order, the reference's.
 Every product is full f32 (:func:`check_full_f32`); a bf16 operand (a bf16
 KV cache) is widened before its product, as the reference's
 ``preferred_element_type=float32`` accumulates it.  Cross-attention against
-a cached memory (``cross_attention_cached``) waits for the VLM and
-encoder-decoder kinds.
+a cached memory (``cross_attention_cached``) waits for the cross-attention
+slice (the VLM and encoder-decoder kinds).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Full language model: tables, init, train/prefill/decode entry points.
 
-The port of the JAX package's ``repro/models/lm.py`` for the dense family.
-Public surface:
+The port of the JAX package's ``repro/models/lm.py`` for the dense, MoE,
+SSM and hybrid families (the VLM and encoder-decoder families wait for the
+cross-attention slice).  Public surface:
   model_tables(cfg)                          -> declarative param table
   init_model(cfg, generator, device=None)    -> param tree on the card
   train_loss(params, cfg, batch)             batch: tokens, labels
@@ -31,13 +32,16 @@ AUX_COEF = 0.01
 
 
 def model_tables(cfg):
-    table, _, n_rep, _ = superblock_table(cfg)
-    return {
+    table, _, n_rep, shared = superblock_table(cfg)
+    t = {
         "embed": embed_table(cfg),
         "blocks": stack_tables(table, n_rep),
         "final_norm": pp.rmsnorm(cfg.d_model),
         "unembed": unembed_table(cfg),
     }
+    if shared is not None:
+        t["shared"] = shared
+    return t
 
 
 def init_model(cfg, generator: torch.Generator, device=None):
@@ -53,7 +57,7 @@ def _memory_from_aux(cfg):
     if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} needs cross-attention memory, which "
-            "waits for the MoE/SSM/cross-attention slice of the port")
+            "waits for the cross-attention slice of the port")
 
 
 def backbone(params, cfg, tokens, aux=None, *, sparse_ffn=None):
@@ -61,8 +65,8 @@ def backbone(params, cfg, tokens, aux=None, *, sparse_ffn=None):
     _memory_from_aux(cfg)
     h = embed(params["embed"], tokens)
     _, kinds, _, _ = superblock_table(cfg)
-    h, aux_loss = stage_forward(params["blocks"], cfg, kinds, h,
-                                sparse_ffn=sparse_ffn)
+    h, aux_loss = stage_forward(params["blocks"], params.get("shared"), cfg,
+                                kinds, h, sparse_ffn=sparse_ffn)
     return rms_norm(params["final_norm"], h, cfg.norm_eps), aux_loss
 
 
@@ -86,8 +90,11 @@ def prefill(params, cfg, tokens, aux=None, *, sparse_ffn=None):
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
                device=None):
-    """Zero KV caches stacked on the reps' axis, on ``device`` (default the
-    card); bf16 by default, as in the reference."""
+    """Zero caches stacked on the reps' axis, on ``device`` (default the
+    card): K/V in ``dtype`` (bf16 by default, as in the reference), a mamba
+    sub-layer's conv window in ``dtype`` and its SSM state in f32.  A
+    decode step returns the window in f32 (the step's input is promoted
+    with it, as in the reference)."""
     _, kinds, n_rep, _ = superblock_table(cfg)
     return stage_cache(cfg, kinds, n_rep, batch, cache_len, dtype, device)
 
@@ -102,8 +109,9 @@ def decode_step(params, cfg, token, cache, cur_len, *, sparse_ffn=None):
     """
     h = embed(params["embed"], token)
     _, kinds, _, _ = superblock_table(cfg)
-    h, new_cache = stage_decode(params["blocks"], cfg, kinds, h, cache,
-                                cur_len, sparse_ffn=sparse_ffn)
+    h, new_cache = stage_decode(params["blocks"], params.get("shared"), cfg,
+                                kinds, h, cache, cur_len,
+                                sparse_ffn=sparse_ffn)
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     return lm_logits(params["unembed"], cfg, h), new_cache
 
@@ -117,7 +125,7 @@ def decode_step_loop(params, cfg, token, cache, cur_len, *,
     h = embed(params["embed"], token)
     _, kinds, _, _ = superblock_table(cfg)
     h, new_cache = stage_decode_loop(
-        params["blocks"], cfg, kinds, h, cache, cur_len,
+        params["blocks"], params.get("shared"), cfg, kinds, h, cache, cur_len,
         sparse_ffn=sparse_ffn, sparse_host=sparse_host)
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     return lm_logits(params["unembed"], cfg, h), new_cache

@@ -3,15 +3,14 @@
 A *table* is a nested dict whose leaves are ``Leaf(shape, axes, init)``:
   shape : tuple of ints
   axes  : tuple of logical axis names (len == len(shape)); None = replicated
-  init  : "normal:<std>" | "zeros" | "ones" | "fan_in"
+  init  : "normal:<std>" | "zeros" | "ones" | "fan_in" | "ssm_a" | "dt_bias"
 
 The port of the JAX package's ``repro/models/params.py`` as far as the
 dense model stack needs it: :func:`init_params` draws every leaf from one
 explicit ``torch.Generator``; :func:`stack_tables` prepends the reps' axis
 that ``models.blocks`` loops over.  ``abstract_params`` and
 ``partition_specs`` wait for the mesh and the dry run, the only callers of
-a table's shapes and shardings without its values; the SSM inits wait for
-the SSM slice.
+a table's shapes and shardings without its values.
 """
 
 from __future__ import annotations
@@ -42,6 +41,20 @@ def _init_leaf(leaf: Leaf, generator, device):
         return torch.zeros(shape, dtype=torch.float32, device=device)
     if kind == "ones":
         return torch.ones(shape, dtype=torch.float32, device=device)
+    if kind == "ssm_a":
+        # mamba: A = -exp(A_log), A_log = log(1..n) with n the last axis
+        # (for Mamba2's (nh,) leaf that is nh), as in the reference
+        n = shape[-1]
+        base = torch.log(torch.arange(1, n + 1, dtype=torch.float32,
+                                      device=device))
+        return torch.broadcast_to(base, shape).clone()
+    if kind == "dt_bias":
+        # mamba: dt bias so softplus(dt) ~ uniform[1e-3, 1e-1]
+        u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                       device=device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3))
+                       + math.log(1e-3))
+        return dt + torch.log(-torch.expm1(-dt))
     if kind.startswith("normal:"):
         std = float(kind.split(":")[1])
     elif kind == "fan_in":

@@ -15,8 +15,11 @@ waits; and the machine profile's calibration on the card (its fingerprint
 names the card, its ``fused`` ladder launches K1); and the dense model stack
 with its FFNs on the SpGEMM stream: a smoke-size sparse ``decode_step`` on
 the card against the dense oracle, with no host wait after its first step,
-and K1 against the torch stream on one FFN plan.  Every test needs a card
-(marker ``gpu``) and skips without one.
+and K1 against the torch stream on one FFN plan; and the MoE, SSM and
+hybrid families: a smoke-size ``decode_step`` on the card against the same
+model on the CPU, with no host wait after its first step, and the MoE
+dispatch as SpGEMM launching K2, exact on integer values.  Every test needs
+a card (marker ``gpu``) and skips without one.
 
 The module pins ``REPRO_PROFILE_DIR`` to a path nothing writes before any
 profile is consulted (as ``tests/conftest.py`` does for the CPU suite,
@@ -1347,3 +1350,131 @@ def test_fused_engine_equals_torch_stream_on_an_ffn_plan(smoke_model, cuda):
     k1 = plan.stream_apply(m.w_values, x, engine="fused").double()
     ts = plan.stream_apply(m.w_values, x).double()
     assert float((k1 - ts).norm() / ts.norm()) <= 1e-5
+
+
+# -- the MoE, SSM and hybrid families ----------------------------------------
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "falcon-mamba-7b",
+                                  "zamba2-2.7b"])
+def test_family_decode_on_card_matches_cpu(arch, cuda):
+    """A smoke-size decode_step on the card (slots at different positions,
+    an f32 cache) against the same model's on the CPU, three steps, logits
+    and caches within 1e-5 normwise; then a warm step makes no host sync.
+    cuBLAS and the CPU's products round differently in the last place, and
+    the reference's ``fan_in`` rule (std 1/sqrt(n_rep) on a stacked leaf)
+    saturates the attention softmax, which makes such a difference large:
+    the stacked weights are rescaled to std 1/sqrt(d_in) first."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_model, smoke
+
+    cfg = smoke(get_config(arch))
+    params = _well_scaled(cfg, init_model(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    dparams = _to(params, cuda)
+    cache = init_cache(cfg, 3, 16, dtype=torch.float32, device="cpu")
+    dcache = _to(cache, cuda)
+    token = torch.tensor([[3], [5], [7]])
+    cur = torch.tensor([0, 2, 5], dtype=torch.int32)
+    for step in range(3):
+        want, cache = decode_step(params, cfg, token + step, cache,
+                                  cur + step)
+        got, dcache = decode_step(dparams, cfg, (token + step).to(cuda),
+                                  dcache, (cur + step).to(cuda))
+        assert got.is_cuda and got.shape == want.shape
+        err = _normwise(got, want)
+        assert err <= 1e-5, (step, err)
+        for g, w in zip(_leaves(dcache), _leaves(cache)):
+            assert g.dtype == w.dtype
+            if w.any():
+                assert _normwise(g, w) <= 1e-5, (step, _normwise(g, w))
+    dtoken, dcur = (token + 3).to(cuda), (cur + 3).to(cuda)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        logits, _ = decode_step(dparams, cfg, dtoken, dcache, dcur)
+        logits.argmax(-1)
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not syncs, [str(w.message) for w in syncs]
+
+
+def _well_scaled(cfg, params):
+    """``params`` with each stacked ``fan_in`` leaf at std 1/sqrt(d_in)."""
+    from repro_torch.models import model_tables
+    from repro_torch.models.params import Leaf
+
+    def walk(t, p):
+        if isinstance(t, Leaf):
+            if t.init == "fan_in" and t.axes[0] == "layers" \
+                    and len(t.shape) >= 3:
+                return p * (t.shape[0] / t.shape[-2]) ** 0.5
+            return p
+        return {k: walk(t[k], p[k]) for k in p}
+
+    return walk(model_tables(cfg), params)
+
+
+def _normwise(got, want) -> float:
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).norm() / want.norm())
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def test_moe_ffn_on_card_is_bit_stable_and_matches_cpu(cuda):
+    """moe_ffn at 4096 tokens (32 groups, drops) on the card: two runs bit
+    for bit, and the CPU's within 1e-5 normwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe_ffn, moe_table, smoke
+    from repro_torch.models.params import init_params
+
+    cfg = smoke(get_config("qwen3-moe-30b-a3b"))
+    p = init_params(moe_table(cfg), torch.Generator().manual_seed(1),
+                    device="cpu")
+    x = torch.randn((1, 4096, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2))
+    want = moe_ffn(p, cfg, x).double()
+    dp, dx = _to(p, cuda), x.to(cuda)
+    got = moe_ffn(dp, cfg, dx)
+    assert torch.equal(got, moe_ffn(dp, cfg, dx))
+    assert float((got.cpu().double() - want).norm() / want.norm()) <= 1e-5
+
+
+def test_moe_dispatch_spgemm_on_card_launches_k2(cuda):
+    """The dispatch R^T X through the cuda backend's default method: K2
+    (SPA) launches for the experts' columns, and the result is exact on
+    integer values (x in {-2..2}, gates in {1, 2, 3})."""
+    from repro_torch.core import plan_cache_clear
+    from repro_torch.models import moe_dispatch_spgemm
+
+    t, d, e, k = 64, 32, 8, 2
+    rng = np.random.default_rng(0)
+    x = rng.integers(-2, 3, size=(t, d)).astype(np.float32)
+    idx = np.argsort(-rng.uniform(size=(t, e)), axis=1)[:, :k]
+    gates = rng.integers(1, 4, size=(t, k)).astype(np.float32)
+    plan_cache_clear()
+    kernels.reset_launch_counts()
+    got = moe_dispatch_spgemm(torch.from_numpy(x).to(cuda),
+                              torch.from_numpy(idx).to(cuda),
+                              torch.from_numpy(gates).to(cuda), e)
+    assert kernels.launch_counts()["spa_spgemm"] > 0
+    assert got.is_cuda and got.dtype == torch.float32
+    r = np.zeros((t, e))
+    np.put_along_axis(r, idx, gates.astype(np.float64), axis=1)
+    np.testing.assert_array_equal(got.cpu().numpy().astype(np.float64),
+                                  r.T @ x.astype(np.float64))

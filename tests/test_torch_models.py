@@ -1,5 +1,8 @@
 """The port's model stack (``repro_torch.models``: config, params, layers,
-blocks, lm) against the JAX package's, for the dense family.
+blocks, lm) against the JAX package's: every ported config's tables,
+caches and inits, and the dense family's layers and whole models (the MoE,
+SSM and hybrid families' whole models are in
+``tests/test_torch_models_families.py``).
 
 Inputs are made with numpy from a seed; whole models are drawn by the
 reference's ``init_model`` and carried across by
@@ -61,7 +64,10 @@ ATTN_TOL = 2e-5
 LAYER_TOL = 1e-5
 MODEL_TOL = 1e-5
 DENSE = ("granite-20b", "qwen2-0.5b", "yi-34b", "deepseek-coder-33b")
-OTHERS = sorted(set(REF_ARCHS) - set(DENSE))
+FAMILIES = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b",
+            "falcon-mamba-7b", "zamba2-2.7b")
+PORTED = DENSE + FAMILIES
+OTHERS = sorted(set(REF_ARCHS) - set(PORTED))
 
 
 def normwise(got, want) -> float:
@@ -102,7 +108,18 @@ def test_dense_configs_are_the_references(arch):
         == dataclasses.asdict(REF_ARCHS[arch])
     assert dataclasses.asdict(smoke(get_config(arch))) \
         == dataclasses.asdict(ref_config.smoke(REF_ARCHS[arch]))
-    assert sorted(ARCHS) == sorted(DENSE)
+    assert sorted(ARCHS) == sorted(PORTED)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_moe_ssm_hybrid_configs_are_the_references(arch):
+    """The MoE, SSM and hybrid configs, full and at smoke size, with their
+    MoE and SSM sub-configs and derived widths."""
+    cfg, ref = get_config(arch), REF_ARCHS[arch]
+    for got, want in ((cfg, ref), (smoke(cfg), ref_config.smoke(ref))):
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert (got.d_inner, got.dt_rank_actual, got.vocab_padded) \
+            == (want.d_inner, want.dt_rank_actual, want.vocab_padded)
 
 
 def test_shape_configs_are_the_references():
@@ -145,14 +162,28 @@ def test_model_tables_are_the_references(arch):
     assert stacked["l0"]["ln1"]["scale"].axes == ("layers", "embed")
 
 
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_tables_are_the_references(arch):
+    """The MoE layers' expert stacks, the Mamba tables and the hybrid
+    family's shared table (``t["shared"]``), full and at smoke size."""
+    for cfg, ref in ((get_config(arch), REF_ARCHS[arch]),
+                     (smoke(get_config(arch)),
+                      ref_config.smoke(REF_ARCHS[arch]))):
+        assert _leaf_shapes(model_tables(cfg), Leaf) \
+            == _leaf_shapes(ref_model_tables(ref), RefLeaf)
+        table, kinds, n_rep, shared = superblock_table(cfg)
+        assert (kinds, n_rep, shared is not None) == block_structure(cfg)
+    assert ("shared" in model_tables(cfg)) == (cfg.family == "hybrid")
+
+
 @pytest.mark.parametrize("arch", OTHERS)
 def test_kinds_not_yet_ported_raise(arch):
     cfg = port_config_of(ref_config.smoke(REF_ARCHS[arch]))
-    with pytest.raises(NotImplementedError, match="waits for"):
+    with pytest.raises(NotImplementedError, match="cross-attention slice"):
         model_tables(cfg)
     kinds, _, _ = block_structure(cfg)
     other = next(k for k in kinds if k != "attn_ffn")
-    with pytest.raises(NotImplementedError, match="waits for"):
+    with pytest.raises(NotImplementedError, match="cross-attention slice"):
         sub_cache_shape(cfg, other, 1, 4, device="cpu")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config(arch)
@@ -174,6 +205,61 @@ def test_init_model_draws_from_the_generator():
     w = p["blocks"]["l0"]["ffn"]["gate"]["w"]
     assert abs(float(w.std()) - 0.5) < 0.02
     assert torch.equal(p["final_norm"]["scale"], torch.ones(cfg.d_model))
+
+
+def _dtypes(tree):
+    return jax.tree_util.tree_map(
+        lambda a: (tuple(a.shape), str(a.dtype).replace("torch.", "")), tree)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_family_init_cache_and_init_model_are_the_references(arch):
+    """K/V caches, a mamba layer's (conv window, SSM state), bf16 by
+    default and f32 when asked (the state f32 in both); the params' tree,
+    shapes and dtypes drawn from the generator, the same twice."""
+    cfg = smoke(get_config(arch))
+    ref_cfg = ref_config.smoke(REF_ARCHS[arch])
+    for dtype, jdtype in ((None, None), (torch.float32, jnp.float32)):
+        got = init_cache(cfg, 3, 16, device="cpu",
+                         **({"dtype": dtype} if dtype else {}))
+        want = ref_init_cache(ref_cfg, 3, 16,
+                              **({"dtype": jdtype} if jdtype else {}))
+        assert _dtypes(got) == jax.tree_util.tree_map(
+            lambda a: (a.shape, str(a.dtype)), want)
+        assert not any(bool(a.any()) for a in jax.tree_util.tree_leaves(got))
+    p = init_model(cfg, torch.Generator().manual_seed(5), device="cpu")
+    q = init_model(cfg, torch.Generator().manual_seed(5), device="cpu")
+    ref = jax.eval_shape(lambda: ref_init_model(ref_cfg,
+                                                jax.random.PRNGKey(0)))
+    assert _dtypes(p) == jax.tree_util.tree_map(
+        lambda a: (a.shape, str(a.dtype)), ref)
+    assert all(torch.equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(p), jax.tree_util.tree_leaves(q)))
+
+
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
+                                  "zamba2-2.7b"])
+def test_model_params_from_reference_carries_every_subtree(arch):
+    """The shared table and the ``[n_rep, E, d, f]`` expert stacks come
+    across leaf for leaf, values and shapes."""
+    ref_cfg = ref_config.smoke(REF_ARCHS[arch])
+    ref = jax.tree_util.tree_map(
+        np.asarray, ref_init_model(ref_cfg, jax.random.PRNGKey(3)))
+    got = model_params_from_reference(ref, device="cpu")
+    assert jax.tree_util.tree_structure(got) \
+        == jax.tree_util.tree_structure(ref)
+    for g, w in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(ref)):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), w)
+    if arch == "zamba2-2.7b":
+        assert set(got["shared"]) == {"ln1", "attn", "ln2", "ffn"}
+        assert got["blocks"]["l2"] == {}
+    else:
+        n_rep, e = ref_cfg.n_layers // 2, ref_cfg.moe.n_experts
+        assert tuple(got["blocks"]["l1"]["moe"]["gate"].shape) == (
+            n_rep, e, ref_cfg.d_model, ref_cfg.moe.d_ff_expert)
+        assert "shared" in got["blocks"]["l1"]["moe"]
 
 
 def test_init_cache_is_the_references():
