@@ -232,6 +232,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    scan on layer 0's real (a, u) within 1e-5 normwise of a sequential f64
    recurrence on the card; decode-step and prefill times, device time and
    idle share, the phase's seconds beside the card line.
+16. The cross-attention families through the serving engine
+   (``repro_torch.serving.ServeEngine``), one model at a time:
+   llama-3.2-vision-90b at full width (d_model 8192, 64 heads, 8 KV heads,
+   d_ff 28672, vocab 128256, 1601 image tokens) cut from 100 to 5 layers
+   (one super-block: 4 ``attn_ffn`` and one ``attn_ffn_cross``), 26.1 GB
+   of f32 weights from ``--seed`` with every ``xgate`` at 0.5, patch
+   embeddings [4, 1601, 8192]; 4 staggered slots, each 8 prompt tokens, 8
+   teacher-forced ones and 8 greedy ones: one host sync a tick, and on the
+   well-scaled weights every live slot's logits within 1e-4 normwise of
+   ``prefill(tokens, aux)`` at its position (as drawn: printed); the
+   logits must move when ``xgate`` is zeroed; the decode step at B = 4
+   beside its byte floor.  Then seamless-m4t-large-v2 at full width and
+   depth (24 encoder and 24 decoder layers, d_model 1024, d_ff 8192, vocab
+   256206, 4096 frames): ``prefill(tokens, frames)`` at [4, 8], the
+   encoder's time; on well-scaled weights the engine with its FFNs on the
+   spgemm path (keep 0.1), the counts set to 0 just before (the torch
+   stream: all must stay 0), each tick within 1e-4 of the engine on the
+   densified weights; that engine within 1e-4 of ``prefill`` at every
+   position, and an engine on the raw frames off it (the reference's
+   ``_install_memory`` contract, C11); K1 against the torch stream on the
+   one-token plans (bit for bit on integers, 1e-5 on real values, its
+   count rising); plan, decode-step and encoder times beside the byte
+   floor (the cross K/V alone 3.2 GB a step).
 
 The last two lines are the kernels' JSON and the card line; the very last is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -4089,6 +4112,373 @@ def ssm_phase(arch, dev, seed, reps):
     return out
 
 
+# -- 16. the cross-attention families through the serving engine ------------
+
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_LAYERS = 5          # 100 in the config: one super-block (4 + 1 cross)
+ENCDEC_ARCH = "seamless-m4t-large-v2"   # full depth: 24 encoder, 24 decoder
+CROSS_KEEP = 0.1        # keep_density of seamless's spgemm FFNs
+XGATE = 0.5             # every xgate of the VLM: its init, 0, is a no-op
+ENG_SLOTS, ENG_PROMPT, ENG_FORCED, ENG_NEW = 4, 8, 8, 8
+ENG_CACHE = 32
+ENCDEC_PREFILL = 8      # seamless's prefill [4, 8] with its 4096 frames
+XGATE_MOVE = 1e-3       # the logits must move at least this when xgate is 0
+RAW_GAP = 1e-3          # encdec on raw frames must differ from prefill more
+
+
+def engine_run(eng, prompts, max_new):
+    """Serve ``prompts`` through ``eng``, request b submitted before tick b
+    (the slots start staggered).  Per tick: the live slots as (slot,
+    position, request id), read after admission (``_admit`` is idempotent,
+    and ``step`` admits again), the host copy of its logits (what the
+    engine's ``_decode`` returned), its host syncs and host ms.  Returns the ticks and, per slot, the sequence (prompt and
+    generated tokens) of the one request it served."""
+    ticks, pending, logits, decode = [], list(prompts), [], eng._decode
+    eng._decode = lambda toks: logits.append(decode(toks)) or logits[-1]
+    while pending or eng.queue or any(eng.slots):
+        if pending:
+            eng.submit(pending.pop(0), max_new_tokens=max_new)
+        eng._admit()
+        live = [(b, int(eng.cur_len[b]), r.rid)
+                for b, r in enumerate(eng.slots) if r is not None]
+        t0 = time.perf_counter()
+        n = host_syncs(eng.step)
+        ticks.append(dict(live=live, logits=logits[-1], syncs=n,
+                          ms=(time.perf_counter() - t0) * 1e3))
+    slot_of = {rid: b for t in ticks for b, _, rid in t["live"]}
+    check(sorted(slot_of.values()) == list(range(len(prompts))),
+          f"engine run: requests to slots {slot_of}, expected one each")
+    seqs = {slot_of[rid]: r.prompt + r.generated
+            for rid, r in eng.finished.items()}
+    return ticks, [seqs[b] for b in range(len(prompts))]
+
+
+def ticks_against_prefill(params, cfg, aux, ticks, seqs, dev):
+    """Each live slot's logits at each tick against ``prefill``'s at its
+    position (normwise, in f64), as a [slot, position] array; every slot
+    must have been live at every position."""
+    import torch
+    from repro_torch.models import prefill
+    from repro_torch.models.layers import lm_logits
+
+    n_pos = max(pos for t in ticks for _, pos, _ in t["live"]) + 1
+    tok = torch.tensor([s[:n_pos] for s in seqs], device=dev)
+    full = lm_logits(params["unembed"], cfg, prefill(params, cfg, tok, aux))[
+        ..., :cfg.vocab].double().cpu()
+    errs = np.full((len(seqs), n_pos), np.nan)
+    for t in ticks:
+        for b, pos, _ in t["live"]:
+            errs[b, pos] = rel_err(torch.from_numpy(t["logits"][b]),
+                                   full[b, pos])
+    check(not np.isnan(errs).any(), "engine run: a slot skipped a position")
+    return errs
+
+
+def ticks_against_ticks(got, want):
+    """Tick by tick, each live slot's logits against another run's of the
+    same schedule (normwise); the runs must see the same live slots."""
+    import torch
+
+    check(len(got) == len(want) and all(
+        g["live"] == w["live"] for g, w in zip(got, want)),
+        "engine runs: the two schedules differ")
+    return [rel_err(torch.from_numpy(g["logits"][b]),
+                    torch.from_numpy(w["logits"][b]).double())
+            for g, w in zip(got, want) for b, _, _ in g["live"]]
+
+
+def engine_prompts(cfg, seed, n):
+    """``ENG_SLOTS`` prompts of ``n`` tokens from ``seed``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (ENG_SLOTS, n),
+                         generator=gen).tolist()
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def step_timing(params, cfg, eng, dev, reps, sparse_ffn=None):
+    """One ``decode_step`` at B = ``ENG_SLOTS`` on the engine's cache (host
+    clock ending in a synchronize, median of ``reps``), its device time and
+    idle share (``torch.profiler``) and top device ops."""
+    import torch
+    from repro_torch.models import decode_step
+
+    token = torch.ones((ENG_SLOTS, 1), dtype=torch.long, device=dev)
+    cur = torch.full((ENG_SLOTS,), ENG_CACHE - 2, dtype=torch.int32,
+                     device=dev)
+
+    def step():
+        return decode_step(params, cfg, token, eng.cache, cur,
+                           sparse_ffn=sparse_ffn)
+
+    ms = statistics.median(execute_ms(step, reps))
+    prof = device_profile(step, n=3)
+    device_ms = sum(prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
+    return dict(step_ms=ms, device_ms=device_ms,
+                idle=idle_share(device_ms, ms),
+                top_device_ops={k: round(v, 4) for k, v in top})
+
+
+def vlm_phase(dev, seed, reps):
+    """llama-3.2-vision-90b at full width, one super-block (4 ``attn_ffn``
+    layers and one ``attn_ffn_cross``), f32 weights from ``seed`` through
+    ``init_model`` on the card with every ``xgate`` at ``XGATE``; patch
+    embeddings [4, 1601, 8192] from ``seed``.  ``ServeEngine(aux=...)``
+    with ``ENG_SLOTS`` slots, each request ``ENG_PROMPT`` + ``ENG_FORCED``
+    prompt tokens (the second half teacher-forced steps) and ``ENG_NEW``
+    greedy ones, staggered; one host sync a tick; on the weights rescaled
+    by :func:`well_scaled` every live slot's logits within ``SERVE_TOL``
+    normwise of ``prefill(tokens, aux)`` at that position, on the weights
+    as drawn the error by position printed.  The logits must move when
+    ``xgate`` is zeroed.  The decode step's times beside its byte floor."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, prefill
+    from repro_torch.models.layers import lm_logits
+    from repro_torch.serving import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_model(cfg, gen, device=dev)
+    for sub in params["blocks"].values():
+        if "xgate" in sub:
+            sub["xgate"].fill_(XGATE)
+    aux = torch.randn((ENG_SLOTS, cfg.n_image_tokens, cfg.d_model),
+                      generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = tree_bytes(params)
+    print(f"vlm model: {VLM_ARCH} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, d_head "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.n_image_tokens} image tokens), {cfg.n_layers} layers (a "
+          f"cross layer every {cfg.cross_attn_every}); init {init_s:.2f} s; "
+          f"{n_bytes / 1e9:.3f} GB of f32 weights; xgate {XGATE}",
+          flush=True)
+    prompts = engine_prompts(cfg, seed + 7, ENG_PROMPT + ENG_FORCED)
+    scaled = well_scaled(cfg, params)
+    runs = {}
+    for name, p in (("scaled", scaled), ("drawn", params)):
+        eng = ServeEngine(cfg, p, max_batch=ENG_SLOTS, cache_len=ENG_CACHE,
+                          aux=aux)
+        ticks, seqs = engine_run(eng, prompts, ENG_NEW)
+        runs[name] = dict(ticks=ticks, seqs=seqs, eng=eng, errs=(
+            ticks_against_prefill(p, cfg, aux, ticks, seqs, dev)))
+    syncs = sorted({t["syncs"] for r in runs.values() for t in r["ticks"]})
+    err, err_drawn = runs["scaled"]["errs"].max(), runs["drawn"]["errs"].max()
+
+    tok = torch.tensor(runs["scaled"]["seqs"], device=dev)[:, :ENG_PROMPT]
+    with_gate = lm_logits(scaled["unembed"], cfg,
+                          prefill(scaled, cfg, tok, aux))
+    blocks = {k: (dict(v, xgate=torch.zeros_like(v["xgate"]))
+                  if "xgate" in v else v) for k, v in scaled["blocks"].items()}
+    no_gate = lm_logits(scaled["unembed"], cfg, prefill(
+        dict(scaled, blocks=blocks), cfg, tok, aux))
+    move = rel_err(no_gate[..., :cfg.vocab], with_gate[..., :cfg.vocab]
+                   .double())
+    del with_gate, no_gate
+
+    eng = runs["scaled"]["eng"]
+    timing = step_timing(scaled, cfg, eng, dev, reps)
+    floor_bytes = n_bytes - params["embed"]["embedding"].numel() * 4 \
+        + tree_bytes(eng.cache)
+    out = dict(arch=VLM_ARCH, layers=cfg.n_layers, max_err=float(err),
+               max_err_drawn=float(err_drawn), syncs_per_tick=syncs,
+               ticks=len(runs["scaled"]["ticks"]),
+               tick_ms_median=statistics.median(
+                   t["ms"] for t in runs["scaled"]["ticks"]),
+               xgate_zero_move=move, **timing,
+               byte_floor_gb=floor_bytes / 1e9,
+               byte_floor_ms=floor_bytes / PEAK_BYTES_PER_S * 1e3,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"vlm serve: {json.dumps(out)}", flush=True)
+    for name in ("drawn", "scaled"):
+        print(f"vlm serve: error by position ({name}, max over slots) "
+              f"{json.dumps([float(f'{e:.3g}') for e in runs[name]['errs'].max(0)])}",
+              flush=True)
+    print(f"vlm serve: greedy tokens (well-scaled) "
+          f"{json.dumps([s[ENG_PROMPT + ENG_FORCED:] for s in runs['scaled']['seqs']])}",
+          flush=True)
+    check(err <= SERVE_TOL, f"vlm serve: engine off prefill by {err:.3g} "
+          f"normwise on well-scaled weights (limit {SERVE_TOL})")
+    check(syncs == [1], f"vlm serve: host syncs per tick {syncs}, expected 1")
+    check(move >= XGATE_MOVE, f"vlm: zeroing xgate moved the logits by "
+          f"{move:.3g} normwise (at least {XGATE_MOVE} expected)")
+    return out
+
+
+def encdec_phase(dev, seed, reps):
+    """seamless-m4t-large-v2 at full width and depth (24 encoder and 24
+    decoder layers), f32 weights from ``seed`` through ``init_model`` on the
+    card, frames [4, 4096, 1024] from ``seed``.  ``prefill(tokens,
+    frames)`` at [4, ``ENCDEC_PREFILL``]; the encoder's time over the
+    frames.  Serving (``ENG_SLOTS`` staggered slots, each ``ENG_PROMPT`` +
+    ``ENG_FORCED`` prompt tokens and ``ENG_NEW`` greedy ones) on the
+    weights rescaled by :func:`well_scaled` (a constant per leaf: the same
+    pruning pattern as the weights as drawn), the memory
+    ``_memory_from_aux(params, cfg, frames)``: the engine with its FFNs on
+    the spgemm path (``sparsify_ffn_params``, keep ``CROSS_KEEP``) against
+    the same engine on the densified weights, each tick within
+    ``MODEL_TOL`` normwise, with the counts set to 0 just before the
+    sparse run and all 0 after it (the torch stream); the dense engine
+    within ``SERVE_TOL`` of ``prefill`` at every position; an engine on the
+    raw frames (the reference's contract, C11) off it by more than
+    ``RAW_GAP``; on the weights as drawn the dense engine's error against
+    prefill printed.  One host sync a warm tick.  K1 against the torch
+    stream on the one-token plans (:func:`model_k1_phase`).  Plan,
+    decode-step and encoder times beside the byte floor."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import densify_ffn_params, init_model, prefill, \
+        sparsify_ffn_params
+    from repro_torch.models.lm import _memory_from_aux
+    from repro_torch.serving import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = init_model(cfg, gen, device=dev)
+    frames = torch.randn((ENG_SLOTS, cfg.n_audio_frames, cfg.d_model),
+                         generator=gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_bytes = tree_bytes(params)
+    prompt_tok = torch.tensor(engine_prompts(cfg, seed + 8, ENCDEC_PREFILL),
+                              device=dev)
+    t0 = time.perf_counter()
+    h = prefill(params, cfg, prompt_tok, frames)
+    torch.cuda.synchronize()
+    prefill_first_ms = (time.perf_counter() - t0) * 1e3
+    check(h.shape == (ENG_SLOTS, ENCDEC_PREFILL, cfg.d_model)
+          and bool(torch.isfinite(h).all()), "encdec prefill: output")
+    del h
+    prefill_ms = statistics.median(execute_ms(
+        lambda: prefill(params, cfg, prompt_tok, frames), 3))
+    encoder_ms = statistics.median(execute_ms(
+        lambda: _memory_from_aux(params, cfg, frames), 3))
+    prompts = engine_prompts(cfg, seed + 9, ENG_PROMPT + ENG_FORCED)
+    eng_a = ServeEngine(cfg, params, max_batch=ENG_SLOTS, cache_len=ENG_CACHE,
+                        aux=_memory_from_aux(params, cfg, frames))
+    ticks_a, seqs_a = engine_run(eng_a, prompts, ENG_NEW)
+    errs_a = ticks_against_prefill(params, cfg, frames, ticks_a, seqs_a, dev)
+    del eng_a
+
+    scaled = well_scaled(cfg, params)
+    del params
+    t0 = time.perf_counter()
+    sparse, overlay = sparsify_ffn_params(cfg, scaled,
+                                          keep_density=CROSS_KEEP)
+    torch.cuda.synchronize()
+    sparsify_s = time.perf_counter() - t0
+    dense = densify_ffn_params(cfg, sparse, overlay)
+    del scaled
+    nnz = {name: getattr(overlay["l0"], name).w_csc.nnz
+           for name in FFN_MATRICES}
+    print(f"encdec model: {ENCDEC_ARCH} at full width and depth (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, d_head {cfg.d_head}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_audio_frames} frames), "
+          f"{cfg.n_encoder_layers} encoder and {cfg.n_layers} decoder "
+          f"layers; init {init_s:.2f} s; {n_bytes / 1e9:.3f} GB of f32 "
+          f"weights; sparsify (keep {CROSS_KEEP}) {sparsify_s:.2f} s, kept "
+          f"values per matrix {json.dumps(nnz)}", flush=True)
+    data = dict(overlay=overlay, gen=gen)
+    plans = model_plans(data, 1)
+
+    memory = _memory_from_aux(dense, cfg, frames)
+    kernels.reset_launch_counts()
+    eng_s = ServeEngine(cfg, sparse, max_batch=ENG_SLOTS,
+                        cache_len=ENG_CACHE, aux=memory, sparse_ffn=overlay)
+    ticks_s, seqs_s = engine_run(eng_s, prompts, ENG_NEW)
+    counts = kernels.launch_counts()
+    eng_d = ServeEngine(cfg, dense, max_batch=ENG_SLOTS, cache_len=ENG_CACHE,
+                        aux=memory)
+    ticks_d, seqs_d = engine_run(eng_d, prompts, ENG_NEW)
+    errs_sd = ticks_against_ticks(ticks_s, ticks_d)
+    errs_d = ticks_against_prefill(dense, cfg, frames, ticks_d, seqs_d, dev)
+    eng_r = ServeEngine(cfg, dense, max_batch=ENG_SLOTS, cache_len=ENG_CACHE,
+                        aux=frames)
+    ticks_r, seqs_r = engine_run(eng_r, prompts, ENG_NEW)
+    errs_r = ticks_against_prefill(dense, cfg, frames, ticks_r, seqs_r, dev)
+    del eng_r, memory
+    syncs = sorted({t["syncs"] for run in (ticks_a, ticks_d, ticks_r)
+                    for t in run} | {t["syncs"] for t in ticks_s[1:]})
+
+    k1_before = kernels.launch_counts()["fused_stream"]
+    k1 = model_k1_phase(data, dev, reps)
+    k1_launches = kernels.launch_counts()["fused_stream"] - k1_before
+
+    sparse_t = step_timing(sparse, cfg, eng_s, dev, reps, overlay)
+    dense_t = step_timing(dense, cfg, eng_d, dev, reps)
+    read = dict(blocks=tree_bytes(dense["blocks"]),
+                unembed=tree_bytes(dense["unembed"]),
+                final_norm=tree_bytes(dense["final_norm"]),
+                cache=tree_bytes(eng_d.cache))
+    cross_kv = sum(tree_bytes({k: c[k] for k in ("xk", "xv")})
+                   for c in eng_d.cache.values())
+    floor_bytes = sum(read.values())
+    out = dict(arch=ENCDEC_ARCH, encoder_layers=cfg.n_encoder_layers,
+               decoder_layers=cfg.n_layers,
+               prefill_first_ms=prefill_first_ms, prefill_ms=prefill_ms,
+               encoder_ms=encoder_ms, sparsify_s=sparsify_s,
+               sparse_vs_dense_max_err=max(errs_sd),
+               greedy_equal=seqs_s == seqs_d,
+               engine_vs_prefill_max_err=float(errs_d.max()),
+               engine_vs_prefill_max_err_drawn=float(errs_a.max()),
+               raw_frames_vs_prefill_min_err=float(errs_r.min()),
+               raw_frames_vs_prefill_max_err=float(errs_r.max()),
+               syncs_per_warm_tick=syncs, first_sparse_tick_syncs=ticks_s[0][
+                   "syncs"], ticks=len(ticks_s),
+               sparse_tick_ms_median=statistics.median(
+                   t["ms"] for t in ticks_s[1:]),
+               dense_tick_ms_median=statistics.median(
+                   t["ms"] for t in ticks_d),
+               launches={k: v for k, v in counts.items() if v},
+               k1_launches=k1_launches,
+               sparse_step=sparse_t, dense_step=dense_t,
+               byte_floor_gb=floor_bytes / 1e9,
+               cross_kv_gb=cross_kv / 1e9,
+               byte_floor_ms=floor_bytes / PEAK_BYTES_PER_S * 1e3,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"encdec serve: {json.dumps(out)}", flush=True)
+    print(f"encdec serve: greedy tokens (sparse) "
+          f"{json.dumps([s[ENG_PROMPT + ENG_FORCED:] for s in seqs_s])}; "
+          f"(dense) "
+          f"{json.dumps([s[ENG_PROMPT + ENG_FORCED:] for s in seqs_d])}",
+          flush=True)
+    for name, e in (("well-scaled, encoded memory", errs_d),
+                    ("as drawn, encoded memory", errs_a),
+                    ("well-scaled, raw frames", errs_r)):
+        print(f"encdec serve: error against prefill by position (max over "
+              f"slots), {name}: "
+              f"{json.dumps([float(f'{x:.3g}') for x in e.max(0)])}",
+              flush=True)
+    check(max(errs_sd) <= MODEL_TOL, f"encdec serve: sparse engine off the "
+          f"dense one by {max(errs_sd):.3g} normwise (limit {MODEL_TOL})")
+    check(not any(counts.values()), f"encdec serve: kernels launched on the "
+          f"torch stream's path: {counts}")
+    check(errs_d.max() <= SERVE_TOL, f"encdec serve: engine off prefill by "
+          f"{errs_d.max():.3g} normwise on well-scaled weights (limit "
+          f"{SERVE_TOL})")
+    check(errs_r.min() > RAW_GAP, f"encdec serve: the engine on raw frames "
+          f"came within {errs_r.min():.3g} of prefill (C11: the reference's "
+          "engine installs the raw frames, prefill encodes them)")
+    check(syncs == [1], f"encdec serve: host syncs per warm tick {syncs}, "
+          "expected 1")
+    check(k1_launches > 0, "encdec: K1 did not launch")
+    return dict(out, plans=plans, k1=k1)
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line saying how long it took."""
     import torch
@@ -4127,6 +4517,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, src)
+    from repro_torch import kernels
     from repro_torch.core import plan_cache_clear, plan_spgemm
     from repro_torch.kernels import _build
 
@@ -4232,7 +4623,9 @@ def main(argv=None) -> int:
     model_plans(model, 1)
     served = timed(model_serve, model, dev, args.seed)
     timed(model_prefill_and_loop, model, served, dev, args.seed)
+    k1_before = kernels.launch_counts()["fused_stream"]
     timed(model_k1_phase, model, dev, args.reps)
+    k1_model = kernels.launch_counts()["fused_stream"] - k1_before
     timed(model_timing, model, served, dev, args.reps)
     print(f"model phases: {time.perf_counter() - t_model:.1f} s; card: "
           f"{card}", flush=True)
@@ -4269,6 +4662,24 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     print(f"ssm phases: {time.perf_counter() - t_ssm:.1f} s; card: {card}",
           flush=True)
+
+    # phase 16: the cross-attention families through the serving engine,
+    # one model at a time
+    t_cross = time.perf_counter()
+    timed(vlm_phase, dev, args.seed, args.reps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec = timed(encdec_phase, dev, args.seed, args.reps)
+    plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for row in rows:
+        if row["name"] == KERNELS["fused"]["name"]:
+            row["launches_by_path"] = dict(
+                main=row["launches"], model_k1=k1_model,
+                encdec_k1=encdec["k1_launches"])
+    print(f"cross phases: {time.perf_counter() - t_cross:.1f} s; card: "
+          f"{card}", flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, build "
           "included", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,8 +1,8 @@
-"""The port's models, as far as the ported slices run them: the config
-dataclasses, parameter tables, layers, the model stack (``blocks``, ``lm``)
-of the dense, MoE (``moe``), SSM (``ssm``) and hybrid families, and the
-sparse FFN (dense path, the BSR kernel K5, or the spgemm path on the
-product stream)."""
+"""The port's models: the config dataclasses, parameter tables, layers,
+the model stack (``blocks``, ``lm``) of every family (dense, MoE (``moe``),
+SSM (``ssm``), hybrid, and the cross-attention families VLM and
+encoder-decoder), and the sparse FFN (dense path, the BSR kernel K5, or the
+spgemm path on the product stream)."""
 
 from repro_torch.models.config import (
     ALL_SHAPES, DECODE_32K, LONG_500K, PREFILL_32K, TRAIN_4K,

@@ -10,12 +10,12 @@ port loops over it in Python, rep by rep, with the same arithmetic.
 
 Sub-layer kinds: "attn_ffn", "attn_moe", "mamba", "shared_attn" (applies the
 tied block of the hybrid family's shared table, which the functions here
-take as ``shared``), "attn_ffn_cross", "enc_attn_ffn", "dec_attn_cross_ffn".
-The port runs the first four (the dense, MoE, SSM and hybrid families);
-:func:`block_structure` knows every family, and the three cross-attention
-kinds raise until the cross-attention slice ports them.  The reference's
-sharding hints (``distributed/hints.py``) are no-ops on one device and are
-left out until the mesh is ported.
+take as ``shared``), "attn_ffn_cross" (the VLM's gated cross-attention
+layer), "enc_attn_ffn" (the encoder's non-causal layer) and
+"dec_attn_cross_ffn" (the decoder's layer with cross-attention to the
+encoder's memory).  The reference's sharding hints
+(``distributed/hints.py``) are no-ops on one device and are left out until
+the mesh is ported.
 """
 
 from __future__ import annotations
@@ -25,24 +25,14 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import params as pp
 from repro_torch.models.layers import attention, attention_decode, \
-    attention_table, ffn, ffn_table, rms_norm
+    attention_table, cross_attention_cached, ffn, ffn_table, rms_norm
 from repro_torch.models.moe import moe_aux_loss, moe_ffn, moe_table
 from repro_torch.models.ssm import mamba_forward, mamba_init_state, \
     mamba_table
 
-PORTED_KINDS = ("attn_ffn", "attn_moe", "mamba", "shared_attn")
-
-
-def _waits(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"sub-layer kind {kind!r} waits for the cross-attention slice of "
-        f"the port; the port runs {list(PORTED_KINDS)} (the dense, MoE, "
-        "SSM and hybrid families)")
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise _waits(kind)
+ATTN_KINDS = ("attn_ffn", "attn_moe", "attn_ffn_cross", "enc_attn_ffn",
+              "dec_attn_cross_ffn")
+CROSS_KINDS = ("attn_ffn_cross", "dec_attn_cross_ffn")
 
 
 def block_structure(cfg):
@@ -80,8 +70,7 @@ def _check_divides(n_layers: int, k: int) -> None:
 
 
 def _sub_table(cfg, kind):
-    _check_kind(kind)
-    if kind == "attn_ffn":
+    if kind in ("attn_ffn", "enc_attn_ffn"):
         return {"ln1": pp.rmsnorm(cfg.d_model), "attn": attention_table(cfg),
                 "ln2": pp.rmsnorm(cfg.d_model), "ffn": ffn_table(cfg)}
     if kind == "attn_moe":
@@ -89,7 +78,16 @@ def _sub_table(cfg, kind):
                 "ln2": pp.rmsnorm(cfg.d_model), "moe": moe_table(cfg)}
     if kind == "mamba":
         return {"ln": pp.rmsnorm(cfg.d_model), "mamba": mamba_table(cfg)}
-    return {}   # shared_attn: its weights live in the shared table
+    if kind == "shared_attn":
+        return {}   # its weights live in the shared table
+    if kind in CROSS_KINDS:
+        t = {"ln1": pp.rmsnorm(cfg.d_model), "attn": attention_table(cfg),
+             "lnx": pp.rmsnorm(cfg.d_model),
+             "xattn": attention_table(cfg, bias=False)}
+        if kind == "attn_ffn_cross":   # the VLM's tanh gate, 0 at init
+            t["xgate"] = pp.Leaf((), (), "zeros")
+        return dict(t, ln2=pp.rmsnorm(cfg.d_model), ffn=ffn_table(cfg))
+    raise ValueError(kind)
 
 
 def superblock_table(cfg):
@@ -128,25 +126,54 @@ def _stack(per_rep: list):
     return torch.stack(per_rep)
 
 
+def _restack(stacked, old_reps: list, new_reps: list):
+    """``new_reps`` stacked leaf by leaf like :func:`_stack`, except that a
+    leaf which every rep passed through unchanged (the very views
+    ``old_reps`` took of ``stacked``: the memory's K/V at decode) keeps
+    ``stacked``'s tensor instead of a copy of it."""
+    if isinstance(stacked, dict):
+        return {k: _restack(stacked[k], [t[k] for t in old_reps],
+                            [t[k] for t in new_reps]) for k in new_reps[0]}
+    if all(n is o for n, o in zip(new_reps, old_reps)):
+        return stacked
+    return torch.stack(new_reps)
+
+
 # ---------------------------------------------------------------------------
 # full-sequence forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
-def _sub_forward(p, shared, cfg, kind, h, *, sffn=None):
+def _cross(p, h, xa):
+    """The residual add of a cross-attention output, through the VLM's
+    ``tanh(xgate)`` where the sub-layer has one."""
+    if "xgate" in p:
+        xa = torch.tanh(p["xgate"]).to(h.dtype) * xa
+    return h + xa
+
+
+def _sub_forward(p, shared, cfg, kind, h, *, memory=None, causal=True,
+                 sffn=None):
     """One sub-layer, full sequence. Returns (h, aux_loss).
 
     ``shared`` is the hybrid family's tied block (``shared_attn``), None
-    for the other families.  ``sffn`` is this sub-layer's spgemm-path FFN
-    overlay: a shared-pattern
-    :class:`~repro_torch.models.sparse_ffn.SparseFFN` applied with the
-    rep's value stacks ``p["ffn"]`` in place of the dense SwiGLU.
+    for the other families.  ``memory`` [B, N, D] is what the cross kinds
+    attend to (image embeddings or the encoder's output); ``causal`` False
+    makes every self-attention non-causal (the encoder's kind is always
+    non-causal).  ``sffn`` is this sub-layer's spgemm-path FFN overlay: a
+    shared-pattern :class:`~repro_torch.models.sparse_ffn.SparseFFN`
+    applied with the rep's value stacks ``p["ffn"]`` in place of the dense
+    SwiGLU.
     """
-    _check_kind(kind)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if kind in ("attn_ffn", "attn_moe"):
+    if kind in ATTN_KINDS:
         h = h + attention(p["attn"], cfg,
-                          rms_norm(p["ln1"], h, cfg.norm_eps))
+                          rms_norm(p["ln1"], h, cfg.norm_eps),
+                          causal=causal and kind != "enc_attn_ffn")
+        if kind in CROSS_KINDS:
+            h = _cross(p, h, attention(
+                p["xattn"], cfg, rms_norm(p["lnx"], h, cfg.norm_eps),
+                kv_src=memory, causal=False, use_rope=False))
         hn = rms_norm(p["ln2"], h, cfg.norm_eps)
         if kind == "attn_moe":
             aux = moe_aux_loss(p["moe"], cfg, hn)
@@ -160,10 +187,13 @@ def _sub_forward(p, shared, cfg, kind, h, *, sffn=None):
         y, _ = mamba_forward(p["mamba"], cfg,
                              rms_norm(p["ln"], h, cfg.norm_eps))
         return h + y, aux
-    return _sub_forward(shared, None, cfg, "attn_ffn", h)   # shared_attn
+    if kind == "shared_attn":     # causal, as in the reference
+        return _sub_forward(shared, None, cfg, "attn_ffn", h)
+    raise ValueError(kind)
 
 
-def stage_forward(stacked, shared, cfg, kinds, h, *, sparse_ffn=None):
+def stage_forward(stacked, shared, cfg, kinds, h, *, memory=None,
+                  causal=True, sparse_ffn=None):
     """Run the super-block over its reps. Returns (h, total_aux).
 
     ``cfg.remat`` has no effect here: it is the reference's checkpoint
@@ -176,6 +206,7 @@ def stage_forward(stacked, shared, cfg, kinds, h, *, sparse_ffn=None):
         p_rep = _rep(stacked, r)
         for i, kind in enumerate(kinds):
             h, a = _sub_forward(p_rep.get(f"l{i}", {}), shared, cfg, kind, h,
+                                memory=memory, causal=causal,
                                 sffn=sparse_ffn.get(f"l{i}"))
             aux = aux + a
     return h, aux
@@ -189,20 +220,31 @@ def stage_forward(stacked, shared, cfg, kinds, h, *, sparse_ffn=None):
 def sub_cache_shape(cfg, kind, batch, cache_len, dtype=torch.bfloat16,
                     device=None):
     """Zero cache for one sub-layer, on ``device`` (default the card): K/V
-    for an attention kind, (conv window, SSM state) for a mamba one."""
-    _check_kind(kind)
+    for an attention kind, (conv window, SSM state) for a mamba one, and
+    for a cross kind also the memory's K/V ``xk``/``xv`` [B, N, Hkv, Dh]
+    (N the config's image tokens or audio frames), which the serving
+    engine fills (``ServeEngine._install_memory``)."""
     device = resolve_device(device)
     if kind == "mamba":
         conv, h = mamba_init_state(cfg, batch, dtype, device)
         return {"conv": conv, "h": h}
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind not in ("attn_ffn", "attn_moe", "shared_attn") + CROSS_KINDS:
+        raise ValueError(kind)
+
+    def kv(n):
+        return torch.zeros((batch, n, cfg.n_kv_heads, cfg.d_head),
+                           dtype=dtype, device=device)
+
+    out = {"k": kv(cache_len), "v": kv(cache_len)}
+    if kind in CROSS_KINDS:
+        n = cfg.n_image_tokens if kind == "attn_ffn_cross" \
+            else cfg.n_audio_frames
+        out.update(xk=kv(n), xv=kv(n))
+    return out
 
 
 def _sub_decode(p, shared, cfg, kind, h, cache, cur_len, *, sffn=None,
                 sffn_host=False):
-    _check_kind(kind)
     if kind == "mamba":
         y, (conv, hs) = mamba_forward(
             p["mamba"], cfg, rms_norm(p["ln"], h, cfg.norm_eps),
@@ -210,11 +252,17 @@ def _sub_decode(p, shared, cfg, kind, h, cache, cur_len, *, sffn=None,
         return h + y, {"conv": conv, "h": hs}
     if kind == "shared_attn":
         return _sub_decode(shared, None, cfg, "attn_ffn", h, cache, cur_len)
+    if kind not in ("attn_ffn", "attn_moe") + CROSS_KINDS:
+        raise ValueError(kind)
     a, ck, cv = attention_decode(
         p["attn"], cfg, rms_norm(p["ln1"], h, cfg.norm_eps),
         cache["k"], cache["v"], cur_len)
     h = h + a
     cache = dict(cache, k=ck, v=cv)
+    if kind in CROSS_KINDS:
+        h = _cross(p, h, cross_attention_cached(
+            p["xattn"], cfg, rms_norm(p["lnx"], h, cfg.norm_eps),
+            cache["xk"], cache["xv"]))
     hn = rms_norm(p["ln2"], h, cfg.norm_eps)
     if kind == "attn_moe":
         h = h + moe_ffn(p["moe"], cfg, hn)
@@ -232,7 +280,7 @@ def _sub_decode(p, shared, cfg, kind, h, cache, cur_len, *, sffn=None,
 def _decode_reps(stacked, shared, cfg, kinds, h, caches, cur_len, sparse_ffn,
                  sffn_host):
     sparse_ffn = sparse_ffn or {}
-    per_rep = []
+    old_reps, per_rep = [], []
     for r in range(_n_rep(stacked)):
         p_rep, c_rep = _rep(stacked, r), _rep(caches, r)
         new_c = {}
@@ -241,8 +289,9 @@ def _decode_reps(stacked, shared, cfg, kinds, h, caches, cur_len, sparse_ffn,
                 p_rep.get(f"l{i}", {}), shared, cfg, kind, h,
                 c_rep[f"l{i}"], cur_len, sffn=sparse_ffn.get(f"l{i}"),
                 sffn_host=sffn_host)
+        old_reps.append(c_rep)
         per_rep.append(new_c)
-    return h, _stack(per_rep)
+    return h, _restack(caches, old_reps, per_rep)
 
 
 def stage_decode(stacked, shared, cfg, kinds, h, caches, cur_len, *,

@@ -1,7 +1,7 @@
 """Model primitives: norm, rotary, chunked (flash-style) attention, FFN, loss.
 
-The port of the JAX package's ``repro/models/layers.py`` for the dense,
-MoE, SSM and hybrid families.  All functions are pure; parameters come from ``params.py`` tables.
+The port of the JAX package's ``repro/models/layers.py``.  All functions
+are pure; parameters come from ``params.py`` tables.
 Attention is two-level chunked with online softmax, so no ``[S, S]`` score
 tensor is ever materialised (the 32k prefill shapes need that), in plain
 PyTorch ops: these are the reference's plain-jnp computations outside any
@@ -10,9 +10,10 @@ softmax runs in ``_chunked_attn``'s order, the reference's.
 
 Every product is full f32 (:func:`check_full_f32`); a bf16 operand (a bf16
 KV cache) is widened before its product, as the reference's
-``preferred_element_type=float32`` accumulates it.  Cross-attention against
-a cached memory (``cross_attention_cached``) waits for the cross-attention
-slice (the VLM and encoder-decoder kinds).
+``preferred_element_type=float32`` accumulates it.  Cross-attention (the
+VLM and encoder-decoder kinds) is :func:`attention` with ``kv_src=`` over a
+full sequence and :func:`cross_attention_cached` against the memory's
+K/V at decode.
 """
 
 from __future__ import annotations
@@ -81,9 +82,11 @@ def rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def attention_table(cfg):
-    """QKV + out projections; fused head dims."""
-    d, bias = cfg.d_model, cfg.qkv_bias
+def attention_table(cfg, *, bias=None):
+    """QKV + out projections; fused head dims.  ``bias`` None takes the
+    config's ``qkv_bias`` (the cross-attention tables pass False)."""
+    d = cfg.d_model
+    bias = cfg.qkv_bias if bias is None else bias
     return {
         "wq": pp.linear(d, cfg.qkv_fused_q, "embed", "heads", bias=bias),
         "wk": pp.linear(d, cfg.qkv_fused_kv, "embed", "heads", bias=bias),
@@ -142,20 +145,27 @@ def _chunked_attn(q, k, v, *, causal: bool, q_offset, q_chunk, kv_chunk):
     return torch.stack(outs, dim=1).reshape(b, sq, hkv, g, dh)
 
 
-def attention(p, cfg, x):
-    """Causal self-attention over full sequences (train/prefill), rotary
-    positions 0..S-1."""
+def attention(p, cfg, x, *, kv_src=None, causal=True, use_rope=True):
+    """Self- or cross-attention over full sequences (train/prefill).
+
+    Keys and values come from ``kv_src`` [B, Skv, D] (the memory) when it is
+    given, else from ``x``; with ``use_rope`` the queries take rotary
+    positions 0..S-1 and the keys 0..Skv-1."""
     b, s, _ = x.shape
+    kv_in = x if kv_src is None else kv_src
+    skv = kv_in.shape[1]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     g = hq // hkv
     q = dense(p["wq"], x).reshape(b, s, hkv, g, dh)
-    k = dense(p["wk"], x).reshape(b, s, hkv, dh)
-    v = dense(p["wv"], x).reshape(b, s, hkv, dh)
-    positions = torch.arange(s, device=x.device)[None, :]
-    q = rope(q.reshape(b, s, hkv * g, dh), positions,
-             cfg.rope_theta).reshape(b, s, hkv, g, dh)
-    k = rope(k, positions, cfg.rope_theta)
-    out = _chunked_attn(q, k, v, causal=True, q_offset=0,
+    k = dense(p["wk"], kv_in).reshape(b, skv, hkv, dh)
+    v = dense(p["wv"], kv_in).reshape(b, skv, hkv, dh)
+    if use_rope:
+        positions = torch.arange(s, device=x.device)[None, :]
+        kv_positions = torch.arange(skv, device=x.device)[None, :]
+        q = rope(q.reshape(b, s, hkv * g, dh), positions,
+                 cfg.rope_theta).reshape(b, s, hkv, g, dh)
+        k = rope(k, kv_positions, cfg.rope_theta)
+    out = _chunked_attn(q, k, v, causal=causal, q_offset=0,
                         q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
     return dense(p["wo"], out.reshape(b, s, hq * dh).to(x.dtype))
 
@@ -196,6 +206,20 @@ def attention_decode(p, cfg, x, cache_k, cache_v, cur_len):
     out = _einsum("bhgqk,bkhd->bqhgd", w.to(cache_v.dtype), cache_v)
     out = out.reshape(b, 1, hq * dh).to(x.dtype)
     return dense(p["wo"], out), cache_k, cache_v
+
+
+def cross_attention_cached(p, cfg, x, mem_k, mem_v):
+    """Cross-attention of one token against the memory's precomputed K/V
+    (decode path): x [B,1,D]; mem_k/v [B,N,Hkv,Dh], every position visible,
+    no rotary positions."""
+    b = x.shape[0]
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    g = hq // hkv
+    q = dense(p["wq"], x).reshape(b, 1, hkv, g, dh)
+    s = _einsum("bqhgd,bkhd->bhgqk", q * dh ** -0.5, mem_k.to(q.dtype))
+    w = torch.softmax(s, dim=-1)
+    out = _einsum("bhgqk,bkhd->bqhgd", w.to(mem_v.dtype), mem_v)
+    return dense(p["wo"], out.reshape(b, 1, hq * dh).to(x.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,11 @@
 """Full language model: tables, init, train/prefill/decode entry points.
 
-The port of the JAX package's ``repro/models/lm.py`` for the dense, MoE,
-SSM and hybrid families (the VLM and encoder-decoder families wait for the
-cross-attention slice).  Public surface:
+The port of the JAX package's ``repro/models/lm.py``, every family.  Public
+surface:
   model_tables(cfg)                          -> declarative param table
   init_model(cfg, generator, device=None)    -> param tree on the card
-  train_loss(params, cfg, batch)             batch: tokens, labels
-  prefill(params, cfg, tokens, ...)          -> final hidden
+  train_loss(params, cfg, batch)             batch: tokens, labels (+aux)
+  prefill(params, cfg, tokens, aux=None)     -> final hidden
   decode_step(params, cfg, token, cache, cur_len) -> (logits, cache)
   init_cache(cfg, batch, cache_len)
 
@@ -15,6 +14,13 @@ cross-attention slice).  Public surface:
 sub-layer's FFN runs the cached SpGEMM plans' product stream on its rep's
 value stacks instead of the dense SwiGLU.  ``train_loss`` is the loss value;
 its backward comes with the training slice.
+
+``aux`` is the cross-attention families' input: the VLM's pre-projected
+patch embeddings [B, n_image_tokens, D] and the encoder-decoder's frame
+embeddings [B, n_audio_frames, D] (the reference's frontends are stubs);
+the other families ignore it.  Decode reads the memory's K/V from the
+cache, where the serving engine writes them
+(``repro_torch.serving.ServeEngine``).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 
 from repro_torch.models import params as pp
 from repro_torch.models.blocks import stage_cache, stage_decode, \
-    stage_decode_loop, stage_forward, superblock_table
+    stage_decode_loop, stage_forward, superblock_table, _sub_table
 from repro_torch.models.layers import embed, embed_table, lm_logits, \
     lm_loss, rms_norm, unembed_table
 from repro_torch.models.params import init_params, stack_tables
@@ -41,6 +47,10 @@ def model_tables(cfg):
     }
     if shared is not None:
         t["shared"] = shared
+    if cfg.family == "encdec":
+        t["encoder"] = stack_tables({"l0": _sub_table(cfg, "enc_attn_ffn")},
+                                    cfg.n_encoder_layers)
+        t["enc_norm"] = pp.rmsnorm(cfg.d_model)
     return t
 
 
@@ -50,28 +60,33 @@ def init_model(cfg, generator: torch.Generator, device=None):
     return init_params(model_tables(cfg), generator, device)
 
 
-def _memory_from_aux(cfg):
-    """Encoder memory (encdec) or image embeddings (vlm) for cross-attention:
-    both wait for the cross-attention slice; the other families have none
-    (and ignore ``aux``, as in the reference)."""
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} needs cross-attention memory, which "
-            "waits for the cross-attention slice of the port")
+def _memory_from_aux(params, cfg, aux):
+    """The cross-attention memory: for encdec the encoder's output on the
+    frame embeddings ``aux`` (``n_encoder_layers`` non-causal layers, then
+    ``enc_norm``), for vlm the patch embeddings ``aux`` as they are, and
+    None for the other families (which ignore ``aux``)."""
+    if cfg.family == "encdec":
+        h, _ = stage_forward(params["encoder"], None, cfg, ["enc_attn_ffn"],
+                             aux, causal=False)
+        return rms_norm(params["enc_norm"], h, cfg.norm_eps)
+    if cfg.family == "vlm":
+        return aux
+    return None
 
 
 def backbone(params, cfg, tokens, aux=None, *, sparse_ffn=None):
     """tokens [B,S] -> final-normed hidden [B,S,D] (+ MoE aux loss)."""
-    _memory_from_aux(cfg)
     h = embed(params["embed"], tokens)
+    memory = _memory_from_aux(params, cfg, aux)
     _, kinds, _, _ = superblock_table(cfg)
     h, aux_loss = stage_forward(params["blocks"], params.get("shared"), cfg,
-                                kinds, h, sparse_ffn=sparse_ffn)
+                                kinds, h, memory=memory,
+                                sparse_ffn=sparse_ffn)
     return rms_norm(params["final_norm"], h, cfg.norm_eps), aux_loss
 
 
 def train_loss(params, cfg, batch, *, sparse_ffn=None):
-    """batch: dict(tokens [B,S], labels [B,S]) -> scalar loss."""
+    """batch: dict(tokens [B,S], labels [B,S], aux?) -> scalar loss."""
     h, aux_loss = backbone(params, cfg, batch["tokens"], batch.get("aux"),
                            sparse_ffn=sparse_ffn)
     loss = lm_loss(params["unembed"], cfg, h, batch["labels"])

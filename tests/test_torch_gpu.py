@@ -18,8 +18,11 @@ the card against the dense oracle, with no host wait after its first step,
 and K1 against the torch stream on one FFN plan; and the MoE, SSM and
 hybrid families: a smoke-size ``decode_step`` on the card against the same
 model on the CPU, with no host wait after its first step, and the MoE
-dispatch as SpGEMM launching K2, exact on integer values.  Every test needs
-a card (marker ``gpu``) and skips without one.
+dispatch as SpGEMM launching K2, exact on integer values; and the
+serving engine on the VLM and encoder-decoder families: the CPU engine's
+tokens and logits, one host sync a tick, bit-stable ticks, and params on
+another device refused.  Every test needs a card (marker ``gpu``) and skips
+without one.
 
 The module pins ``REPRO_PROFILE_DIR`` to a path nothing writes before any
 profile is consulted (as ``tests/conftest.py`` does for the CPU suite,
@@ -1478,3 +1481,80 @@ def test_moe_dispatch_spgemm_on_card_launches_k2(cuda):
     np.put_along_axis(r, idx, gates.astype(np.float64), axis=1)
     np.testing.assert_array_equal(got.cpu().numpy().astype(np.float64),
                                   r.T @ x.astype(np.float64))
+
+
+# -- the cross-attention families and the serving engine ---------------------
+
+
+def _serve_ticks(eng, prompts, max_new):
+    """Serve ``prompts`` tick by tick: each tick's host logits and the host
+    syncs it made (``torch.cuda.set_sync_debug_mode``) on the card."""
+    for p in prompts:
+        eng.submit(p, max_new_tokens=max_new)
+    logits, syncs, decode = [], [], eng._decode
+    eng._decode = lambda toks: logits.append(decode(toks)) or logits[-1]
+    while eng.queue or any(eng.slots):
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                eng.step()
+                torch.cuda.set_sync_debug_mode("default")
+            syncs.append(sum("called a synchronizing CUDA operation"
+                             in str(w.message) for w in caught))
+        else:
+            eng.step()
+    return logits, syncs, {k: r.generated for k, r in eng.finished.items()}
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2"])
+def test_engine_serves_cross_families_on_card(arch, cuda):
+    """The engine at smoke size on the card, the memory installed from
+    ``_memory_from_aux`` (every ``xgate`` at 0.7, weights well-scaled):
+    the CPU engine's tokens, every tick's logits within 1e-5 normwise of
+    the CPU's, one host sync a tick (the logits' copy, counted in
+    ``stats()``), and a second engine on the card equal bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, smoke
+    from repro_torch.models.lm import _memory_from_aux
+    from repro_torch.serving import ServeEngine
+
+    cfg = smoke(get_config(arch))
+    params = _well_scaled(cfg, init_model(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    for sub in params["blocks"].values():
+        if "xgate" in sub:
+            sub["xgate"] = torch.full_like(sub["xgate"], 0.7)
+    n = cfg.n_image_tokens if cfg.family == "vlm" else cfg.n_audio_frames
+    x = torch.randn((3, n, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    prompts = ([1, 2, 3], [4, 5, 6, 7, 8], [9], [10, 11])
+    dparams = _to(params, cuda)
+    runs = []
+    for dev, p in (("cpu", params), (cuda, dparams), (cuda, dparams)):
+        eng = ServeEngine(cfg, p, max_batch=3, cache_len=32, device=dev,
+                          aux=_memory_from_aux(p, cfg, x.to(dev)))
+        runs.append(_serve_ticks(eng, prompts, 5) + (eng.stats(),))
+    (want, _, want_tok, _), (got, syncs, got_tok, stats), \
+        (again, _, _, _) = runs
+    assert got_tok == want_tok and len(got) == len(want)
+    for g, w in zip(got, want):
+        assert _normwise(torch.from_numpy(g), torch.from_numpy(w)) <= 1e-5
+    assert set(syncs) == {1}, syncs
+    assert stats["host_syncs"] == stats["jit_ticks"] == len(got)
+    assert all(np.array_equal(a, b) for a, b in zip(got, again))
+
+
+def test_engine_refuses_params_on_another_device(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, smoke
+    from repro_torch.serving import ServeEngine
+
+    cfg = smoke(get_config("qwen2-0.5b"))
+    params = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="params lie on cpu"):
+        ServeEngine(cfg, params)
+    with pytest.raises(ValueError, match="params lie on cuda"):
+        ServeEngine(cfg, _to(params, cuda), device="cpu")

@@ -1,8 +1,9 @@
 """The port's model stack (``repro_torch.models``: config, params, layers,
-blocks, lm) against the JAX package's: every ported config's tables,
-caches and inits, and the dense family's layers and whole models (the MoE,
-SSM and hybrid families' whole models are in
-``tests/test_torch_models_families.py``).
+blocks, lm) against the JAX package's: every config's tables, caches and
+inits, and the dense family's layers and whole models (the MoE, SSM and
+hybrid families' whole models are in
+``tests/test_torch_models_families.py``, the cross-attention families' in
+``tests/test_torch_models_cross.py``).
 
 Inputs are made with numpy from a seed; whole models are drawn by the
 reference's ``init_model`` and carried across by
@@ -64,10 +65,10 @@ ATTN_TOL = 2e-5
 LAYER_TOL = 1e-5
 MODEL_TOL = 1e-5
 DENSE = ("granite-20b", "qwen2-0.5b", "yi-34b", "deepseek-coder-33b")
+CROSS = ("llama-3.2-vision-90b", "seamless-m4t-large-v2")
 FAMILIES = ("qwen3-moe-30b-a3b", "llama4-maverick-400b-a17b",
-            "falcon-mamba-7b", "zamba2-2.7b")
+            "falcon-mamba-7b", "zamba2-2.7b") + CROSS
 PORTED = DENSE + FAMILIES
-OTHERS = sorted(set(REF_ARCHS) - set(PORTED))
 
 
 def normwise(got, want) -> float:
@@ -113,8 +114,8 @@ def test_dense_configs_are_the_references(arch):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_moe_ssm_hybrid_configs_are_the_references(arch):
-    """The MoE, SSM and hybrid configs, full and at smoke size, with their
-    MoE and SSM sub-configs and derived widths."""
+    """The MoE, SSM, hybrid, VLM and encoder-decoder configs, full and at
+    smoke size, with their MoE and SSM sub-configs and derived widths."""
     cfg, ref = get_config(arch), REF_ARCHS[arch]
     for got, want in ((cfg, ref), (smoke(cfg), ref_config.smoke(ref))):
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
@@ -164,8 +165,10 @@ def test_model_tables_are_the_references(arch):
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_family_tables_are_the_references(arch):
-    """The MoE layers' expert stacks, the Mamba tables and the hybrid
-    family's shared table (``t["shared"]``), full and at smoke size."""
+    """The MoE layers' expert stacks, the Mamba tables, the hybrid
+    family's shared table (``t["shared"]``), the cross layers' ``xattn``
+    (no bias), ``lnx`` and ``xgate`` and the encoder's table and
+    ``enc_norm``, full and at smoke size."""
     for cfg, ref in ((get_config(arch), REF_ARCHS[arch]),
                      (smoke(get_config(arch)),
                       ref_config.smoke(REF_ARCHS[arch]))):
@@ -176,17 +179,39 @@ def test_family_tables_are_the_references(arch):
     assert ("shared" in model_tables(cfg)) == (cfg.family == "hybrid")
 
 
-@pytest.mark.parametrize("arch", OTHERS)
-def test_kinds_not_yet_ported_raise(arch):
-    cfg = port_config_of(ref_config.smoke(REF_ARCHS[arch]))
-    with pytest.raises(NotImplementedError, match="cross-attention slice"):
-        model_tables(cfg)
-    kinds, _, _ = block_structure(cfg)
-    other = next(k for k in kinds if k != "attn_ffn")
-    with pytest.raises(NotImplementedError, match="cross-attention slice"):
-        sub_cache_shape(cfg, other, 1, 4, device="cpu")
-    with pytest.raises(KeyError, match="unknown arch"):
-        get_config(arch)
+@pytest.mark.parametrize("arch", CROSS)
+def test_cross_kinds_tables_and_caches(arch):
+    """The cross kinds' sub-tables (``xgate`` only on the VLM's, a zero
+    scalar per rep), the memory's K/V in the cache at the config's image
+    tokens or audio frames, the encoder table of encdec; an unknown kind
+    raises."""
+    cfg = smoke(get_config(arch))
+    kinds, n_rep, _ = block_structure(cfg)
+    cross = kinds[-1]
+    assert cross == ("attn_ffn_cross" if cfg.family == "vlm"
+                     else "dec_attn_cross_ffn")
+    t = model_tables(cfg)
+    sub = t["blocks"][f"l{len(kinds) - 1}"]
+    assert set(sub) == {"ln1", "attn", "lnx", "xattn", "ln2", "ffn"} | (
+        {"xgate"} if cfg.family == "vlm" else set())
+    assert set(sub["xattn"]["wq"]) == {"w"}
+    if cfg.family == "vlm":
+        assert (sub["xgate"].shape, sub["xgate"].init) == ((n_rep,), "zeros")
+    n = cfg.n_image_tokens if cfg.family == "vlm" else cfg.n_audio_frames
+    c = sub_cache_shape(cfg, cross, 3, 8, device="cpu")
+    assert {k: tuple(v.shape) for k, v in c.items()} == {
+        "k": (3, 8, cfg.n_kv_heads, cfg.d_head),
+        "v": (3, 8, cfg.n_kv_heads, cfg.d_head),
+        "xk": (3, n, cfg.n_kv_heads, cfg.d_head),
+        "xv": (3, n, cfg.n_kv_heads, cfg.d_head)}
+    assert ("encoder" in t) == ("enc_norm" in t) == (cfg.family == "encdec")
+    if cfg.family == "encdec":
+        assert t["encoder"]["l0"]["attn"]["wq"]["w"].shape[0] \
+            == cfg.n_encoder_layers
+    with pytest.raises(ValueError):
+        sub_cache_shape(cfg, "enc_attn_ffn", 1, 4, device="cpu")
+    with pytest.raises(ValueError):
+        superblock_table(dataclasses.replace(cfg, family="other"))
 
 
 def test_init_model_draws_from_the_generator():
@@ -238,10 +263,11 @@ def test_family_init_cache_and_init_model_are_the_references(arch):
 
 
 @pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b"] + list(CROSS))
 def test_model_params_from_reference_carries_every_subtree(arch):
-    """The shared table and the ``[n_rep, E, d, f]`` expert stacks come
-    across leaf for leaf, values and shapes."""
+    """The shared table, the ``[n_rep, E, d, f]`` expert stacks, the cross
+    layers' ``xattn`` and ``[n_rep]`` ``xgate`` and the encoder's stack and
+    ``enc_norm`` come across leaf for leaf, values and shapes."""
     ref_cfg = ref_config.smoke(REF_ARCHS[arch])
     ref = jax.tree_util.tree_map(
         np.asarray, ref_init_model(ref_cfg, jax.random.PRNGKey(3)))
@@ -255,6 +281,15 @@ def test_model_params_from_reference_carries_every_subtree(arch):
     if arch == "zamba2-2.7b":
         assert set(got["shared"]) == {"ln1", "attn", "ln2", "ffn"}
         assert got["blocks"]["l2"] == {}
+    elif arch == "llama-3.2-vision-90b":
+        assert tuple(got["blocks"]["l1"]["xgate"].shape) \
+            == (ref_cfg.n_layers // 2,)
+        assert set(got["blocks"]["l1"]["xattn"]) == {"wq", "wk", "wv", "wo"}
+    elif arch == "seamless-m4t-large-v2":
+        assert tuple(got["encoder"]["l0"]["ffn"]["up"]["w"].shape) == (
+            ref_cfg.n_encoder_layers, ref_cfg.d_model, ref_cfg.d_ff)
+        assert tuple(got["enc_norm"]["scale"].shape) == (ref_cfg.d_model,)
+        assert "xattn" in got["blocks"]["l0"]
     else:
         n_rep, e = ref_cfg.n_layers // 2, ref_cfg.moe.n_experts
         assert tuple(got["blocks"]["l1"]["moe"]["gate"].shape) == (

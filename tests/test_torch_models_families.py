@@ -2,7 +2,9 @@
 JAX package's, on the CPU: ``qwen3-moe-30b-a3b``, ``llama4-maverick-400b-
 a17b`` (alternating dense and MoE layers, a shared expert),
 ``falcon-mamba-7b`` (Mamba1) and ``zamba2-2.7b`` (Mamba2 with the tied
-attention block) at smoke size, and the bf16 cache of every family.
+attention block) at smoke size, and the bf16 cache of every family (the
+cross-attention families' whole models are in
+``tests/test_torch_models_cross.py``).
 
 Weights are drawn by the reference's ``init_model`` and carried across by
 ``convert.model_params_from_reference``; tokens are made with numpy from a
@@ -29,7 +31,8 @@ the two cached values differ by one bf16 step, 2u relative; elsewhere they
 are equal.  So a cached tensor differs normwise by about 2u sqrt(delta /
 (2u)) = sqrt(2 u delta) ~ 1e-4, and a step's logits, through a few layers,
 by a small multiple of that: BF16_TOL = u = 2^-8 bounds it with room
-(measured at most 6.5e-5, zamba2).  The cache's dtypes must equal the
+(measured at most 7.4e-5, llama-3.2-vision, whose cache also holds the
+memory's K/V in bf16; zamba2 6.5e-5).  The cache's dtypes must equal the
 reference's after every step: a mamba layer's conv window comes back f32
 from a bf16 one (its concatenation with the f32 step promotes it).
 """
@@ -183,13 +186,37 @@ def test_decode_step_equals_the_last_position_of_prefill(arch):
                                          cur.to(torch.int32))[0])
 
 
+def _with_memory(params, ref_params, cache, ref_cache, seed=4):
+    """The cross families' inputs: every ``xgate`` at 0.7 on both sides (its
+    init, 0, would leave the VLM's cross path out), and the cache's memory
+    K/V ``xk``/``xv`` the same normal values in both, rounded to the
+    cache's dtype by each package."""
+    rng = np.random.default_rng(seed)
+    for key, sub in params["blocks"].items():
+        if "xgate" in sub:
+            sub["xgate"] = torch.full_like(sub["xgate"], 0.7)
+            ref_params["blocks"][key]["xgate"] = jnp.full_like(
+                ref_params["blocks"][key]["xgate"], 0.7)
+        if "xattn" not in sub:
+            continue
+        for name in ("xk", "xv"):
+            old = ref_cache[key][name]
+            x = rng.normal(size=old.shape).astype(np.float32)
+            ref_cache[key][name] = jnp.asarray(x, old.dtype)
+            cache[key][name] = torch.from_numpy(x).to(cache[key][name].dtype)
+    return params, ref_params, cache, ref_cache
+
+
 @pytest.mark.parametrize("arch", ["granite-20b", "qwen3-moe-30b-a3b",
-                                  "falcon-mamba-7b", "zamba2-2.7b"])
+                                  "falcon-mamba-7b", "zamba2-2.7b",
+                                  "llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2"])
 def test_bf16_cache_decode_matches_the_reference(arch):
     """``init_cache``'s bf16 default in both packages: 9 steps at B = 3,
     slots starting 0, 2 and 5 ticks late (per-slot ``cur_len``); every
     step's logits within BF16_TOL normwise, and the returned cache's dtypes
-    the reference's after each step."""
+    the reference's after each step.  The cross families' cache holds the
+    memory's K/V in bf16 too."""
     cfg, ref_cfg = configs(arch)
     params, ref_params = both(ref_cfg)
     tok = tokens(cfg, 3, 12, seed=1)
@@ -197,6 +224,9 @@ def test_bf16_cache_decode_matches_the_reference(arch):
     step = jax.jit(lambda p, t, c, i: ref_decode_step(p, ref_cfg, t, c, i))
     cache = init_cache(cfg, 3, 16, device="cpu")
     ref_cache = ref_init_cache(ref_cfg, 3, 16)
+    if cfg.family in ("vlm", "encdec"):
+        params, ref_params, cache, ref_cache = _with_memory(
+            params, ref_params, cache, ref_cache)
     assert _dtypes(cache) == jax.tree_util.tree_map(
         lambda a: str(a.dtype), ref_cache)
     for t in range(9):

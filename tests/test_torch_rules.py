@@ -45,7 +45,7 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.convert, repro_torch.sparse, repro_torch.models, "
-            "repro_torch.configs\n"
+            "repro_torch.configs, repro_torch.serving\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")

@@ -92,7 +92,7 @@ def test_granite_config_is_the_references():
     assert dataclasses.asdict(CFG) == dataclasses.asdict(ref_smoke(want))
     assert (CFG.d_model, CFG.d_ff) == (128, 256)
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("llama-3.2-vision-90b")
+        get_config("no-such-arch")
 
 
 def test_init_params_draws_from_the_generator():
