@@ -255,6 +255,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one-token plans (bit for bit on integers, 1e-5 on real values, its
    count rising); plan, decode-step and encoder times beside the byte
    floor (the cross K/V alone 3.2 GB a step).
+17. Training (``repro_torch.training``): qwen2-0.5b at full width and
+   depth (24 layers, d_model 896, 14 heads, 2 KV heads, d_head 64, d_ff
+   4864, vocab 151936; 630M f32 parameters), weights from ``--seed``.
+   (a) The gradient of ``train_loss`` on a [2, 64] batch at 2 of the 24
+   layers, on well-scaled weights, against the same model run by the port
+   on the host's CPU: the loss and each leaf within 1e-5 normwise.  (b) 20
+   ``Trainer`` steps on ``SyntheticLoader(DataConfig(vocab, 512, 8,
+   seed))``, 4096 tokens a step, ``remat="full"``, 5 warmup steps, peak lr
+   1e-3: every loss finite and the mean of the last 3 below that of the
+   first 3; the median step time beside the bound of 8·N·tokens at the
+   card's f32 peak; tokens/s; a step's device time and idle share
+   (``torch.profiler``); the peak memory under "full" and under "none"
+   (whose first loss must equal "full"'s, and whose peak must be higher).
+   (e) ``accum_steps=2`` with a bf16 buffer: its first loss within 1e-3 of
+   ``accum_steps=1``'s; 8-bit moments: 3 finite steps.  (c, d) Two runs of
+   3 steps from one state equal bit for bit, and the resume drill: a
+   checkpoint at step 3 (its seconds and GB), a new ``Trainer``'s
+   ``try_resume`` and 3 more steps, equal bit for bit to an uninterrupted
+   6-step run.  (f) Layer 0's FFN (of (a)'s weights) through
+   ``SparseFFN.from_params(keep_density=0.5, path="spgemm",
+   stream_limit=2**26)`` (2.18M values a matrix; x [16, 896]: 34.9M
+   products, past the default 8M guard): 10
+   ``build_sparse_ffn_train_step`` steps, the loss below 0.7x the first,
+   every warm step 0 host syncs and no plan built, no kernel of ours
+   launched; then on the same plans K1's forward and both gradient views
+   against the torch stream, bit for bit on integer values and within
+   1e-5 normwise on real ones, K1's count rising; K1's and the torch
+   stream's forward+gradient time beside K1's byte bound, and the step's
+   time.
 
 The last two lines are the kernels' JSON and the card line; the very last is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -4479,6 +4508,410 @@ def encdec_phase(dev, seed, reps):
     return dict(out, plans=plans, k1=k1)
 
 
+# -- 17. training: qwen2-0.5b at full width and depth ------------------------
+
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_SEQ, TRAIN_BATCH = 512, 8   # 4096 tokens a step
+TRAIN_STEPS = 20
+TRAIN_WARMUP = 5
+TRAIN_LR = 1e-3
+GRAD_LAYERS = 2                   # (a): 2 of 24 layers, card against CPU
+GRAD_BATCH, GRAD_SEQ = 2, 64
+TRAIN_TOL = 1e-5                  # normwise, card against the CPU
+ACCUM_TOL = 1e-3                  # relative, accum_steps=2 (bf16) vs 1
+DRILL_AT, DRILL_TO = 3, 6         # (d): checkpoint at 3, resume to 6
+SFFN_KEEP = 0.5                   # (f): layer 0's FFN on the spgemm path
+SFFN_TOKENS = 16                  # x [16, 896]: 34.9M products a matrix,
+                                  # past the default guard: MODEL_STREAM_LIMIT
+SFFN_STEPS = 10
+SFFN_LR = 1e-3                    # build_sparse_ffn_train_step's default
+
+
+def train_cfg(**kw):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(TRAIN_ARCH), **kw)
+
+
+def clone_tree(tree):
+    import torch
+    from repro_torch.training.tree import tree_map
+
+    return tree_map(torch.clone, tree)
+
+
+def tree_bits_differ(a, b) -> list:
+    """The key paths at which two state trees differ bit for bit."""
+    import torch
+    from repro_torch.training.tree import tree_paths
+
+    pa, pb = tree_paths(a), tree_paths(b)
+    out = [k for k in pa if k not in pb]
+
+    def raw(t):
+        return bits(t) if t.dtype == torch.float32 else t
+
+    return out + [k for k in pa if k in pb
+                  and not torch.equal(raw(pa[k]), raw(pb[k]))]
+
+
+def train_grad_phase(dev, seed):
+    """(a) The gradient of ``train_loss`` on a [2, 64] batch at 2 of the 24
+    layers, full width, well-scaled weights from ``seed``: the card against
+    the same model run by the port on the host's CPU, the loss and each
+    leaf within ``TRAIN_TOL`` normwise.  Returns the CPU params (phase
+    (f) converts layer 0's FFN) and the errors."""
+    import torch
+    from repro_torch.models import init_model, train_loss
+    from repro_torch.training import DataConfig, synth_batch
+    from repro_torch.training.train_loop import value_and_grad
+    from repro_torch.training.tree import tree_map, tree_paths
+
+    cfg = train_cfg(n_layers=GRAD_LAYERS)
+    params = well_scaled(cfg, init_model(
+        cfg, torch.Generator().manual_seed(seed), device="cpu"))
+    batch = {k: torch.from_numpy(v) for k, v in synth_batch(
+        DataConfig(cfg.vocab, GRAD_SEQ, GRAD_BATCH, seed), 0).items()}
+
+    def grads(p, b):
+        return value_and_grad(lambda q, bb: train_loss(q, cfg, bb), p, b)
+
+    t0 = time.perf_counter()
+    loss_c, g_c = grads(params, batch)
+    cpu_s = time.perf_counter() - t0
+    dparams = tree_map(lambda t: t.to(dev), params)
+    grads(dparams, {k: v.to(dev) for k, v in batch.items()})   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_d, g_d = grads(dparams, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    want = tree_paths(g_c)
+    errs = {k: rel_err(g.cpu(), want[k].double())
+            for k, g in tree_paths(g_d).items()}
+    loss_err = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    worst = max(errs, key=errs.get)
+    out = dict(layers=GRAD_LAYERS, batch=[GRAD_BATCH, GRAD_SEQ],
+               loss_card=float(loss_d), loss_cpu=float(loss_c),
+               loss_rel_err=loss_err, worst_leaf=worst,
+               worst_err=errs[worst], cpu_s=cpu_s, card_s=card_s,
+               errs={k: float(f"{v:.3g}") for k, v in errs.items()})
+    print(f"train (a) gradient, card against CPU: {json.dumps(out)}",
+          flush=True)
+    check(loss_err <= TRAIN_TOL, f"train (a): loss {loss_err:.3g} off the "
+          f"CPU's (limit {TRAIN_TOL})")
+    bad = {k: v for k, v in errs.items() if v > TRAIN_TOL}
+    check(not bad, f"train (a): gradient leaves off the CPU's beyond "
+          f"{TRAIN_TOL}: {bad}")
+    return params, out
+
+
+def train_run_phase(dev, seed):
+    """(b) ``TRAIN_STEPS`` ``Trainer`` steps at full width and depth on
+    ``SyntheticLoader``'s stream, ``remat="full"``: losses finite and
+    falling; the median step time beside the bound of 8·N·tokens (the
+    forward, the backward's two products a weight, and the remat's second
+    forward; N the weights of the matrix products, the embedding table a
+    gather) at the card's f32 peak; tokens/s; one step's device time
+    (``torch.profiler``) and its idle share of the median step; the peak
+    memory under "full" and, over two steps, under "none".  Returns the initial state and the run's
+    settings for the phases after it."""
+    import dataclasses
+
+    import torch
+    from repro_torch.training import DataConfig, SyntheticLoader, \
+        TrainConfig, Trainer, init_train_state
+
+    cfg = train_cfg()
+    tc = TrainConfig(total_steps=TRAIN_STEPS, peak_lr=TRAIN_LR,
+                     warmup_steps=TRAIN_WARMUP, checkpoint_every=0,
+                     log_every=10 ** 9)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    init = init_train_state(cfg, tc, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(init["params"]))
+    n_matmul = n_params - init["params"]["embed"]["embedding"].numel()
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(init)) / 1e9
+    dcfg = DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed)
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+
+    def peak_of(run):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        return out, peak / 1e9, (peak - base) / 1e9
+
+    trainer = Trainer(cfg, tc, SyntheticLoader(dcfg, device=dev),
+                      clone_tree(init))
+    log, peak_full, step_full = peak_of(lambda: trainer.run(TRAIN_STEPS))
+    losses = [m["loss"] for m in log]
+    step_ms = statistics.median(m["sec"] for m in log[1:]) * 1e3
+    prof = device_profile(lambda: trainer.run(1), n=1)
+    device_ms = sum(prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1])[:6]
+    del trainer
+    none = Trainer(dataclasses.replace(cfg, remat="none"), tc,
+                   SyntheticLoader(dcfg, device=dev), clone_tree(init))
+    none_log, peak_none, step_none = peak_of(lambda: none.run(2))
+    del none
+    gc.collect()
+    torch.cuda.empty_cache()
+    flops = 8 * n_matmul * tokens
+    out = dict(
+        model=dict(layers=cfg.n_layers, d_model=cfg.d_model,
+                   heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                   d_head=cfg.d_head, d_ff=cfg.d_ff, vocab=cfg.vocab,
+                   params=n_params, matmul_params=n_matmul),
+        init_s=init_s, state_gb=state_gb, tokens_per_step=tokens,
+        losses=[float(f"{x:.5g}") for x in losses],
+        first_step_ms=log[0]["sec"] * 1e3, median_step_ms=step_ms,
+        tokens_per_s=tokens / step_ms * 1e3,
+        bound_ms=flops / PEAK_F32_PER_S * 1e3, bound_flops=flops,
+        device_ms=device_ms, idle=idle_share(device_ms, step_ms),
+        top_device_ops={k: round(v, 3) for k, v in top},
+        peak_gb_full=peak_full, step_gb_full=step_full,
+        peak_gb_none=peak_none, step_gb_none=step_none,
+        none_step_ms=[m["sec"] * 1e3 for m in none_log],
+        none_losses=[m["loss"] for m in none_log])
+    print(f"train (b) {TRAIN_STEPS} Trainer steps: {json.dumps(out)}",
+          flush=True)
+    check(all(np.isfinite(losses)), f"train (b): a loss is not finite: "
+          f"{losses}")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    check(last < first, f"train (b): the loss did not fall ({first:.5g} "
+          f"-> {last:.5g})")
+    check(none_log[0]["loss"] == losses[0], "train (b): remat 'none' "
+          f"changed the first loss ({none_log[0]['loss']} vs {losses[0]})")
+    check(peak_full < peak_none, f"train (b): remat 'full' peaks at "
+          f"{peak_full:.2f} GB, not below 'none''s {peak_none:.2f} GB")
+    return dict(init=init, cfg=cfg, tc=tc, dcfg=dcfg,
+                first_loss=losses[0]), out
+
+
+def train_settings_phase(run, dev):
+    """(e) ``accum_steps=2`` with a bf16 buffer: its first loss within
+    ``ACCUM_TOL`` of ``accum_steps=1``'s; 8-bit moments: three steps with
+    finite losses and params."""
+    import dataclasses
+
+    import torch
+    from repro_torch.training import AdamWConfig, SyntheticLoader, \
+        adamw_init, build_train_step
+
+    cfg, tc, init = run["cfg"], run["tc"], run["init"]
+    loader = SyntheticLoader(run["dcfg"], device=dev)
+    batch = next(loader)
+    accum = build_train_step(cfg, dataclasses.replace(
+        tc, accum_steps=2, accum_dtype="bfloat16"))
+    t0 = time.perf_counter()
+    _, m = accum(clone_tree(init), batch, 0)
+    loss2 = float(m["loss"])
+    accum_s = time.perf_counter() - t0
+    rel = abs(loss2 - run["first_loss"]) / abs(run["first_loss"])
+    qcfg = dataclasses.replace(tc, opt=AdamWConfig(quantize_moments=True))
+    params = clone_tree(init["params"])
+    state = {"params": params, "opt": adamw_init(params, qcfg.opt)}
+    step = build_train_step(cfg, qcfg)
+    loader = SyntheticLoader(run["dcfg"], device=dev)
+    q_losses = []
+    t0 = time.perf_counter()
+    for i in range(3):
+        state, m = step(state, next(loader), i)
+        q_losses.append(float(m["loss"]))
+    quant_s = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in tree_leaves(state["params"]))
+    moments_gb = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(state["opt"])) / 1e9
+    del state, params
+    out = dict(accum2_bf16_loss=loss2, accum1_loss=run["first_loss"],
+               accum_rel=rel, accum_s=accum_s, quant_losses=q_losses,
+               quant_s=quant_s, quant_moments_gb=moments_gb)
+    print(f"train (e) other settings: {json.dumps(out)}", flush=True)
+    check(rel <= ACCUM_TOL, f"train (e): accum_steps=2 (bf16) first loss "
+          f"{rel:.3g} off accum_steps=1's (limit {ACCUM_TOL})")
+    check(all(np.isfinite(q_losses)) and finite, "train (e): 8-bit moments "
+          f"gave a non-finite loss or param: {q_losses}")
+    return out
+
+
+def train_drill_phase(run, dev):
+    """(c) and (d): trainer A runs ``DRILL_AT`` steps from the initial
+    state, checkpoints (timed, its size read) and runs on to ``DRILL_TO``;
+    trainer B runs ``DRILL_AT`` steps from the same state; trainer C
+    resumes from A's checkpoint (``try_resume``, timed) into B's template.
+    C's state equals B's bit for bit (two runs of ``DRILL_AT`` steps, the
+    checkpoint's round trip exact); C runs on to ``DRILL_TO`` and equals A,
+    bit for bit, params and moments, with the same losses."""
+    import dataclasses
+
+    import torch
+    from repro_torch.training import SyntheticLoader, Trainer
+
+    cfg, tc, dcfg = run["cfg"], run["tc"], run["dcfg"]
+    ckdir = tempfile.mkdtemp(prefix="chip-smoke-train-ckpt-")
+    atexit.register(shutil.rmtree, ckdir, True)
+    tck = dataclasses.replace(tc, checkpoint_dir=ckdir)
+    a = Trainer(cfg, tck, SyntheticLoader(dcfg, device=dev),
+                clone_tree(run["init"]))
+    a.run(DRILL_AT)
+    t0 = time.perf_counter()
+    a.checkpoint()
+    snap_s = time.perf_counter() - t0
+    a.wait_checkpoint()
+    ckpt_s = time.perf_counter() - t0
+    ckpt_bytes = sum(os.path.getsize(os.path.join(root, f))
+                     for root, _, files in os.walk(ckdir) for f in files)
+    a.run(DRILL_TO - DRILL_AT)
+    b = Trainer(cfg, tc, SyntheticLoader(dcfg, device=dev), run.pop("init"))
+    b.run(DRILL_AT)
+    c = Trainer(cfg, tck, SyntheticLoader(dcfg, device=dev), b.state)
+    t0 = time.perf_counter()
+    resumed = c.try_resume()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(resumed and c.step_idx == DRILL_AT and c.loader.step == DRILL_AT,
+          f"train (d): try_resume gave {resumed}, step {c.step_idx}, data "
+          f"step {c.loader.step}")
+    stable = tree_bits_differ(c.state, b.state)
+    del b
+    c.run(DRILL_TO - DRILL_AT)
+    drill = tree_bits_differ(c.state, a.state)
+    la = [m["loss"] for m in a.metrics_log[DRILL_AT:]]
+    lc = [m["loss"] for m in c.metrics_log]
+    out = dict(checkpoint_step=DRILL_AT, checkpoint_gb=ckpt_bytes / 1e9,
+               snapshot_s=snap_s, checkpoint_s=ckpt_s, restore_s=restore_s,
+               losses_uninterrupted=la, losses_resumed=lc,
+               leaves_differing_two_runs=stable,
+               leaves_differing_resumed=drill)
+    print(f"train (c, d) bit-stability and the resume drill: "
+          f"{json.dumps(out)}", flush=True)
+    check(not stable, f"train (c): two runs of {DRILL_AT} steps differ at "
+          f"{stable}")
+    check(not drill and la == lc, f"train (d): the resumed run differs "
+          f"from the uninterrupted one at {drill} (losses {la} vs {lc})")
+    del a, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_sparse_ffn_phase(params, dev, seed, reps):
+    """(f) Layer 0's FFN of (a)'s well-scaled weights through
+    ``SparseFFN.from_params(keep_density=0.5, path="spgemm",
+    stream_limit=MODEL_STREAM_LIMIT)``: 10
+    ``build_sparse_ffn_train_step`` steps on x, y [16, 896] from ``seed``,
+    with the counts set to 0 just before the warm steps: the loss below 0.7x
+    the first, every warm step 0 host syncs and no plan built, and no
+    kernel of ours launched (the torch stream).  Then on the same plans, K1
+    (``engine="fused"``) forward and both gradient views against the torch
+    stream, bit for bit on integer values and within ``STREAM_TOL``
+    normwise on real ones, its count rising; per matrix, K1's and the
+    torch stream's forward+gradient time (CUDA events) beside K1's byte
+    bound on the three views, and the step's time."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import fused_stream, plan_cache_info
+    from repro_torch.models import SparseFFN
+    from repro_torch.training.train_loop import build_sparse_ffn_train_step
+
+    p = {name: {"w": params["blocks"]["l0"]["ffn"][name]["w"][0]}
+         for name in FFN_MATRICES}
+    t0 = time.perf_counter()
+    sp = SparseFFN.from_params(p, keep_density=SFFN_KEEP, path="spgemm",
+                               stream_limit=MODEL_STREAM_LIMIT, device=dev)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    nnz = {name: getattr(sp, name).w_csc.nnz for name in FFN_MATRICES}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d = sp.gate.shape[1]
+    x = torch.randn((SFFN_TOKENS, d), generator=gen, device=dev)
+    y = torch.randn((SFFN_TOKENS, d), generator=gen, device=dev)
+    step, state = build_sparse_ffn_train_step(sp, lr=SFFN_LR)
+    t0 = time.perf_counter()
+    state, m0 = step(state, (x, y))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    misses = plan_cache_info()["misses"]
+    kernels.reset_launch_counts()
+    losses, syncs = [m0["loss"]], []
+    for _ in range(SFFN_STEPS - 1):
+        syncs.append(host_syncs(
+            lambda: losses.append(step(state, (x, y))[1]["loss"])))
+    counts = kernels.launch_counts()
+    planned = plan_cache_info()["misses"] - misses
+    losses = [float(v) for v in torch.stack(losses).cpu()]
+    step_ms = statistics.median(execute_ms(lambda: step(state, (x, y)),
+                                           reps))
+    check(all(np.isfinite(losses)) and losses[-1] < 0.7 * losses[0],
+          f"train (f): the sparse FFN's loss did not fall below 0.7x: "
+          f"{losses}")
+    check(syncs == [0] * (SFFN_STEPS - 1), f"train (f): host syncs per warm "
+          f"step {syncs}")
+    check(planned == 0, f"train (f): {planned} plans built in warm steps")
+    check(not any(counts.values()), f"train (f): kernels launched on the "
+          f"torch stream's path: {counts}")
+
+    before = kernels.launch_counts()["fused_stream"]
+    rows = {}
+    for name in FFN_MATRICES:
+        m = getattr(sp, name)
+        plan = m._spgemm_plan(SFFN_TOKENS)[0]
+        n_x = m.shape[1] * SFFN_TOKENS
+
+        def fwd_grad(w, xv, g, engine):
+            wr, xr = w.detach().requires_grad_(), xv.detach().requires_grad_()
+            c = plan.stream_apply(wr, xr, engine=engine)
+            return (c.detach(),) + torch.autograd.grad(c, (wr, xr), g)
+
+        ints = (int_values((m.w_csc.nnz,), gen, dev),
+                int_values((n_x,), gen, dev),
+                int_values((plan.stream.nnz,), gen, dev))
+        k1 = fwd_grad(*ints, "fused")
+        ts = fwd_grad(*ints, None)
+        check(all(torch.equal(u, v) for u, v in zip(k1, ts)),
+              f"train (f) {name}: K1 differs from the torch stream on "
+              "integer values (forward or a gradient)")
+        real = (state["params"][name],
+                torch.randn((n_x,), generator=gen, device=dev),
+                torch.randn((plan.stream.nnz,), generator=gen, device=dev))
+        k1 = fwd_grad(*real, "fused")
+        ts = fwd_grad(*real, None)
+        errs = [rel_err(u, v.double()) for u, v in zip(k1, ts)]
+        check(max(errs) <= STREAM_TOL, f"train (f) {name}: K1 {errs} "
+              f"normwise off the torch stream (limit {STREAM_TOL})")
+        fs = fused_stream(plan)
+        w, xv, g = real
+        nbytes = (k1_work(fs.forward, w, xv)[1]
+                  + k1_work(fs.grad_a, g, xv)[1]
+                  + k1_work(fs.grad_b, g, w)[1])
+        rows[name] = dict(
+            nnz=nnz[name], products=fs.forward.n_products,
+            errs=[float(f"{e:.3g}") for e in errs],
+            max_abs_err=max(float((u - v).abs().max())
+                            for u, v in zip(k1, ts)),
+            k1_fwd_grad_ms=event_ms(lambda: fwd_grad(*real, "fused"), reps),
+            torch_stream_fwd_grad_ms=event_ms(
+                lambda: fwd_grad(*real, None), reps),
+            k1_bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3)
+    launched = kernels.launch_counts()["fused_stream"] - before
+    check(launched > 0, "train (f): K1 was not launched")
+    out = dict(keep=SFFN_KEEP, tokens=SFFN_TOKENS, convert_s=convert_s,
+               first_step_s=first_s, losses=losses, warm_syncs=syncs,
+               step_ms=step_ms, k1_launches=launched, matrices=rows)
+    print(f"train (f) sparse FFN: {json.dumps(out)}", flush=True)
+    return out
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line saying how long it took."""
     import torch
@@ -4673,12 +5106,31 @@ def main(argv=None) -> int:
     plan_cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"cross phases: {time.perf_counter() - t_cross:.1f} s; card: "
+          f"{card}", flush=True)
+
+    # phase 17: training, qwen2-0.5b at full width and depth
+    t_train = time.perf_counter()
+    grad_params, _ = timed(train_grad_phase, dev, args.seed)
+    run, _ = timed(train_run_phase, dev, args.seed)
+    timed(train_settings_phase, run, dev)
+    timed(train_drill_phase, run, dev)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    sffn = timed(train_sparse_ffn_phase, grad_params, dev, args.seed,
+                 args.reps)
+    del grad_params
+    plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
     for row in rows:
         if row["name"] == KERNELS["fused"]["name"]:
             row["launches_by_path"] = dict(
                 main=row["launches"], model_k1=k1_model,
-                encdec_k1=encdec["k1_launches"])
-    print(f"cross phases: {time.perf_counter() - t_cross:.1f} s; card: "
+                encdec_k1=encdec["k1_launches"],
+                train_k1=sffn["k1_launches"])
+    print(f"train phases: {time.perf_counter() - t_train:.1f} s; card: "
           f"{card}", flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, build "
           "included", flush=True)

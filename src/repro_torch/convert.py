@@ -65,6 +65,21 @@ def model_params_from_reference(params, device=None) -> dict:
     return walk(params)
 
 
+def train_state_from_reference(state, device=None) -> dict:
+    """The port's train state of a JAX-package one given as numpy arrays
+    (``{"params", "opt": {"step", "m", "v"}}``, 8-bit moments as
+    ``{"q", "scale"}``), every leaf in its own dtype on ``device`` (default
+    the card), so that both packages train from one state."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node)).to(dev)
+
+    return {"params": walk(state["params"]), "opt": walk(state["opt"])}
+
+
 # an FFN's params (``{"gate"/"up"/"down": {"w": [d_in, d_out]}}``) are a
 # param tree like a model's
 ffn_params_from_reference = model_params_from_reference

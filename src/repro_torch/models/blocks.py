@@ -25,7 +25,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import params as pp
 from repro_torch.models.layers import attention, attention_decode, \
-    attention_table, cross_attention_cached, ffn, ffn_table, rms_norm
+    attention_table, cross_attention_cached, ffn, ffn_table, remat, rms_norm
 from repro_torch.models.moe import moe_aux_loss, moe_ffn, moe_table
 from repro_torch.models.ssm import mamba_forward, mamba_init_state, \
     mamba_table
@@ -118,6 +118,17 @@ def _n_rep(tree) -> int | None:
     return int(tree.shape[0])
 
 
+def _unstack(tree, n: int) -> list:
+    """The ``n`` reps' trees of a stacked tree, each leaf ``unbind`` on its
+    first axis: one backward ``stack`` per leaf gathers the reps'
+    gradients, where indexing rep by rep would add ``n`` full-size zero
+    tensors per leaf."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][r] for k in tree} for r in range(n)]
+    return torch.unbind(tree)
+
+
 def _stack(per_rep: list):
     """The reps' trees stacked leaf by leaf on a new first axis."""
     first = per_rep[0]
@@ -196,19 +207,25 @@ def stage_forward(stacked, shared, cfg, kinds, h, *, memory=None,
                   causal=True, sparse_ffn=None):
     """Run the super-block over its reps. Returns (h, total_aux).
 
-    ``cfg.remat`` has no effect here: it is the reference's checkpoint
-    policy, which changes what a backward recomputes and never a value of
-    the forward pass.
+    ``cfg.remat`` is the reference's checkpoint policy around each rep
+    (:func:`~repro_torch.models.layers.remat`): "full" keeps only a rep's
+    input for the backward, "dots" also its un-batched matrix products,
+    "none" everything.  It changes what a backward keeps and recomputes,
+    never a value of the forward pass.
     """
     sparse_ffn = sparse_ffn or {}
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for r in range(_n_rep(stacked)):
-        p_rep = _rep(stacked, r)
+
+    def block(h, aux, p_rep):
         for i, kind in enumerate(kinds):
             h, a = _sub_forward(p_rep.get(f"l{i}", {}), shared, cfg, kind, h,
                                 memory=memory, causal=causal,
                                 sffn=sparse_ffn.get(f"l{i}"))
             aux = aux + a
+        return h, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for p_rep in _unstack(stacked, _n_rep(stacked)):
+        h, aux = remat(block, h, aux, p_rep, policy=cfg.remat)
     return h, aux
 
 

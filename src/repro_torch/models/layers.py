@@ -8,6 +8,11 @@ PyTorch ops: these are the reference's plain-jnp computations outside any
 Pallas kernel.  ``scaled_dot_product_attention`` is not used, so the
 softmax runs in ``_chunked_attn``'s order, the reference's.
 
+The reference's checkpoint policies are :func:`remat`: each key chunk of
+``_chunked_attn`` and each logits chunk of ``lm_loss`` recompute their
+insides in the backward, as the reference's ``jax.checkpoint`` does there.
+They change what a backward keeps, never a value of the forward pass.
+
 Every product is full f32 (:func:`check_full_f32`); a bf16 operand (a bf16
 KV cache) is widened before its product, as the reference's
 ``preferred_element_type=float32`` accumulates it.  Cross-attention (the
@@ -19,10 +24,18 @@ K/V at decode.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint, \
+    create_selective_checkpoint_contexts
 
 from repro_torch.models import params as pp
 
 NEG_INF = -1e30
+
+#: the un-batched matrix products that ``remat(..., policy="dots")`` keeps:
+#: the counterpart of ``jax.checkpoint_policies.
+#: checkpoint_dots_with_no_batch_dims`` (``einsum``'s batched products run
+#: as ``bmm`` and are recomputed)
+DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def check_full_f32(x: torch.Tensor) -> None:
@@ -34,6 +47,28 @@ def check_full_f32(x: torch.Tensor) -> None:
             "the model computes its products in full f32, but float32 "
             f"matmul precision is {torch.get_float32_matmul_precision()!r} "
             "(TF32); set torch.set_float32_matmul_precision('highest')")
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(list(DOTS))
+
+
+def remat(fn, *args, policy: str = "full"):
+    """``fn(*args)``, with the activations inside it recomputed in the
+    backward instead of kept: ``policy`` "full" keeps only the inputs (the
+    reference's ``jax.checkpoint``, ``nothing_saveable``), "dots" also the
+    outputs of the un-batched matrix products (:data:`DOTS`), "none" keeps
+    everything.  Where autograd records nothing (``torch.no_grad``, the
+    serving paths) this is ``fn(*args)``.  The forward's values are the
+    same under every policy."""
+    if policy not in ("full", "dots", "none"):
+        raise ValueError(f"unknown remat policy {policy!r}; "
+                         "'full', 'dots' or 'none'")
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    context = {"context_fn": _dots_context} if policy == "dots" else {}
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **context)
 
 
 def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -95,13 +130,32 @@ def attention_table(cfg, *, bias=None):
     }
 
 
+def _kv_step(qb, kb, vb, m, l, acc, q_pos, k0: int, causal: bool):
+    """One key chunk of the online softmax: the running max ``m``, sum
+    ``l`` and accumulator ``acc`` after the keys ``kb``/``vb`` (their first
+    position ``k0``)."""
+    s = _einsum("bqhgd,bkhd->bhgqk", qb, kb)
+    if causal:
+        k_pos = k0 + torch.arange(kb.shape[1], device=qb.device)
+        mask = q_pos[:, None] >= k_pos[None, :]
+        s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + _einsum(
+        "bhgqk,bkhd->bhgqd", p.to(vb.dtype), vb)
+    return m_new, l, acc
+
+
 def _chunked_attn(q, k, v, *, causal: bool, q_offset, q_chunk, kv_chunk):
     """Online-softmax attention. q [B,Sq,Hkv,G,D], k/v [B,Skv,Hkv,D].
 
     The reference's two levels (a map over query chunks, a scan over key
     chunks) as two Python loops, every key chunk visited in order, so each
     query row's running max, sum and accumulator see the same sequence of
-    updates."""
+    updates.  Each key chunk's step is recomputed in the backward
+    (:func:`remat`, the reference's flash-style ``jax.checkpoint``)."""
     b, sq, hkv, g, dh = q.shape
     skv = k.shape[1]
     cq = min(q_chunk, sq)
@@ -127,19 +181,8 @@ def _chunked_attn(q, k, v, *, causal: bool, q_offset, q_chunk, kv_chunk):
         acc = torch.zeros((b, hkv, g, cq, dh), dtype=torch.float32,
                           device=dev)
         for ik in range(nk):
-            s = _einsum("bqhgd,bkhd->bhgqk", qb, ks[:, ik])
-            if causal:
-                k_pos = ik * ck + torch.arange(ck, device=dev)
-                mask = q_pos[:, None] >= k_pos[None, :]
-                s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l = l * alpha + p.sum(dim=-1)
-            vb = vs[:, ik]
-            acc = acc * alpha[..., None] + _einsum(
-                "bhgqk,bkhd->bhgqd", p.to(vb.dtype), vb)
-            m = m_new
+            m, l, acc = remat(_kv_step, qb, ks[:, ik], vs[:, ik], m, l, acc,
+                              q_pos, ik * ck, causal)
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4))            # [B,cq,Hkv,G,D]
     return torch.stack(outs, dim=1).reshape(b, sq, hkv, g, dh)
@@ -251,18 +294,60 @@ def embed_table(cfg):
                                  ("vocab", "embed"), "normal:0.02")}
 
 
+class _Embed(torch.autograd.Function):
+    """Row gather whose backward adds each row's gradients in a fixed
+    order: the tokens' gradients sorted (stably) by token id and summed
+    segment by segment, a ``[V]`` count of each id's tokens as the segment
+    lengths.  Indexing's own backward (``index_put_`` with accumulate) adds
+    them with atomics, in an order that changes from run to run, on the
+    card and on a multi-threaded CPU alike.  Every size is static: no host
+    sync."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.n_rows = table.shape[0]
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, = ctx.saved_tensors
+        ids = tokens.reshape(-1).long()
+        g = g.reshape(ids.shape[0], -1)
+        order = torch.argsort(ids, stable=True)
+        counts = torch.zeros(ctx.n_rows, dtype=torch.long,
+                             device=ids.device).scatter_add_(
+            0, ids, torch.ones_like(ids))
+        grad = torch.segment_reduce(g[order], "sum", lengths=counts, axis=0,
+                                    unsafe=True)
+        return grad, None
+
+
 def embed(p, tokens):
-    return p["embedding"][tokens]
+    return _Embed.apply(p["embedding"], tokens)
 
 
 def unembed_table(cfg):
     return pp.linear(cfg.d_model, cfg.vocab_padded, "embed", "vocab")
 
 
+def _loss_chunk(p_unembed, cfg, hc, lc):
+    """(sum of the chunk's token losses, its count of valid labels)."""
+    logits = lm_logits(p_unembed, cfg, hc)
+    lc = lc.long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+    valid = (lc >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
 def lm_loss(p_unembed, cfg, h, labels):
     """Mean next-token cross-entropy; seq-chunked so [B,S,Vpad] never exists.
 
-    h [B,S,D] (already final-normed); labels [B,S] int (-1 = ignore).
+    h [B,S,D] (already final-normed); labels [B,S] int (-1 = ignore).  Each
+    chunk's logits are recomputed in the backward (:func:`remat`), as the
+    reference's ``jax.checkpoint`` does, so no more than one chunk's
+    ``[B, c, Vpad]`` logits exist at a time in either pass.
     """
     b, s, _ = h.shape
     c = min(cfg.logits_chunk, s)
@@ -272,13 +357,10 @@ def lm_loss(p_unembed, cfg, h, labels):
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(0, s, c):
-        logits = lm_logits(p_unembed, cfg, h[:, i:i + c])
-        lc = labels[:, i:i + c].long()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
-        valid = (lc >= 0).float()
-        tot = tot + ((lse - gold) * valid).sum()
-        cnt = cnt + valid.sum()
+        t, n = remat(_loss_chunk, p_unembed, cfg, h[:, i:i + c],
+                     labels[:, i:i + c])
+        tot = tot + t
+        cnt = cnt + n
     return tot / torch.clamp(cnt, min=1.0)
 
 

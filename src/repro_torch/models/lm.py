@@ -12,8 +12,9 @@ surface:
 ``sparse_ffn=`` is the spgemm-path FFN overlay of
 :func:`~repro_torch.models.sparse_ffn.sparsify_ffn_params`: each overlaid
 sub-layer's FFN runs the cached SpGEMM plans' product stream on its rep's
-value stacks instead of the dense SwiGLU.  ``train_loss`` is the loss value;
-its backward comes with the training slice.
+value stacks instead of the dense SwiGLU.  ``torch.autograd`` differentiates
+``train_loss`` through every family (``repro_torch.training`` builds the
+train step on it); ``cfg.remat`` picks what its backward keeps.
 
 ``aux`` is the cross-attention families' input: the VLM's pre-projected
 patch embeddings [B, n_image_tokens, D] and the encoder-decoder's frame

@@ -17,6 +17,9 @@ Every shape is static and no step reads a value back to the host: counts
 are a fixed-size integer ``scatter_add_`` (``bincount`` sizes its output
 from the data), the sorts are stable, and the overflow pairs go to one
 extra row that is cut, so a decode step on the card never waits for it.
+The backward adds in a fixed order too: every gather is by a permutation
+or writes one nonzero per row, and a token's k pair gradients meet in one
+``expand``'s sum.
 The reference's sharding hints are no-ops on one device and are left out.
 """
 
@@ -106,7 +109,12 @@ def _dispatch(xg, eg, gg, *, e: int, cap: int):
     pos_in_e = torch.arange(n, device=dev) - seg_start[key_sorted]
     keep = pos_in_e < cap
     dst = torch.where(keep, key_sorted * cap + pos_in_e, g * e * cap)
-    x_sorted = xg.reshape(g * tg, d)[tok_sorted]
+    # each token's row once per pair, gathered by the pairs' permutation:
+    # the backward adds a token's k pair gradients by ``expand``'s sum, in
+    # a fixed order, where gathering rows by ``tok_sorted`` would add them
+    # with atomics on the card
+    x_sorted = xg.reshape(g * tg, 1, d).expand(g * tg, k, d).reshape(
+        n, d)[order]
     # every kept destination is unique; only the overflow row g * e * cap
     # repeats, it receives zeros and is cut: a copy, not an accumulation
     x_disp = torch.zeros((g * e * cap + 1, d), dtype=xg.dtype, device=dev)

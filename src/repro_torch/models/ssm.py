@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models import params as pp
-from repro_torch.models.layers import _einsum, dense, rms_norm
+from repro_torch.models.layers import _einsum, dense, remat, rms_norm
 
 
 # ---------------------------------------------------------------------------
@@ -141,20 +141,25 @@ def _chunked_ssm_apply(build_fn, inputs, h0, chunk, seq_len):
     ``build_fn(chunk_inputs)`` -> (a [B,c,...,state], u [B,c,...,state],
     y_fn(h_all) -> y_chunk); the associative scan runs on (a, u) from the
     carried state, and only the chunk's output is kept, so the
-    state-expanded tensors exist for one chunk at a time.  The reference
-    runs the chunks under ``lax.scan`` with ``jax.checkpoint``, which
-    changes what a backward recomputes and no value of the forward pass;
-    here they are a Python loop.  Returns ([B, S, ...out], h_last).
+    state-expanded tensors exist for one chunk at a time.  Each chunk is
+    recomputed in the backward (:func:`~repro_torch.models.layers.remat`,
+    the reference's ``jax.checkpoint`` on its ``lax.scan`` step), so they
+    do there too.  Returns ([B, S, ...out], h_last).
     """
     c = min(chunk, seq_len)
     if seq_len % c:
         raise ValueError(f"sequence length {seq_len} is not a multiple of "
                          f"the scan chunk {c}")
+
+    def step(h, *ch):
+        a, u, y_fn = build_fn(ch)
+        h_all, h_last = _scan_chunks(a, u, h)
+        return y_fn(h_all), h_last
+
     h, ys = h0, []
     for i in range(0, seq_len, c):
-        a, u, y_fn = build_fn(tuple(x[:, i:i + c] for x in inputs))
-        h_all, h = _scan_chunks(a, u, h)
-        ys.append(y_fn(h_all))
+        y, h = remat(step, h, *(x[:, i:i + c] for x in inputs))
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 

@@ -21,7 +21,11 @@ model on the CPU, with no host wait after its first step, and the MoE
 dispatch as SpGEMM launching K2, exact on integer values; and the
 serving engine on the VLM and encoder-decoder families: the CPU engine's
 tokens and logits, one host sync a tick, bit-stable ticks, and params on
-another device refused.  Every test needs a card (marker ``gpu``) and skips
+another device refused; and training: a smoke-size train step on the card
+against the same step on the CPU, bit-stable run to run with no op that
+PyTorch knows to be nondeterministic, and the sparse-FFN train step warm
+with no host sync and no plan built, its gradient through K1 equal to the
+torch stream's.  Every test needs a card (marker ``gpu``) and skips
 without one.
 
 The module pins ``REPRO_PROFILE_DIR`` to a path nothing writes before any
@@ -1558,3 +1562,202 @@ def test_engine_refuses_params_on_another_device(cuda):
         ServeEngine(cfg, params)
     with pytest.raises(ValueError, match="params lie on cuda"):
         ServeEngine(cfg, _to(params, cuda), device="cpu")
+
+
+# -- training ----------------------------------------------------------------
+
+TRAIN_ARCHS = ("qwen2-0.5b", "qwen3-moe-30b-a3b", "falcon-mamba-7b")
+
+
+def _train_setup(arch, dev, quantize=False):
+    """(cfg, step, state on ``dev``, batches on ``dev``): smoke size, the
+    port's draw well scaled (as above), three ``synth_batch`` batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, smoke
+    from repro_torch.training import AdamWConfig, DataConfig, TrainConfig, \
+        adamw_init, build_train_step, synth_batch
+
+    cfg = smoke(get_config(arch))
+    tc = TrainConfig(total_steps=10, peak_lr=1e-3, warmup_steps=2,
+                     opt=AdamWConfig(quantize_moments=quantize))
+    params = _to(_well_scaled(cfg, init_model(
+        cfg, torch.Generator().manual_seed(0), device="cpu")), dev)
+    state = {"params": params, "opt": adamw_init(params, tc.opt)}
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        DataConfig(cfg.vocab, 32, 4, seed=3), i).items()} for i in range(3)]
+    return cfg, build_train_step(cfg, tc), state, batches
+
+
+def _train(step, state, batches):
+    from repro_torch.training.tree import tree_map
+
+    state = tree_map(torch.clone, state)
+    losses = []
+    for i, b in enumerate(batches):
+        state, m = step(state, b, i)
+        losses.append(m["loss"])
+    return state, torch.stack(losses)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_steps_on_card_match_cpu(arch, cuda):
+    """Three train steps on the card against the same steps on the CPU:
+    the loss at 1e-5 relative; the params at 1e-5 normwise, whole and per
+    weight leaf; the zero-initialised biases at 1e-2, as in
+    ``tests/test_torch_training_steps.py`` (their elements are AdamW's
+    steps alone, about ``lr * sign(g)`` each, and the sign of a gradient
+    element that is a cancelling sum's remainder differs with the order
+    of the sum)."""
+    cfg, step, state, batches = _train_setup(arch, cuda)
+    got, losses = _train(step, state, batches)
+    want, want_losses = _train(step, _to(state, "cpu"),
+                               [_to(b, "cpu") for b in batches])
+    assert float((losses.cpu() - want_losses).abs().max()) <= 1e-5 * float(
+        want_losses.abs().max())
+    g = {k: v for k, v in _paths(got["params"])}
+    w = {k: v for k, v in _paths(want["params"])}
+    assert _normwise(torch.cat([g[k].flatten() for k in sorted(g)]),
+                     torch.cat([w[k].flatten() for k in sorted(w)])) <= 1e-5
+    for k in w:
+        tol = 1e-2 if k.endswith("/b") else 1e-5
+        assert _normwise(g[k], w[k]) <= tol, k
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_steps_on_card_are_bit_stable(arch, cuda):
+    """Two runs of three steps from one state: every param and moment bit
+    for bit (the embedding's and the MoE dispatch's backward add in a
+    fixed order, ground rules)."""
+    _, step, state, batches = _train_setup(arch, cuda, quantize=True)
+    a, la = _train(step, state, batches)
+    b, lb = _train(step, state, batches)
+    assert torch.equal(la, lb)
+    for (k, x), (_, y) in zip(_paths(a), _paths(b)):
+        assert torch.equal(x, y), k
+
+
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_train_step_runs_no_op_known_nondeterministic(arch, cuda):
+    """A train step under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: PyTorch warns for each op it knows to have no
+    deterministic CUDA implementation, and none does (cuBLAS's own
+    warning about its workspace setting aside: one stream's products are
+    reproducible)."""
+    _, step, state, batches = _train_setup(arch, cuda)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step(state, batches[0], 0)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    flagged = [str(w.message) for w in caught
+               if "deterministic" in str(w.message)
+               and "CUBLAS_WORKSPACE_CONFIG" not in str(w.message)]
+    assert not flagged, flagged
+
+
+def test_embedding_backward_on_card_is_fixed_order_without_a_sync(cuda):
+    """The embedding's backward (a stable sort and ``segment_reduce``) at
+    qwen2-0.5b's table, 4096 tokens with repeats: equal to indexing's
+    backward within f32 reassociation, two runs bit for bit, and no host
+    sync."""
+    from repro_torch.models.layers import embed
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    table = torch.randn((151936, 896), generator=gen, device=cuda,
+                        requires_grad=True)
+    tokens = torch.randint(0, 4096, (8, 512), generator=gen, device=cuda)
+    g = torch.randn((8, 512, 896), generator=gen, device=cuda)
+
+    def grad():
+        return torch.autograd.grad(embed({"embedding": table}, tokens),
+                                   table, g)[0]
+
+    a = grad()
+    out = []
+    assert _count_syncs(lambda: out.append(grad())) == 0
+    assert torch.equal(a, out[0])
+    want, = torch.autograd.grad(table[tokens], table, g)
+    assert _normwise(a, want) <= 1e-6
+
+
+def _sparse_ffn(dev, seed=4, d=64, hid=96, keep=0.5):
+    from repro_torch.models import SparseFFN
+
+    rng = np.random.default_rng(seed)
+    p = {"gate": {"w": rng.normal(size=(d, hid), scale=0.3)},
+         "up": {"w": rng.normal(size=(d, hid), scale=0.3)},
+         "down": {"w": rng.normal(size=(hid, d), scale=0.3)}}
+    return SparseFFN.from_params(p, keep_density=keep, path="spgemm",
+                                 device=dev)
+
+
+def test_sparse_ffn_train_step_warm_makes_no_host_sync(cuda):
+    """After its first step a sparse-FFN train step builds no plan, makes
+    no host sync, launches none of our kernels (the torch stream), and its
+    loss falls."""
+    from repro_torch.core import plan_cache_info
+    from repro_torch.training.train_loop import build_sparse_ffn_train_step
+
+    sp = _sparse_ffn(cuda)
+    step, state = build_sparse_ffn_train_step(sp, lr=5e-2)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((16, 64), generator=gen, device=cuda)
+    y = torch.randn((16, 64), generator=gen, device=cuda)
+    state, m0 = step(state, (x, y))
+    misses = plan_cache_info()["misses"]
+    kernels.reset_launch_counts()
+    losses = [m0["loss"]]
+    for _ in range(5):
+        n = _count_syncs(lambda: losses.append(step(state, (x, y))[1]["loss"]))
+        assert n == 0
+    assert plan_cache_info()["misses"] == misses
+    assert not any(kernels.launch_counts().values())
+    losses = torch.stack(losses).cpu()
+    assert float(losses[-1]) < 0.7 * float(losses[0]), losses
+
+
+def test_sparse_ffn_gradient_through_k1_equals_torch_stream(cuda):
+    """On each matrix's plan of a sparse-FFN train step, K1
+    (``stream_apply(..., engine="fused")``, its ``grad_a``/``grad_b``
+    kernels backward) against the torch stream: forward and both
+    gradients bit for bit on integer values, within 1e-5 normwise on real
+    ones (C5); K1 launches."""
+    sp = _sparse_ffn(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    kernels.reset_launch_counts()
+    for m in (sp.gate, sp.up, sp.down):
+        plan = m._spgemm_plan(16)[0]
+        k = m.shape[1]
+        for integer in (True, False):
+            def draw(n):
+                if integer:
+                    return torch.randint(-2, 3, (n,), generator=gen,
+                                         device=cuda).float()
+                return torch.randn((n,), generator=gen, device=cuda)
+
+            w, xv = draw(m.w_csc.nnz), draw(k * 16)
+            g = draw(plan.stream.nnz)
+            outs = []
+            for engine in ("fused", None):
+                wr, xr = w.clone().requires_grad_(), xv.clone().requires_grad_()
+                c = plan.stream_apply(wr, xr, engine=engine)
+                gw, gx = torch.autograd.grad(c, (wr, xr), g)
+                outs.append((c.detach(), gw, gx))
+            for got, want in zip(*outs):
+                if integer:
+                    assert torch.equal(got, want)
+                else:
+                    assert _normwise(got, want) <= 1e-5
+    assert kernels.launch_counts()["fused_stream"] > 0
