@@ -285,6 +285,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    stream's forward+gradient time beside K1's byte bound, and the step's
    time.
 
+18. Serving with the warm on a plan builder (``repro_torch.core.
+   plan_builder``, ``serving.resilience``, ``core.faults``): qwen2-0.5b at
+   full width and depth (24 layers, d_model 896, d_ff 4864, vocab 151936),
+   f32 weights from ``--seed`` rescaled by ``well_scaled``, its FFNs at keep
+   0.1 on the spgemm path (the torch stream on the card); ``ServeEngine``
+   with 4 slots of 256 positions, 4 requests of 8 prompt tokens from
+   ``--seed`` and 16 new ones.  (a) A builder-free engine on a fresh
+   overlay and an empty LRU (its first tick builds and lifts its plans: the
+   synchronous warm, timed); then ``PlanBuilder(workers=1)`` on another
+   fresh overlay, the counts set to 0 just before: the first tick runs on
+   the host stream while the warm runs, the engine promotes with no warm
+   failure and stays healthy, its first device tick misses no plan, no
+   kernel of ours launches, greedy tokens equal the builder-free engine's
+   (a differing token is printed with its top-2 margin); the warm's
+   seconds, each tick kind's median and count, the first tick beside the
+   synchronous warm, the logits' difference from the builder-free run.
+   (b) A gate task holds the builder: 3 fallback ticks, their host syncs
+   (sync debug mode) equal to the engine's count; released, the engine
+   promotes, tokens equal (a)'s; sampled at temperature 0.7 against its
+   builder-free twin.  (c) Drills, every wait bounded: ``warm_compile``
+   failing twice under ``CircuitBreaker(degrade_after=1, pin_after=2)`` on
+   an injected clock (degraded, pinned, a half-open probe, healthy; tokens
+   equal (a)'s; one worker); ``builder_worker`` hanging past a 5 s
+   ``build_deadline`` (the worker recycled, serving goes on);
+   ``device_lift`` failing once with ``match="torch"`` (fallback ticks go
+   on, no request lost); single flight on one torch key (two builder
+   tasks: one miss, one hit, one build); a ``build_timeout`` waiter on a
+   hung owner (``PlanBuildTimeout`` from its ``BuildResult.error``).
+
 The last two lines are the kernels' JSON and the card line; the very last is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero before any result.
@@ -4912,6 +4941,458 @@ def train_sparse_ffn_phase(params, dev, seed, reps):
     return out
 
 
+WARM_ARCH = "qwen2-0.5b"   # full width and depth: 24 layers
+WARM_KEEP = 0.1            # keep_density of its spgemm FFNs
+WARM_SLOTS = 4             # max_batch, and the requests served at once
+WARM_CACHE = 256           # cache_len
+WARM_PROMPT, WARM_NEW = 8, 16
+WARM_TEMP, WARM_SAMPLE_SEED = 0.7, 7   # (b)'s sampled run
+WARM_GATED = 3             # (b): fallback ticks while a gate holds the warm
+WARM_WAIT = 300.0          # seconds: the bound of every wait in phase 18
+WARM_DEADLINE = 5.0        # (c): the hang drill's build and warm deadline
+WAITER_TIMEOUT = 0.5       # (c): the single-flight waiter's build_timeout
+
+
+def fresh_overlay(overlay):
+    """``overlay``'s matrices with empty plan memos (the same patterns and
+    values): an engine given it builds its plans anew through the LRU."""
+    import dataclasses
+    import threading
+    from collections import OrderedDict
+
+    from repro_torch.models import SparseFFN
+
+    def fresh(m):
+        return dataclasses.replace(m, _spgemm_memo=OrderedDict(),
+                                   _memo_lock=threading.Lock())
+
+    return {k: SparseFFN(fresh(f.gate), fresh(f.up), fresh(f.down))
+            for k, f in overlay.items()}
+
+
+def warm_setup(dev, seed):
+    """qwen2-0.5b at full width and depth, f32 weights from ``seed``
+    through ``init_model`` on the card, rescaled by ``well_scaled``; its FFNs
+    converted by ``sparsify_ffn_params(keep_density=WARM_KEEP)`` (one
+    pattern per matrix shared by the 24 reps); ``WARM_SLOTS`` prompts of
+    ``WARM_PROMPT`` tokens from ``seed``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, sparsify_ffn_params
+
+    cfg = get_config(WARM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = well_scaled(cfg, init_model(cfg, gen, device=dev))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sparse, overlay = sparsify_ffn_params(cfg, params, keep_density=WARM_KEEP)
+    del params
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    prompts = torch.randint(
+        0, cfg.vocab, (WARM_SLOTS, WARM_PROMPT),
+        generator=torch.Generator().manual_seed(seed)).tolist()
+    nnz = {name: getattr(overlay["l0"], name).w_csc.nnz
+           for name in FFN_MATRICES}
+    print(f"serve warm: {WARM_ARCH} at full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab}); init {t1 - t0:.2f} s, sparsify (keep {WARM_KEEP}) "
+          f"{t2 - t1:.2f} s; kept values per matrix {json.dumps(nnz)}",
+          flush=True)
+    return dict(cfg=cfg, sparse=sparse, overlay=overlay, prompts=prompts,
+                setup_s=dict(init=t1 - t0, sparsify=t2 - t1))
+
+
+def record_logits(eng):
+    """The host logits of each of ``eng``'s ticks, either kind."""
+    log = []
+    for name in ("_decode", "_decode_fallback"):
+        fn = getattr(eng, name)
+        setattr(eng, name, lambda toks, fn=fn: log.append(fn(toks))
+                or log[-1])
+    return log
+
+
+def warm_engine(data, dev, overlay=None, **kw):
+    """A ``ServeEngine`` on phase 18's model: ``WARM_SLOTS`` slots of
+    ``WARM_CACHE`` positions."""
+    from repro_torch.serving import ServeEngine
+
+    return ServeEngine(data["cfg"], data["sparse"], max_batch=WARM_SLOTS,
+                       cache_len=WARM_CACHE,
+                       sparse_ffn=data["overlay"] if overlay is None
+                       else overlay, device=dev, **kw)
+
+
+def warm_submit(eng, data, temperature=0.0):
+    return [eng.submit(p, max_new_tokens=WARM_NEW, temperature=temperature)
+            for p in data["prompts"]]
+
+
+def warm_tick(eng, label):
+    """One tick: its kind, host ms, host syncs (the engine's count) and the
+    plans it missed in the LRU."""
+    from repro_torch.core import plan_cache_info
+
+    before, misses = eng.stats(), plan_cache_info()["misses"]
+    t0 = time.perf_counter()
+    check(eng.step(), f"{label}: a tick found nothing to serve")
+    ms = (time.perf_counter() - t0) * 1e3
+    after = eng.stats()
+    return dict(kind="device" if after["jit_ticks"] > before["jit_ticks"]
+                else "fallback", ms=ms,
+                syncs=after["host_syncs"] - before["host_syncs"],
+                misses=plan_cache_info()["misses"] - misses)
+
+
+def warm_finish(eng, rids, label, ticks=None):
+    """Tick ``eng`` until its requests are done; their tokens and the
+    ticks."""
+    ticks = [] if ticks is None else ticks
+    while eng.queue or any(eng.slots):
+        ticks.append(warm_tick(eng, label))
+        check(len(ticks) <= 4 * (WARM_PROMPT + WARM_NEW),
+              f"{label}: the requests did not finish")
+    check(all(len(eng.finished[r].generated) == WARM_NEW for r in rids),
+          f"{label}: a request lost tokens")
+    return [eng.finished[r].generated for r in rids], ticks
+
+
+def same_tokens(got, want, got_log, want_log, label):
+    """The same tokens in both runs of one schedule (every request admitted
+    at tick 0, request b in slot b); at the first difference, its position,
+    the top-2 margin of the reference run's logits there and the two runs'
+    largest logit difference are printed, and the run fails."""
+    for b, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(g, w)) if x != y)
+        tick = WARM_PROMPT - 1 + j
+        top = np.sort(want_log[tick][b])[-2:]
+        diff = float(np.abs(got_log[tick][b] - want_log[tick][b]).max())
+        print(f"{label}: request {b} differs at generated token {j} (tick "
+              f"{tick}): {g[j]} against {w[j]}, the reference's top-2 "
+              f"margin {top[1] - top[0]:.4g}, logits max |diff| {diff:.4g}",
+              flush=True)
+        fail(f"{label}: tokens differ from the builder-free engine's")
+
+
+def logit_errs(got_log, want_log, ticks):
+    """Per tick kind, the largest normwise difference of a run's logits
+    from the builder-free run's at the same tick."""
+    import torch
+
+    out = {}
+    for g, w, t in zip(got_log, want_log, ticks):
+        err = rel_err(torch.from_numpy(g), torch.from_numpy(w).double())
+        out[t["kind"]] = max(out.get(t["kind"], 0.0), err)
+    return out
+
+
+def kinds(ticks) -> dict:
+    return {k: sum(t["kind"] == k for t in ticks)
+            for k in ("fallback", "device")}
+
+
+def median_of(ticks, kind):
+    ms = [t["ms"] for t in ticks if t["kind"] == kind]
+    return statistics.median(ms) if ms else None
+
+
+def warm_sync_phase(data, dev):
+    """(a), first: a builder-free engine on a fresh overlay, its first tick
+    building and lifting its plans inline (the synchronous warm); greedy
+    tokens, every tick a device tick."""
+    from repro_torch.core import plan_cache_clear
+
+    plan_cache_clear()
+    eng = warm_engine(data, dev, fresh_overlay(data["overlay"]))
+    log = record_logits(eng)
+    rids = warm_submit(eng, data)
+    tokens, ticks = warm_finish(eng, rids, "serve warm (a) builder-free")
+    check(all(t["kind"] == "device" and t["syncs"] == 1 for t in ticks),
+          "serve warm (a): a builder-free tick was not one device step with "
+          "one host sync")
+    check(ticks[0]["misses"] == len(FFN_MATRICES)
+          and not any(t["misses"] for t in ticks[1:]),
+          f"serve warm (a): plan misses by tick {[t['misses'] for t in ticks]}")
+    out = dict(sync_warm_ms=ticks[0]["ms"],
+               device_tick_ms=median_of(ticks[1:], "device"),
+               ticks=len(ticks))
+    print(f"serve warm (a) builder-free: {json.dumps(out)}", flush=True)
+    return dict(out, tokens=tokens, log=log)
+
+
+def warm_background_phase(data, sync, dev, card):
+    """(a): the same requests with ``PlanBuilder(workers=1)`` on a fresh
+    overlay and an empty LRU, the counts set to 0 just before: every tick
+    completes while the warm runs (on the host stream), the engine promotes
+    with no warm failure and stays healthy, its first device tick misses no
+    plan, no kernel of ours launches, and the greedy tokens equal the
+    builder-free engine's."""
+    from repro_torch import kernels
+    from repro_torch.core import PlanBuilder, plan_cache_clear
+
+    plan_cache_clear()
+    kernels.reset_launch_counts()
+    with PlanBuilder(workers=1) as builder:
+        eng = warm_engine(data, dev, fresh_overlay(data["overlay"]),
+                          plan_builder=builder)
+        log = record_logits(eng)
+        rids = warm_submit(eng, data)
+        tokens, ticks = warm_finish(eng, rids, "serve warm (a)")
+        check(builder.wait_idle(WARM_WAIT), "serve warm (a): builder busy")
+        results = builder.poll()
+        info = builder.info()
+    counts = kernels.launch_counts()
+    stats = eng.stats()
+    warm = [r for r in results if r.tag[0] == "serve-warm"]
+    check(len(warm) == 1 and warm[0].ok, f"serve warm (a): warms {warm}")
+    check(ticks[0]["kind"] == "fallback",
+          "serve warm (a): the warm landed before the first tick")
+    check(stats["warm_failures"] == 0 and stats["health"] == "healthy"
+          and stats["jit_ticks"] > 0 and info["workers"] == 1,
+          f"serve warm (a): stats {stats}")
+    first = next(t for t in ticks if t["kind"] == "device")
+    check(first["misses"] == 0, f"serve warm (a): the first device tick "
+          f"built {first['misses']} plans")
+    check(not any(counts.values()), f"serve warm (a): kernels launched on "
+          f"the torch stream's path: {counts}")
+    same_tokens(tokens, sync["tokens"], log, sync["log"], "serve warm (a)")
+    out = dict(card=card, warm_s=warm[0].seconds,
+               first_tick_ms=ticks[0]["ms"], sync_warm_ms=sync["sync_warm_ms"],
+               first_tick_below_sync_warm=ticks[0]["ms"]
+               < sync["sync_warm_ms"],
+               fallback_tick_ms=median_of(ticks, "fallback"),
+               device_tick_ms=median_of(ticks, "device"),
+               builder_free_device_tick_ms=sync["device_tick_ms"],
+               ticks=kinds(ticks),
+               fallback_syncs=[t["syncs"] for t in ticks
+                               if t["kind"] == "fallback"][:1],
+               logits_err=logit_errs(log, sync["log"], ticks),
+               breaker=stats["breaker"])
+    print(f"serve warm (a) background: {json.dumps(out)}", flush=True)
+    return out
+
+
+def warm_gated_phase(data, sync, dev):
+    """(b): a gate task holds the builder's one worker, so
+    ``WARM_GATED`` ticks run on the fallback (their host syncs, as PyTorch's
+    sync debug mode counts them with nothing else on the card, equal to the
+    engine's count); the gate released, the engine promotes and the greedy
+    tokens equal (a)'s.  Then sampled (``temperature=WARM_TEMP``, seed
+    ``WARM_SAMPLE_SEED``): the gated run against its builder-free twin."""
+    import threading
+
+    from repro_torch.core import PlanBuilder
+
+    def gated_run(temperature, seed):
+        with PlanBuilder(workers=1) as builder:
+            gate = threading.Event()
+            builder.submit_task(lambda: gate.wait(WARM_WAIT), tag="gate")
+            eng = warm_engine(data, dev, plan_builder=builder, seed=seed)
+            log = record_logits(eng)
+            rids = warm_submit(eng, data, temperature)
+            ticks, measured = [], []
+            for _ in range(WARM_GATED):
+                box = []
+                measured.append(host_syncs(
+                    lambda: box.append(warm_tick(eng, "serve warm (b)"))))
+                ticks += box
+            check(not eng.sparse_ready() and kinds(ticks)["device"] == 0,
+                  "serve warm (b): a gated tick ran on the device")
+            gate.set()
+            check(eng.wait_sparse(WARM_WAIT), "serve warm (b): no promotion")
+            tokens, ticks = warm_finish(eng, rids, "serve warm (b)", ticks)
+            check(builder.wait_idle(WARM_WAIT), "serve warm (b): busy")
+        return tokens, ticks, measured, log, eng.stats()
+
+    tokens, ticks, measured, log, stats = gated_run(0.0, 0)
+    counted = [t["syncs"] for t in ticks[:WARM_GATED]]
+    check(measured == counted, f"serve warm (b): host syncs of the fallback "
+          f"ticks {measured}, the engine counted {counted}")
+    check(stats["fallback_ticks"] == WARM_GATED and stats["jit_ticks"] > 0
+          and stats["warm_failures"] == 0, f"serve warm (b): stats {stats}")
+    same_tokens(tokens, sync["tokens"], log, sync["log"], "serve warm (b)")
+    gated_ms = median_of(ticks, "fallback")
+
+    twin = warm_engine(data, dev, seed=WARM_SAMPLE_SEED)
+    twin_log = record_logits(twin)
+    want, _ = warm_finish(twin, warm_submit(twin, data, WARM_TEMP),
+                          "serve warm (b) sampled twin")
+    got, s_ticks, _, s_log, _ = gated_run(WARM_TEMP, WARM_SAMPLE_SEED)
+    same_tokens(got, want, s_log, twin_log, "serve warm (b) sampled")
+    out = dict(fallback_syncs_measured=measured,
+               fallback_tick_ms_no_warm_running=gated_ms,
+               device_tick_ms=median_of(ticks, "device"),
+               ticks=kinds(ticks), sampled_ticks=kinds(s_ticks),
+               logits_err=logit_errs(log, sync["log"], ticks),
+               sampled_distinct_tokens=len({t for g in got for t in g}))
+    print(f"serve warm (b) gated: {json.dumps(out)}", flush=True)
+    return out
+
+
+def warm_drill_phase(data, sync, dev):
+    """(c): fault drills, every wait bounded.  The breaker: ``warm_compile``
+    fails twice under ``CircuitBreaker(degrade_after=1, pin_after=2)`` on an
+    injected clock, the engine walks degraded, pinned, and through a
+    half-open probe back to healthy, tokens equal (a)'s, no worker lost.
+    The watchdog: ``builder_worker`` hangs past ``WARM_DEADLINE``, the
+    worker is recycled and serving goes on.  The lift: ``device_lift``
+    fails once with ``match="torch"`` on a fresh overlay, fallback ticks go
+    on and no request is lost.  Single flight: two builder tasks
+    ``cached_plan`` one torch key at once (the owner slowed by a delay):
+    one miss, one hit, one build.  The waiter: a ``build_timeout`` waiter
+    on a hung owner gets ``PlanBuildTimeout`` (read from its
+    ``BuildResult.error``)."""
+    import threading
+
+    from repro_torch.core import PlanBuilder, PlanBuildTimeout, cached_plan, \
+        faults, plan_cache_clear, plan_cache_info
+    from repro_torch.models.sparse_ffn import _dense_pattern
+    from repro_torch.serving import CircuitBreaker, Health
+
+    out = {}
+    clock = [0.0]
+    br = CircuitBreaker(degrade_after=1, pin_after=2, cooldown=5.0,
+                        clock=lambda: clock[0])
+    walk = []
+    with faults.inject(faults.FaultRule("warm_compile", "fail", every=1,
+                                        max_fires=2, match="serve-warm")):
+        with PlanBuilder(workers=1) as builder:
+            eng = warm_engine(data, dev, plan_builder=builder, breaker=br)
+            check(builder.wait_idle(WARM_WAIT), "drill: builder busy")
+            walk.append(str(br.health))
+            rids = warm_submit(eng, data)
+            ticks = [warm_tick(eng, "drill breaker")]
+            check(builder.wait_idle(WARM_WAIT), "drill: builder busy")
+            walk.append(str(br.health))
+            while not eng.sparse_ready() and (eng.queue or any(eng.slots)):
+                ticks.append(warm_tick(eng, "drill breaker"))
+                check(builder.wait_idle(WARM_WAIT), "drill: builder busy")
+                walk.append(str(br.health))
+                if len(ticks) == 4:
+                    clock[0] = 5.1      # the cooldown elapses: a probe
+            check(eng.wait_sparse(WARM_WAIT), "drill breaker: no promotion")
+            tokens, ticks = warm_finish(eng, rids, "drill breaker", ticks)
+            workers = builder.info()["workers"]
+    stats = eng.stats()
+    check(walk[:2] == [str(Health.DEGRADED), str(Health.FALLBACK_PINNED)]
+          and str(br.health) == "healthy" and stats["warm_failures"] == 2
+          and stats["breaker"]["probes"] == 1 and workers == 1,
+          f"drill breaker: health walk {walk}, stats {stats}")
+    check(tokens == sync["tokens"], "drill breaker: tokens differ from (a)'s")
+    out["breaker"] = dict(walk=walk, ticks=kinds(ticks),
+                          breaker=stats["breaker"])
+
+    with faults.inject(faults.FaultRule("builder_worker", "hang", every=1,
+                                        max_fires=1, seconds=WARM_WAIT)):
+        with PlanBuilder(workers=1, build_deadline=WARM_DEADLINE) as builder:
+            eng = warm_engine(data, dev, plan_builder=builder,
+                              warm_deadline=WARM_DEADLINE)
+            t0 = time.monotonic()
+            rids = warm_submit(eng, data)
+            ticks = [warm_tick(eng, "drill hang")]
+            # the watchdog fails the hung warm; past the engine's own
+            # deadline the next tick counts it and the one after re-warms
+            check(builder.wait_idle(WARM_WAIT), "drill hang: builder busy")
+            time.sleep(max(0.0, WARM_DEADLINE + 0.3
+                           - (time.monotonic() - t0)))
+            tokens, ticks = warm_finish(eng, rids, "drill hang", ticks)
+            check(builder.wait_idle(WARM_WAIT), "drill hang: builder busy")
+            info = builder.info()
+    stats = eng.stats()
+    check(info["workers_recycled"] >= 1 and info["workers"] == 1
+          and stats["warm_failures"] >= 1 and stats["jit_ticks"] > 0
+          and tokens == sync["tokens"],
+          f"drill hang: builder {info}, stats {stats}")
+    out["hang"] = dict(recycled=info["workers_recycled"],
+                       warm_failures=stats["warm_failures"],
+                       jit_ticks=stats["jit_ticks"], ticks=kinds(ticks))
+
+    plan_cache_clear()
+    with faults.inject(faults.FaultRule("device_lift", "fail", every=1,
+                                        max_fires=1, match="torch")) as fp:
+        with PlanBuilder(workers=1) as builder:
+            eng = warm_engine(data, dev, fresh_overlay(data["overlay"]),
+                              plan_builder=builder)
+            tokens, ticks = warm_finish(eng, warm_submit(eng, data),
+                                        "drill lift")
+            check(builder.wait_idle(WARM_WAIT), "drill lift: builder busy")
+        fired = fp.fired("device_lift")
+    stats = eng.stats()
+    check(fired == 1 and stats["warm_failures"] == 1
+          and stats["health"] == "healthy" and tokens == sync["tokens"],
+          f"drill lift: fired {fired}, stats {stats}")
+    out["lift"] = dict(fired=fired, ticks=kinds(ticks),
+                       jit_ticks=stats["jit_ticks"])
+
+    w = data["overlay"]["l0"].gate.w_csc
+    x = _dense_pattern(w.shape[1], WARM_SLOTS)
+
+    def plan():
+        return cached_plan(w, x, "expand", backend="torch", device=dev)
+
+    plan_cache_clear()
+    with faults.inject(faults.FaultRule("plan_spgemm", "delay", every=1,
+                                        seconds=0.5, match="torch")) as fp:
+        with PlanBuilder(workers=2) as builder:
+            barrier = threading.Barrier(2, timeout=WARM_WAIT)
+
+            def together():
+                barrier.wait()
+                return plan()
+
+            for i in range(2):
+                builder.submit_task(together, tag=("single-flight", i))
+            check(builder.wait_idle(WARM_WAIT), "single flight: busy")
+            res = builder.poll()
+        builds = fp.fired("plan_spgemm")
+    info = plan_cache_info()
+    check(len(res) == 2 and all(r.ok for r in res)
+          and res[0].plan is res[1].plan and builds == 1
+          and (info["misses"], info["hits"]) == (1, 1),
+          f"single flight: {builds} builds, misses {info['misses']}, hits "
+          f"{info['hits']}, results {res}")
+    out["single_flight"] = dict(builds=builds, misses=info["misses"],
+                                hits=info["hits"])
+
+    plan_cache_clear()
+    with faults.inject(faults.FaultRule("plan_spgemm", "hang", every=1,
+                                        max_fires=1, seconds=WARM_WAIT,
+                                        match="torch")) as fp:
+        with PlanBuilder(workers=2) as builder:
+            builder.submit_task(plan, tag="owner")
+            t0 = time.monotonic()
+            while not fp.fired("plan_spgemm"):
+                check(time.monotonic() - t0 < WARM_WAIT, "waiter: no owner")
+                time.sleep(0.01)
+            builder.submit_task(
+                lambda: cached_plan(w, x, "expand", backend="torch",
+                                    device=dev,
+                                    build_timeout=WAITER_TIMEOUT),
+                tag="waiter")
+            waited = []
+            while not waited:
+                check(time.monotonic() - t0 < WARM_WAIT, "waiter: no result")
+                waited = [r for r in builder.poll() if r.tag == "waiter"]
+                time.sleep(0.01)
+            fp.release()        # the owner's build goes on and lands
+            check(builder.wait_idle(WARM_WAIT), "waiter: builder busy")
+            owner = builder.poll()
+    info = plan_cache_info()
+    check(isinstance(waited[0].error, PlanBuildTimeout)
+          and info["wait_timeouts"] == 1 and len(owner) == 1 and owner[0].ok,
+          f"waiter: {waited}, owner {owner}, cache {info}")
+    out["waiter"] = dict(error=type(waited[0].error).__name__,
+                         seconds=waited[0].seconds,
+                         wait_timeouts=info["wait_timeouts"])
+    plan_cache_clear()
+    print(f"serve warm (c) drills: {json.dumps(out)}", flush=True)
+    return out
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line saying how long it took."""
     import torch
@@ -5131,6 +5612,20 @@ def main(argv=None) -> int:
                 encdec_k1=encdec["k1_launches"],
                 train_k1=sffn["k1_launches"])
     print(f"train phases: {time.perf_counter() - t_train:.1f} s; card: "
+          f"{card}", flush=True)
+
+    # phase 18: qwen2-0.5b served with its warm on a plan builder
+    t_warm = time.perf_counter()
+    warm = timed(warm_setup, dev, args.seed)
+    sync = timed(warm_sync_phase, warm, dev)
+    timed(warm_background_phase, warm, sync, dev, card)
+    timed(warm_gated_phase, warm, sync, dev)
+    timed(warm_drill_phase, warm, sync, dev)
+    del warm, sync
+    plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve warm phases: {time.perf_counter() - t_warm:.1f} s; card: "
           f"{card}", flush=True)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, build "
           "included", flush=True)

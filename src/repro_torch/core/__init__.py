@@ -15,6 +15,11 @@ a 2-D tile grid whose tiles each run the method the cost model
 (``core.cost``) picks, merged in a fixed order; the model ranks on the
 machine profile (``core.profile``), measured on this machine by
 ``calibrate_profile`` or else the defaults.
+
+The plan LRU builds each key once across threads (single-flight), and
+``PlanBuilder`` builds and warms plans on background threads under retry,
+a watchdog and backpressure; ``core.faults`` injects deterministic
+failures, hangs and delays at the pipeline's sites.
 """
 
 from repro_torch.core.analysis import (
@@ -29,13 +34,18 @@ from repro_torch.core.analysis import (
 )
 from repro_torch.core.api import (
     DEFAULT_METHOD,
+    PlanBuildTimeout,
     PlanCache,
     cached_plan,
     plan_cache_clear,
     plan_cache_info,
+    plan_cache_key,
+    plan_cache_peek,
     plan_cache_resize,
+    register_eviction_listener,
     spgemm,
     spgemm_batched,
+    unregister_eviction_listener,
 )
 from repro_torch.core.backends import ExecutionContract, backend_names, \
     get_backend
@@ -43,10 +53,20 @@ from repro_torch.core.cost import AUTO_CANDIDATES, DEFAULT_CONSTANTS, \
     CostConstants, choose_method, estimate_cost
 from repro_torch.core.device_stream import DeviceStream, device_stream, \
     execute_torch, execute_torch_batched, stream_fn, stream_fn_batched
+from repro_torch.core.faults import FaultPlan, FaultRule, InjectedFault
 from repro_torch.core.executor import execute, execute_batched, \
     execute_tiled, execute_tiled_batched, register_executor, resolve_engine
 from repro_torch.core.fused_stream import FusedStream, execute_fused_batched, \
     fused_fn, fused_stream
+from repro_torch.core.plan_builder import (
+    BuildCancelled,
+    BuildResult,
+    BuildShed,
+    BuildTimeoutError,
+    PlanBuilder,
+    RetryPolicy,
+    warm_plan,
+)
 from repro_torch.core.profile import (
     MachineProfile,
     calibrate_profile,
@@ -83,13 +103,28 @@ __all__ = [
     "preprocess",
     "sort_columns",
     "DEFAULT_METHOD",
+    "PlanBuildTimeout",
     "PlanCache",
     "cached_plan",
     "plan_cache_clear",
     "plan_cache_info",
+    "plan_cache_key",
+    "plan_cache_peek",
     "plan_cache_resize",
+    "register_eviction_listener",
+    "unregister_eviction_listener",
     "spgemm",
     "spgemm_batched",
+    "FaultPlan",
+    "FaultRule",
+    "InjectedFault",
+    "BuildCancelled",
+    "BuildResult",
+    "BuildShed",
+    "BuildTimeoutError",
+    "PlanBuilder",
+    "RetryPolicy",
+    "warm_plan",
     "ExecutionContract",
     "backend_names",
     "get_backend",

@@ -37,11 +37,19 @@ their nnz, or by ``tile=``) and each tile runs the candidate the cost model
 raises without one; pass ``device="cpu"`` to run the kernels' plain
 versions and the torch stream on the host.  The host backend runs on the
 CPU, and asking it for another device raises.
+
+The LRU builds each key once across threads (single-flight: a waiter
+takes the owner's plan, bounded by ``build_timeout=``), and a background
+:class:`~repro_torch.core.plan_builder.PlanBuilder` shares it:
+``plan_cache_key`` and ``plan_cache_peek`` probe it without building or
+counting, and eviction listeners hear of a ``plan_cache_resize`` shrink.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+import weakref
 from collections import OrderedDict
 
 import torch
@@ -77,39 +85,130 @@ def _held(plans, attr: str) -> int:
     return sum(seen.values())
 
 
-class PlanCache:
-    """Bounded LRU of plans with hit/miss/eviction counters.
+class PlanBuildTimeout(TimeoutError):
+    """A single-flight waiter outlived its deadline on another thread's
+    in-flight build (the build itself may still complete later)."""
 
-    Every read or write of the entries and counters holds the lock.  The
-    symbolic build itself runs outside it, so two threads that miss on one
-    key at once may both build; the second insert replaces the first.
+
+#: Default bound (seconds) on how long a caller may wait on ANOTHER
+#: thread's in-flight build of the same key before it raises
+#: :class:`PlanBuildTimeout`.  ``None`` waits forever;
+#: ``cached_plan(build_timeout=...)`` overrides it per call.  Owners are
+#: never interrupted -- only waiters time out.
+DEFAULT_BUILD_TIMEOUT: float | None = None
+
+# Weak references to live PlanBuilders: plan_cache_info() lists their
+# queue-depth / retry / recycle counters next to the cache's, so one probe
+# reads the whole pipeline's health.
+_BUILDERS: "list[weakref.ref]" = []
+_BUILDERS_LOCK = threading.Lock()
+
+
+def _register_builder(builder) -> None:
+    with _BUILDERS_LOCK:
+        _BUILDERS[:] = [r for r in _BUILDERS if r() is not None]
+        _BUILDERS.append(weakref.ref(builder))
+
+
+def _unregister_builder(builder) -> None:
+    with _BUILDERS_LOCK:
+        _BUILDERS[:] = [r for r in _BUILDERS
+                        if r() is not None and r() is not builder]
+
+
+class PlanCache:
+    """Bounded LRU of plans with hit/miss/eviction counters, single-flight.
+
+    Every read or write of the entries and counters holds the lock; the
+    symbolic build itself runs outside it.  One ``threading.Event`` per key
+    with a build in flight makes concurrent requests for that key wait for
+    the owner's build instead of duplicating it: a waiter takes the owner's
+    result (a hit), and a failed owner wakes the waiters, one of which
+    builds again.  ``wasted_builds`` counts evicted entries that were never
+    hit after insertion (a build the cache could not keep: a
+    :meth:`resize` below the builds in flight); ``wait_timeouts`` waiters
+    past their deadline; ``listener_errors`` eviction listeners that
+    raised.
     """
 
     def __init__(self, max_size: int = 64):
         self.max_size = int(max_size)
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
         self._plans: "OrderedDict[tuple, SpgemmPlan]" = OrderedDict()
-        self._stats = {"hits": 0, "misses": 0, "evictions": 0}
+        self._stats = {"hits": 0, "misses": 0, "evictions": 0,
+                       "wasted_builds": 0, "listener_errors": 0,
+                       "wait_timeouts": 0}
+        self._building: "dict[tuple, threading.Event]" = {}
+        # keys inserted but never since hit: evicting one is a wasted build
+        self._never_hit: set = set()
+        # fn(keys, reason), called outside the lock after a resize() shrink
+        self._listeners: list = []
 
-    def get_or_build(self, key, build) -> SpgemmPlan:
-        with self._lock:
-            plan = self._plans.get(key)
-            if plan is not None:
-                self._plans.move_to_end(key)
-                self._stats["hits"] += 1
+    def get_or_build(self, key, build, timeout: float | None = None):
+        """The plan of ``key`` from the LRU, or ``build()`` run exactly
+        once across threads.  ``timeout`` (default
+        :data:`DEFAULT_BUILD_TIMEOUT`) bounds how long a *waiter* blocks on
+        another thread's build of the same key; past it
+        :class:`PlanBuildTimeout` is raised.  With ``max_size == 0`` the
+        published entry is evicted at once, so every caller builds."""
+        if timeout is None:
+            timeout = DEFAULT_BUILD_TIMEOUT
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            with self._lock:
+                plan = self._plans.get(key)
+                if plan is not None:
+                    self._plans.move_to_end(key)
+                    self._stats["hits"] += 1
+                    self._never_hit.discard(key)
+                    return plan
+                done = self._building.get(key)
+                owner = done is None
+                if owner:
+                    done = self._building[key] = threading.Event()
+                    self._stats["misses"] += 1
+            if owner:
+                try:
+                    plan = build()
+                    self._put(key, plan)
+                finally:
+                    with self._lock:
+                        self._building.pop(key, None)
+                    done.set()
                 return plan
-            self._stats["misses"] += 1
-        plan = build()
+            remaining = (None if deadline is None
+                         else deadline - time.monotonic())
+            if (remaining is not None and remaining <= 0) \
+                    or not done.wait(remaining):
+                with self._lock:
+                    self._stats["wait_timeouts"] += 1
+                raise PlanBuildTimeout(
+                    f"waited {timeout:.3f}s on another thread's in-flight "
+                    f"build of plan key {key[2:4]}; the build may still "
+                    "land later -- retry, or serve a fallback plan")
+
+    def _put(self, key, plan) -> None:
         with self._lock:
             self._plans[key] = plan
             self._plans.move_to_end(key)
-            self._evict_locked()
-        return plan
+            self._never_hit.add(key)
+            while len(self._plans) > self.max_size:
+                self._evict_locked()
 
-    def _evict_locked(self) -> None:
-        while len(self._plans) > self.max_size:
-            self._plans.popitem(last=False)
-            self._stats["evictions"] += 1
+    def _evict_locked(self):
+        """Pop the LRU head (lock held); counts the eviction and a waste,
+        returns its key."""
+        key, _ = self._plans.popitem(last=False)
+        self._stats["evictions"] += 1
+        if key in self._never_hit:
+            self._never_hit.discard(key)
+            self._stats["wasted_builds"] += 1
+        return key
+
+    def peek(self, key):
+        """The plan of ``key`` or ``None``: no promotion, no counting."""
+        with self._lock:
+            return self._plans.get(key)
 
     def info(self) -> dict:
         with self._lock:
@@ -119,6 +218,7 @@ class PlanCache:
                         max_size=self.max_size,
                         hit_rate=(self._stats["hits"] / lookups
                                   if lookups else 0.0),
+                        in_flight=len(self._building),
                         stream_bytes=_held(plans, "stream_nbytes"),
                         device_stream_bytes=_held(plans,
                                                   "device_stream_nbytes"),
@@ -128,16 +228,31 @@ class PlanCache:
     def clear(self) -> None:
         with self._lock:
             self._plans.clear()
+            self._never_hit.clear()
             for k in self._stats:
                 self._stats[k] = 0
 
     def resize(self, n: int) -> dict:
+        """Set the capacity, evicting the least recently used overflow;
+        the evicted keys go to each listener as ``fn(keys, "resize")``,
+        outside the lock (a listener may re-enter the cache).  A raising
+        listener is counted in ``listener_errors`` and does not stop the
+        others or reach the caller."""
         n = int(n)
         if n < 0:
             raise ValueError(f"cache size must be >= 0, got {n}")
+        evicted = []
         with self._lock:
             self.max_size = n
-            self._evict_locked()
+            while len(self._plans) > self.max_size:
+                evicted.append(self._evict_locked())
+        if evicted:
+            for fn in list(self._listeners):
+                try:
+                    fn(tuple(evicted), "resize")
+                except Exception:
+                    with self._lock:
+                        self._stats["listener_errors"] += 1
         return self.info()
 
 
@@ -158,8 +273,21 @@ def plan_cache_info() -> dict:
     machine profile's provenance and counters (``core.profile``): which
     constants auto plans rank under, how old the calibration is, and how
     often auto ranked device engines on the uncalibrated defaults.
+
+    The resilience counters: ``in_flight`` builds now running,
+    ``wasted_builds`` entries evicted before their first hit,
+    ``wait_timeouts`` single-flight waiters past their ``build_timeout``,
+    ``listener_errors`` eviction listeners that raised, and ``builders``
+    each live :class:`~repro_torch.core.plan_builder.PlanBuilder`'s
+    ``info()`` (queue depth, retries, timeouts, recycled workers,
+    backpressure policy).
     """
     out = PLAN_CACHE.info()
+    with _BUILDERS_LOCK:
+        refs = list(_BUILDERS)
+    # builder.info() takes the builder's own lock: outside ours
+    out["builders"] = [b.info() for b in (r() for r in refs)
+                       if b is not None]
     out["profile"] = profile.profile_info()
     return out
 
@@ -170,10 +298,39 @@ def plan_cache_clear() -> None:
 
 
 def plan_cache_resize(n: int) -> dict:
-    """Set the LRU capacity (evicting least-recently-used overflow);
-    ``n == 0`` disables caching.  Returns :func:`plan_cache_info`."""
+    """Set the LRU capacity (evicting least-recently-used overflow, which
+    the eviction listeners hear of); ``n == 0`` disables caching.  Returns
+    :func:`plan_cache_info`."""
     PLAN_CACHE.resize(n)
     return plan_cache_info()
+
+
+def plan_cache_peek(key):
+    """Non-mutating lookup: the plan of ``key`` (from
+    :func:`plan_cache_key`) or ``None``, with no LRU promotion and no
+    counter update -- the probe a latency-critical tick makes while a
+    background builder owns the build."""
+    return PLAN_CACHE.peek(key)
+
+
+def register_eviction_listener(fn) -> None:
+    """Register ``fn(keys, reason)`` for post-shrink eviction batches.
+
+    Called outside the cache lock after :func:`plan_cache_resize` evicts
+    entries (``reason="resize"``); capacity-pressure evictions from normal
+    inserts never notify.  A listener's exception is counted in
+    ``listener_errors`` and swallowed.  The standard listener is
+    ``PlanBuilder.enable_rewarm()``, which re-queues the evicted keys'
+    builds.
+    """
+    if fn not in PLAN_CACHE._listeners:
+        PLAN_CACHE._listeners.append(fn)
+
+
+def unregister_eviction_listener(fn) -> None:
+    """Remove a listener registered by :func:`register_eviction_listener`."""
+    if fn in PLAN_CACHE._listeners:
+        PLAN_CACHE._listeners.remove(fn)
 
 
 def _resolve_method_backend(method, backend):
@@ -202,17 +359,45 @@ def _plan_key(a: CSC, b: CSC, method: str, contract, params: dict,
             contract.name, tuple(sorted(params.items())), limit, str(dev))
 
 
+def plan_cache_key(a: CSC, b: CSC, method: str | None = None, *,
+                   backend: str | None = None, t: float | None = None,
+                   b_min: int | None = None, b_max: int | None = None,
+                   stream_limit: int | None = None, device=None) -> tuple:
+    """The LRU key :func:`cached_plan` would use for these arguments.
+
+    For non-blocking probes: compute the key once, then
+    :func:`plan_cache_peek` it on the latency path while a background
+    :class:`~repro_torch.core.plan_builder.PlanBuilder` owns the build.
+    Costs two pattern fingerprints (O(nnz)), no plan construction; the key
+    holds the stream limit and the device.
+    """
+    method, contract = _resolve_method_backend(method, backend)
+    if method == "auto":
+        raise ValueError(
+            "plan_cache_key addresses single-method plans; method='auto' "
+            "uses the tiled entry points")
+    backends.check_method_knobs(contract, t, b_min, b_max)
+    params = resolve_params(method, t=t, b_min=b_min, b_max=b_max)
+    return _plan_key(a, b, method, contract, params,
+                     plan_device(contract, device), stream_limit)
+
+
 def cached_plan(a: CSC, b: CSC, method: str | None = None, *,
                 backend: str | None = None, t: float | None = None,
                 b_min: int | None = None, b_max: int | None = None,
                 stream_limit: int | None = None,
-                device=None) -> SpgemmPlan:
+                device=None,
+                build_timeout: float | None = None) -> SpgemmPlan:
     """Fetch-or-build a plan through the shared LRU.
 
     Arguments as in :func:`spgemm`.  ``stream_limit`` overrides the stream
     guard for this plan only (part of the key), without touching the
     global ``fast.STREAM_MAX_PRODUCTS``; with ``None`` the plan keeps the
-    guard in force when it was built, which is part of the key too.
+    guard in force when it was built, which is part of the key too.  One
+    key builds once across threads (single-flight); ``build_timeout``
+    bounds how long this call may wait on *another* thread's build of the
+    same key (:class:`PlanBuildTimeout` past it; default
+    :data:`DEFAULT_BUILD_TIMEOUT`).
     """
     method, contract = _resolve_method_backend(method, backend)
     if method == "auto":
@@ -226,7 +411,8 @@ def cached_plan(a: CSC, b: CSC, method: str | None = None, *,
         _plan_key(a, b, method, contract, params, dev, stream_limit),
         lambda: plan_spgemm(a, b, method, backend=contract.name, t=t,
                             b_min=b_min, b_max=b_max, device=dev,
-                            stream_limit=stream_limit))
+                            stream_limit=stream_limit),
+        timeout=build_timeout)
 
 
 def _cached_tiled_plan(a: CSC, b: CSC, contract, tile, candidates,

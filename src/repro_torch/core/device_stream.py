@@ -59,11 +59,13 @@ instead, as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import faults
 from repro_torch.core.fast import ProductStream, build_product_stream
 from repro_torch.sparse.format import CSC, as_tensor
 
@@ -71,6 +73,8 @@ from repro_torch.sparse.format import CSC, as_tensor
 # products, but a_pos/b_pos index the operands' value arrays, whose nnz the
 # guard does not bound, so the check covers both
 _I32_MAX = np.iinfo(np.int32).max
+
+_LIFT_LOCK = threading.Lock()   # one lift of a plan's stream at a time
 
 #: each value set's row of products starts at a multiple of this many
 #: products (128 bytes of f32), so a batched segmented sum sees every
@@ -245,16 +249,22 @@ def device_stream(plan, grads: bool = False) -> Optional[DeviceStream]:
     (``plan.device_stream_nbytes``; ``plan_cache_info()
     ["device_stream_bytes"]``).  Its gradient replays are built by the first
     call with ``grads=True`` (the first backward) and kept from then on.
-    ``None`` when the plan-memory guard tripped."""
+    ``None`` when the plan-memory guard tripped.  One lift a plan,
+    whichever thread comes first (the ``device_lift`` fault site)."""
     s = plan.stream
     if s is None:
         return None
     memo = plan._stream_memo
-    if "device" not in memo:
-        memo["device"] = _lift_stream(plan, s)
-    if grads and memo["device"].grad_a is None:
-        memo["device"] = dataclasses.replace(
-            memo["device"], **_grad_views(s, plan.device))
+    if "device" not in memo or (grads and memo["device"].grad_a is None):
+        # a background warm and a serving thread may both reach a fresh
+        # plan: one lifts, the other takes its lift
+        with _LIFT_LOCK:
+            if "device" not in memo:
+                faults.check("device_lift", key=plan.backend)
+                memo["device"] = _lift_stream(plan, s)
+            if grads and memo["device"].grad_a is None:
+                memo["device"] = dataclasses.replace(
+                    memo["device"], **_grad_views(s, plan.device))
     return memo["device"]
 
 

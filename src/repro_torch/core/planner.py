@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import backends, fast
+from repro_torch.core import backends, fast, faults
 from repro_torch.core.analysis import Preprocess, preprocess
 from repro_torch.core.cost import CostConstants, check_candidates, \
     choose_method
@@ -465,6 +465,7 @@ def plan_spgemm(
     ``tile_cols``-wide launches: it changes launches and peak memory, never
     values.
     """
+    faults.check("plan_spgemm", key=(backend, method))
     if a.n_cols != b.n_rows:
         raise ValueError(f"shape mismatch {a.shape} @ {b.shape}")
     contract = backends.get_backend(backend)

@@ -22,13 +22,15 @@ lane's table contiguous.  Both wrappers count their launches per tier in
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.analysis import HASH_C
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_operands, check_steps, \
     stream_handle
-from repro_torch.kernels.spars import LockStep
+from repro_torch.kernels.spars import add_in_order, lockstep_walk, \
+    walk_products, walk_rows
 
 EMPTY = -1
 #: the multiplier the reference applies in int32 (its low 31 bits)
@@ -180,40 +182,61 @@ def hash_spgemm_plain(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
     return keys[0], vals[0]
 
 
+def hash_probe(rows: np.ndarray, lanes: np.ndarray, step: np.ndarray,
+               h: int, n_b: int) -> np.ndarray:
+    """Each step's slot, probe for probe on the host: a lane's table keeps
+    the rows it was given (pattern only), so the slots follow from the walk
+    (:func:`~repro_torch.kernels.spars.lockstep_walk`, ``step``-ordered)
+    alone.  A probe round stops once every lane of the step found its slot
+    (the remaining rounds of the reference leave every lane where it is);
+    a lane that finds none in ``h`` probes takes slot 0."""
+    table = np.full((h, n_b), EMPTY, np.int64)
+    slots = np.zeros(len(rows), np.int64)
+    bounds = np.r_[0, np.flatnonzero(np.diff(step)) + 1, len(step)]
+    for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        r, ln = rows[lo:hi], lanes[lo:hi]
+        pos = (r * HASH_C31) & (h - 1)
+        slot = np.zeros_like(pos)
+        todo = np.ones(len(pos), bool)
+        for _ in range(h):
+            key = table[pos, ln]
+            hit = todo & ((key == r) | (key == EMPTY))
+            slot = np.where(hit, pos, slot)
+            todo &= ~hit
+            if not todo.any():
+                break
+            pos = np.where(todo, (pos + 1) & (h - 1), pos)
+        table[slot, ln] = r
+        slots[lo:hi] = slot
+    return slots
+
+
 def hash_spgemm_batched_plain(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz,
                               steps, *, h: int, block_cols: int = 128):
     """The kernel's plain PyTorch version, probe for probe.
 
-    Loops over steps and vectorizes over (batch, lane).  Each lane of each
-    batch element probes its own table, as the kernel's thread does; a
-    probe round stops once every lane found its slot (the remaining rounds
-    of the reference leave every lane where it is).
+    The walk and every step's slot come from the pattern on the host
+    (:func:`hash_probe`; each lane of each batch element probes its own
+    table, as the kernel's thread does, and the tables of all elements
+    hold the same keys); every step's product is one gather and multiply,
+    and each (slot, lane) cell adds its products in step order
+    (:func:`~repro_torch.kernels.spars.add_in_order`).  Each cell keeps the
+    row its last step wrote.
     """
     batch = a_vals.shape[0]
     n_b = b_rows.shape[0]
     dev = a_vals.device
     keys = torch.full((batch, h, n_b), EMPTY, dtype=torch.int32, device=dev)
     vals = torch.zeros((batch, h, n_b), dtype=torch.float32, device=dev)
-    elem = torch.arange(batch, device=dev)[:, None]
-    ls = LockStep(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
-                  block_cols)
-    for s in range(ls.n_steps):
-        lanes = torch.nonzero(ls.active(s), as_tuple=True)[0]
-        if len(lanes) == 0:
-            break
-        rows, prod = ls.fetch(lanes)                # [L], [B, L]
-        pos = hash_slot(rows, h).expand(batch, -1)  # [B, L]
-        slot = torch.zeros_like(pos)        # the fallback: slot 0
-        todo = torch.ones_like(pos, dtype=torch.bool)
-        for _ in range(h):
-            key = keys[elem, pos, lanes].long()
-            hit = todo & ((key == rows) | (key == EMPTY))
-            slot = torch.where(hit, pos, slot)
-            todo = todo & ~hit
-            if not bool(todo.any()):
-                break
-            pos = torch.where(todo, (pos + 1) & (h - 1), pos)
-        vals[elem, slot, lanes] = vals[elem, slot, lanes] + prod
-        keys[elem, slot, lanes] = rows.to(torch.int32)
-        ls.advance(lanes)
+    walk = lockstep_walk(a_nnz, b_rows, b_nnz, steps, block_cols)
+    if len(walk[0]) == 0:
+        return keys, vals
+    step, lanes = walk[0], walk[1]
+    rows = walk_rows(a_rows, walk)
+    slots = hash_probe(rows, lanes, step, h, n_b)
+    add_in_order(vals, slots, lanes, walk_products(a_vals, b_vals, walk))
+    cell = slots * n_b + lanes
+    last = len(cell) - 1 - np.unique(cell[::-1], return_index=True)[1]
+    t = (lambda x: torch.from_numpy(x).to(dev))
+    keys[:, t(slots[last]), t(lanes[last])] = t(rows[last].astype(np.int32))
     return keys, vals

@@ -12,10 +12,12 @@ run :func:`spa_spgemm_batched_plain`, the plain PyTorch version.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._checks import check_operands, stream_handle
+from repro_torch.kernels.spars import add_in_order, host_array
 
 
 def _launch(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, m, batch, dev):
@@ -86,26 +88,35 @@ def spa_spgemm_batched_plain(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz,
                              *, m: int) -> torch.Tensor:
     """The kernel's plain PyTorch version, in the kernel's per-cell order.
 
-    Loops over the B entry index ``e`` and vectorizes over (batch, lane,
-    z): within one ``e`` every (row, lane) cell written is distinct (the
-    rows of one A column are distinct and each lane owns its column), so
-    one indexed read-modify-write per ``e`` adds each cell's products with
-    ``e`` ascending, exactly as the kernel does, in every batch element.
+    Every product ``a_vals[k, z] * b_vals[lane, e]`` (``k = b_rows[lane,
+    e]``, ``e < b_nnz[lane]``, ``z < a_nnz[k]``) from the pattern on the
+    host, one gather and multiply for all of them and every batch element;
+    each (row, lane) cell adds its products with ``e`` ascending
+    (:func:`~repro_torch.kernels.spars.add_in_order`), exactly as the
+    kernel does (the rows of one A column are distinct, so a cell takes at
+    most one product per ``e``).
     """
     batch = a_vals.shape[0]
     n_b = b_rows.shape[0]
-    za = a_rows.shape[1]
     dev = a_vals.device
     out = torch.zeros((batch, m, n_b), dtype=torch.float32, device=dev)
-    lanes = torch.arange(n_b, device=dev)[:, None].expand(n_b, za)
-    z = torch.arange(za, device=dev)[None, :]
-    n_e = int(b_nnz.max()) if n_b else 0   # entries past every b_nnz are no-ops
-    for e in range(n_e):
-        k = b_rows[:, e].long()
-        live = (e < b_nnz)[:, None] & (z < a_nnz[k][:, None])   # [n_b, za]
-        rows = a_rows[k].long()[live]
-        cols = lanes[live]
-        prod = (a_vals[:, k][:, live]
-                * b_vals[:, :, e, None].expand(batch, n_b, za)[:, live])
-        out[:, rows, cols] = out[:, rows, cols] + prod
+    a_nnz_h = host_array(a_nnz).astype(np.int64)
+    b_rows_h = host_array(b_rows).astype(np.int64)
+    b_nnz_h = host_array(b_nnz).astype(np.int64)
+    za = a_rows.shape[1]
+    e = np.arange(b_rows_h.shape[1])
+    lane, ent = np.nonzero(e[None, :] < b_nnz_h[:, None])
+    k = b_rows_h[lane, ent]
+    live = np.arange(za)[None, :] < a_nnz_h[k][:, None]      # [entries, za]
+    which, z = np.nonzero(live)
+    lane, ent, k = lane[which], ent[which], k[which]
+    if len(lane) == 0:
+        return out
+    order = np.lexsort((z, lane, ent))      # e, then lane, then z
+    lane, ent, k, z = lane[order], ent[order], k[order], z[order]
+    rows = host_array(a_rows).astype(np.int64)[k, z]
+    rows = np.where(rows < 0, rows + m, rows)   # as tensor indexing wraps
+    t = (lambda x: torch.from_numpy(x).to(dev))
+    prod = a_vals[:, t(k), t(z)] * b_vals[:, t(lane), t(ent)]
+    add_in_order(out, rows, lane, prod)
     return out

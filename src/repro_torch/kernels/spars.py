@@ -18,6 +18,7 @@ its lane and sets the slot's row in ``flags`` (``spars_ref`` does not).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -88,43 +89,88 @@ def spars_spgemm_batched(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
 spars_spgemm_batched.n_launches = 0
 
 
-class LockStep:
-    """Lane cursors of the lock-step kernels (SPARS and HASH), vectorized
-    over lanes: one :meth:`advance` per step, as in the reference's
-    ``step`` body.  The cursors depend on the pattern alone, so B value
-    sets (``a_vals [B, n_a, za]``, ``b_vals [B, n_b, zb]``) share them."""
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A pattern tensor read back to the host (numpy)."""
+    return t.detach().cpu().numpy()
 
-    def __init__(self, a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
-                 block_cols: int):
-        n_b = b_rows.shape[0]
-        dev = b_rows.device
-        self.a_rows, self.a_vals, self.a_nnz = a_rows, a_vals, a_nnz
-        self.b_rows, self.b_vals, self.b_nnz = b_rows, b_vals, b_nnz
-        self.lane = torch.arange(n_b, device=dev)
-        self.lane_steps = steps.repeat_interleave(block_cols)
-        self.vidx_b = torch.zeros(n_b, dtype=torch.int64, device=dev)
-        self.vcnt_a = torch.zeros(n_b, dtype=torch.int64, device=dev)
-        self.n_steps = int(steps.max()) if len(steps) else 0
 
-    def active(self, s: int) -> torch.Tensor:
-        """Lanes that take step ``s`` (cursor not past the last B entry, and
-        within the lane block's trip count)."""
-        return (self.vidx_b < self.b_nnz) & (s < self.lane_steps)
+def lockstep_walk(a_nnz, b_rows, b_nnz, steps, block_cols: int):
+    """The lock-step kernels' walk (SPARS and HASH), from the pattern alone.
 
-    def fetch(self, lanes):
-        """(row [L], product [B, L]) of each given lane's current step."""
-        vb = self.vidx_b[lanes]
-        k = self.b_rows[lanes, vb].long()
-        ka = self.vcnt_a[lanes]
-        prod = self.a_vals[:, k, ka] * self.b_vals[:, lanes, vb]
-        return self.a_rows[k, ka].long(), prod
+    Lane ``l`` (a C column) steps through its B entries ``vb`` in order and,
+    for each, through the entries ``ka`` of A column ``k = b_rows[l, vb]``
+    (one step for an empty A column: the reference's cursor update, Algorithm
+    3 lines 15-19), for at most its lane block's trip count
+    ``steps[l // block_cols]`` steps.  Returns host int64 arrays ``(step,
+    lane, vb, k, ka)``, one entry per step a lane takes, ordered by step and
+    within a step by lane: the order in which the kernel's lock-step rounds
+    take them.  The operands are read back once (a few host syncs a call,
+    not one a step); B value sets share the walk."""
+    a_nnz = host_array(a_nnz).astype(np.int64)
+    b_rows = host_array(b_rows).astype(np.int64)
+    b_nnz = host_array(b_nnz).astype(np.int64)
+    n_b, zb = b_rows.shape
+    lane_steps = np.repeat(host_array(steps).astype(np.int64), block_cols)
+    entry = np.arange(zb)[None, :] < b_nnz[:, None]            # [n_b, zb]
+    lane_e = np.nonzero(entry)[0]
+    vb_e = np.nonzero(entry)[1]
+    k_e = b_rows[lane_e, vb_e]
+    cnt = np.maximum(a_nnz[k_e], 1)
+    # a lane's steps, entry after entry
+    idx = np.repeat(np.arange(len(k_e)), cnt)
+    first = np.cumsum(cnt) - cnt
+    ka = np.arange(len(idx)) - first[idx]
+    lane_first = np.searchsorted(lane_e, np.arange(n_b))
+    step = np.arange(len(idx)) - first[lane_first[lane_e[idx]]]
+    keep = step < lane_steps[lane_e[idx]]
+    idx, ka, step = idx[keep], ka[keep], step[keep]
+    order = np.lexsort((lane_e[idx], step))
+    idx, ka, step = idx[order], ka[order], step[order]
+    return step, lane_e[idx], vb_e[idx], k_e[idx], ka
 
-    def advance(self, lanes) -> None:
-        """Cursor update (Algorithm 3 lines 15-19) of the given lanes."""
-        k = self.b_rows[lanes, self.vidx_b[lanes]].long()
-        last = self.vcnt_a[lanes] + 1 >= self.a_nnz[k]
-        self.vcnt_a[lanes] = torch.where(last, 0, self.vcnt_a[lanes] + 1)
-        self.vidx_b[lanes] = self.vidx_b[lanes] + last.long()
+
+def add_in_order(out: torch.Tensor, rows: np.ndarray, cols: np.ndarray,
+                 prod: torch.Tensor) -> None:
+    """``out[:, rows[i], cols[i]] += prod[:, i]`` for every i, each cell's
+    products added one at a time in the order of i.
+
+    One indexed read-modify-write per rank: the i that are the j-th product
+    of their cell (distinct cells) go together, j ascending, so each cell
+    sums exactly as a loop over i would, with as many launches as the most
+    products any one cell takes.  ``rows``/``cols``: host int64."""
+    n = len(rows)
+    if n == 0:
+        return
+    cell = rows * out.shape[-1] + cols
+    by_cell = np.argsort(cell, kind="stable")
+    sorted_cell = cell[by_cell]
+    start = np.r_[True, sorted_cell[1:] != sorted_cell[:-1]]
+    pos = np.arange(n)
+    rank = np.empty(n, np.int64)
+    rank[by_cell] = pos - np.maximum.accumulate(np.where(start, pos, 0))
+    by_rank = np.argsort(rank, kind="stable")
+    bounds = np.r_[0, np.cumsum(np.bincount(rank))]
+    dev = out.device
+    r = torch.from_numpy(rows[by_rank]).to(dev)
+    c = torch.from_numpy(cols[by_rank]).to(dev)
+    p = prod[:, torch.from_numpy(by_rank).to(dev)]
+    for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        rj, cj = r[lo:hi], c[lo:hi]
+        out[:, rj, cj] = out[:, rj, cj] + p[:, lo:hi]
+
+
+def walk_rows(a_rows, walk) -> np.ndarray:
+    """Each step's A row (host int64), in the walk's order."""
+    return host_array(a_rows).astype(np.int64)[walk[3], walk[4]]
+
+
+def walk_products(a_vals, b_vals, walk) -> torch.Tensor:
+    """Each step's product ``[B, n]`` of every value set, in the walk's
+    order: one gather and multiply for all steps."""
+    _, lane, vb, k, ka = walk
+    dev = a_vals.device
+    t = (lambda x: torch.from_numpy(x).to(dev))
+    return a_vals[:, t(k), t(ka)] * b_vals[:, t(lane), t(vb)]
 
 
 def spars_spgemm_plain(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
@@ -140,23 +186,25 @@ def spars_spgemm_batched_plain(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz,
                                steps, *, m: int, block_cols: int = 128):
     """The kernel's plain PyTorch version, in the kernel's per-cell order.
 
-    Loops over steps and vectorizes over (batch, lane); each step writes
-    one cell per active lane, in that lane's private column, so an indexed
-    read-modify-write without accumulation is exact.
+    The walk (:func:`lockstep_walk`) comes from the pattern on the host;
+    every step's product is one gather and multiply for all steps and value
+    sets, and each cell -- a lane's private (row, column) -- adds its
+    products in step order (:func:`add_in_order`), exactly as the kernel's
+    rounds do.  The touched rows' flags are set once.
     """
     batch = a_vals.shape[0]
     n_b = b_rows.shape[0]
     dev = a_vals.device
     acc = torch.zeros((batch, m, n_b), dtype=torch.float32, device=dev)
     flags = torch.zeros((batch, m, n_b), dtype=torch.float32, device=dev)
-    ls = LockStep(a_rows, a_vals, a_nnz, b_rows, b_vals, b_nnz, steps,
-                  block_cols)
-    for s in range(ls.n_steps):
-        lanes = torch.nonzero(ls.active(s), as_tuple=True)[0]
-        if len(lanes) == 0:
-            break   # cursors only move on active lanes: none will wake
-        rows, prod = ls.fetch(lanes)
-        acc[:, rows, lanes] = acc[:, rows, lanes] + prod
-        flags[:, rows, lanes] = 1.0
-        ls.advance(lanes)
+    walk = lockstep_walk(a_nnz, b_rows, b_nnz, steps, block_cols)
+    if len(walk[0]) == 0:
+        return acc, flags
+    rows = walk_rows(a_rows, walk)
+    rows = np.where(rows < 0, rows + m, rows)   # as tensor indexing wraps
+    prod = walk_products(a_vals, b_vals, walk)
+    lanes = walk[1]
+    add_in_order(acc, rows, lanes, prod)
+    flags[:, torch.from_numpy(rows).to(dev),
+          torch.from_numpy(lanes).to(dev)] = 1.0
     return acc, flags

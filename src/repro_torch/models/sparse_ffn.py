@@ -30,6 +30,7 @@ its reps, and :func:`densify_ffn_params` is its dense oracle.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -112,6 +113,10 @@ class SparseMatmul:
     # token counts must not accumulate them
     _spgemm_memo: OrderedDict = dataclasses.field(
         default_factory=OrderedDict, repr=False)
+    # the memo is shared by a background warm (torch plans) and serving
+    # ticks (host plans)
+    _memo_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
 
     SPGEMM_MEMO_SIZE = 8        # distinct token counts held per matrix
 
@@ -213,9 +218,14 @@ class SparseMatmul:
         """
         dev = self.w_csc.values.device
         memo_key = (n, backend, str(dev))
-        if memo_key in self._spgemm_memo:
-            self._spgemm_memo.move_to_end(memo_key)
-            return self._spgemm_memo[memo_key]
+        with self._memo_lock:
+            entry = self._spgemm_memo.get(memo_key)
+            if entry is not None:
+                self._spgemm_memo.move_to_end(memo_key)
+                return entry
+        # built outside the lock, so a serving thread's host plan never
+        # waits on a background warm's torch plan; the LRU builds each plan
+        # once however many threads ask
         m, k = self.shape
         plan = cached_plan(self.w_csc, _dense_pattern(k, n), "expand",
                            backend=backend, stream_limit=self.stream_limit,
@@ -234,9 +244,11 @@ class SparseMatmul:
             entry = (plan, torch.from_numpy(flat).to(dev), None)
         else:
             entry = (plan, rows, cols)
-        self._spgemm_memo[memo_key] = entry
-        while len(self._spgemm_memo) > self.SPGEMM_MEMO_SIZE:
-            self._spgemm_memo.popitem(last=False)
+        with self._memo_lock:
+            entry = self._spgemm_memo.setdefault(memo_key, entry)
+            self._spgemm_memo.move_to_end(memo_key)
+            while len(self._spgemm_memo) > self.SPGEMM_MEMO_SIZE:
+                self._spgemm_memo.popitem(last=False)
         return entry
 
     def apply_values(self, w_values, x):
@@ -398,6 +410,9 @@ class SparseFFN:
         D]`` (numpy or a tensor); returns float32 numpy.
         """
         x = np.asarray(_host(x), np.float32)
+        # each matrix's values read back once, not once per batch element
+        params = {name: _host(params[name]) for name in ("gate", "up",
+                                                          "down")}
         if x.ndim == 3:
             return np.stack([self.apply_host(params, xb) for xb in x])
         xt = x.T                                     # [D, T]

@@ -1761,3 +1761,183 @@ def test_sparse_ffn_gradient_through_k1_equals_torch_stream(cuda):
                 else:
                     assert _normwise(got, want) <= 1e-5
     assert kernels.launch_counts()["fused_stream"] > 0
+
+
+# -- faults, the plan builder and the engine's background warm -----------------
+
+
+@pytest.fixture
+def warm_model(cuda):
+    """smoke(qwen2-0.5b) on the card, its FFNs on the spgemm path (keep
+    0.5), with an empty plan LRU and no fault plan before and after."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import faults, plan_cache_clear
+    from repro_torch.models import init_model, smoke, sparsify_ffn_params
+
+    plan_cache_clear()
+    cfg = smoke(get_config("qwen2-0.5b"))
+    params = init_model(cfg, torch.Generator(device=cuda).manual_seed(0))
+    sparse, overlay = sparsify_ffn_params(cfg, params, keep_density=0.5)
+    yield cfg, sparse, overlay
+    faults.uninstall()
+    plan_cache_clear()
+
+
+def _serve(eng, prompts, new=6):
+    rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    for _ in range(200):
+        if not (eng.queue or any(eng.slots)):
+            break
+        assert eng.step()
+    return [eng.finished[r].generated for r in rids]
+
+
+WARM_PROMPTS = ([1, 2, 3], [4, 5, 6, 7])
+
+
+def test_builder_warmed_engine_promotes_and_equals_builder_free(warm_model,
+                                                                cuda):
+    """On the card: with the warm gated, ticks run the host stream (each
+    tick's host syncs as the engine counts them); released, the engine
+    promotes, its first device tick builds no plan, and its greedy tokens
+    equal a builder-free engine's."""
+    import threading
+
+    from repro_torch.core import PlanBuilder, plan_cache_info
+    from repro_torch.serving import ServeEngine
+
+    cfg, sparse, overlay = warm_model
+    want = _serve(ServeEngine(cfg, sparse, max_batch=2, cache_len=32,
+                              sparse_ffn=overlay), WARM_PROMPTS)
+    with PlanBuilder() as builder:
+        gate = threading.Event()
+        builder.submit_task(lambda: gate.wait(60), tag="gate")
+        eng = ServeEngine(cfg, sparse, max_batch=2, cache_len=32,
+                          sparse_ffn=overlay, plan_builder=builder)
+        rids = [eng.submit(p, max_new_tokens=6) for p in WARM_PROMPTS]
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            assert eng.step()
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = [w for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+        assert len(syncs) == eng.stats()["host_syncs"] == 1 + 5 * cfg.n_layers
+        assert eng.stats()["fallback_ticks"] == 1
+        gate.set()
+        assert eng.wait_sparse(120)
+        misses = plan_cache_info()["misses"]
+        assert eng.step()
+        assert plan_cache_info()["misses"] == misses
+        for _ in range(200):
+            if not (eng.queue or any(eng.slots)):
+                break
+            assert eng.step()
+        got = [eng.finished[r].generated for r in rids]
+        assert builder.wait_idle(60)
+    assert got == want
+    assert eng.stats()["warm_failures"] == 0
+
+
+def test_breaker_drill_on_card(warm_model, cuda):
+    """``warm_compile`` fails twice: the engine walks degraded and pinned,
+    a half-open probe recovers it, every tick completes, the tokens equal a
+    fault-free run's, no builder worker is lost."""
+    from repro_torch.core import PlanBuilder, faults
+    from repro_torch.serving import CircuitBreaker, Health, ServeEngine
+
+    cfg, sparse, overlay = warm_model
+    want = _serve(ServeEngine(cfg, sparse, max_batch=2, cache_len=32,
+                              sparse_ffn=overlay), WARM_PROMPTS[:1], 8)
+    t = [0.0]
+    br = CircuitBreaker(degrade_after=1, pin_after=2, cooldown=5.0,
+                        clock=lambda: t[0])
+    with faults.inject(faults.FaultRule("warm_compile", "fail", every=1,
+                                        max_fires=2, match="serve-warm")):
+        with PlanBuilder() as builder:
+            eng = ServeEngine(cfg, sparse, max_batch=2, cache_len=32,
+                              sparse_ffn=overlay, plan_builder=builder,
+                              breaker=br)
+            assert builder.wait_idle(60)
+            assert br.health is Health.DEGRADED
+            rid = eng.submit(WARM_PROMPTS[0], max_new_tokens=8)
+            assert eng.step()
+            assert builder.wait_idle(60)
+            assert br.health is Health.FALLBACK_PINNED
+            ticks = 0
+            while not eng.sparse_ready() and (eng.queue or any(eng.slots)):
+                assert eng.step()
+                ticks += 1
+                assert builder.wait_idle(60)
+                if ticks == 2:
+                    t[0] = 5.1
+            assert eng.wait_sparse(120)
+            done = eng.run_to_completion()
+            assert builder.info()["workers"] == 1
+    assert br.health is Health.HEALTHY
+    assert eng.stats()["warm_failures"] == 2 and eng.stats()["jit_ticks"] > 0
+    assert done[rid].generated == want[0]
+
+
+def test_single_flight_on_a_torch_key(warm_model, cuda):
+    """Two builder tasks ask for one torch plan at once (the owner slowed
+    by an injected delay): one build, one miss, one hit, one plan; its
+    device stream lifted once."""
+    import threading
+
+    from repro_torch.core import PlanBuilder, cached_plan, faults, \
+        plan_cache_clear, plan_cache_info, warm_plan
+    from repro_torch.models.sparse_ffn import _dense_pattern
+
+    _, _, overlay = warm_model
+    w = overlay["l0"].gate.w_csc
+    x = _dense_pattern(w.shape[1], 3)
+    plan_cache_clear()
+    barrier = threading.Barrier(2, timeout=60)
+
+    def task():
+        barrier.wait()
+        plan = cached_plan(w, x, "expand", backend="torch")
+        warm_plan(plan)
+        return plan
+
+    with faults.inject(faults.FaultRule("plan_spgemm", "delay", every=1,
+                                        seconds=0.3, match="torch")) as fp:
+        with PlanBuilder(workers=2) as builder:
+            builder.submit_task(task, tag=0)
+            builder.submit_task(task, tag=1)
+            assert builder.wait_idle(60)
+            res = builder.poll()
+        assert fp.fired("plan_spgemm") == 1
+    info = plan_cache_info()
+    assert all(r.ok for r in res) and res[0].plan is res[1].plan
+    assert (info["misses"], info["hits"]) == (1, 1)
+    assert res[0].plan.device.type == "cuda"
+    assert info["device_stream_bytes"] > 0
+
+
+def test_warm_failures_are_reported_not_hidden(warm_model, cuda):
+    """A warm that fails on the card (``device_lift`` on the torch
+    backend) shows in ``warm_failures``, the breaker's ``info()`` and the
+    builder's failed count, while the host-stream ticks keep serving every
+    request."""
+    from repro_torch.core import PlanBuilder, faults
+    from repro_torch.serving import CircuitBreaker, ServeEngine
+
+    cfg, sparse, overlay = warm_model
+    br = CircuitBreaker(pin_after=1, cooldown=3600.0)
+    with faults.inject(faults.FaultRule("device_lift", "fail", every=1,
+                                        match="torch")):
+        with PlanBuilder() as builder:
+            eng = ServeEngine(cfg, sparse, max_batch=2, cache_len=32,
+                              sparse_ffn=overlay, plan_builder=builder,
+                              breaker=br)
+            assert builder.wait_idle(60)
+            got = _serve(eng, WARM_PROMPTS, 3)
+            info = builder.info()
+    stats = eng.stats()
+    assert stats["warm_failures"] == 1 and stats["jit_ticks"] == 0
+    assert stats["health"] == "fallback-pinned"
+    assert stats["breaker"]["trips"] == 1 and info["failed"] == 1
+    assert all(len(g) == 3 for g in got)

@@ -23,6 +23,10 @@ def _port_files():
     yield os.path.join(REPO, "chip_smoke.py")
     for f in ("torch_table1.py", "torch_calibrate_profile.py"):
         yield os.path.join(REPO, "benchmarks", f)
+    examples = os.path.join(REPO, "examples")
+    for f in sorted(os.listdir(examples)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(examples, f)
 
 
 def _imported_roots(path):
@@ -123,8 +127,8 @@ def test_cpu_tensor_with_cuda_device_raises(kernel):
 def test_no_fallback_in_wrappers():
     """No wrapper catches its kernel's failure: the kernel modules, the
     stream engines (fused, torch and host), the host oracles and the sparse
-    FFN hold no ``try`` at all, and chip_smoke.py catches no phase
-    failure."""
+    FFN hold no ``try`` at all (their locks are ``with`` blocks), and
+    chip_smoke.py catches no phase failure."""
     for f in ("kernels/spa.py", "kernels/spars.py", "kernels/hash_spgemm.py",
               "kernels/fused_stream.py", "kernels/bsr_spmm.py",
               "kernels/ops.py", "core/fused_stream.py",
@@ -182,3 +186,63 @@ def test_profile_catches_only_file_and_json_errors():
         caught = {n.id for n in names if isinstance(n, ast.Name)}
         assert len(caught) == len(names) and caught <= allowed, \
             f"line {h.lineno} catches {ast.unparse(h.type)}"
+
+
+def _handlers(path):
+    """Each ``try`` of ``path`` as (enclosing function, caught names,
+    has a ``finally``)."""
+    tree = ast.parse(open(path).read())
+    out = []
+
+    def visit(node, fn):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                visit(child, child.name)
+                continue
+            if isinstance(child, ast.Try):
+                caught = tuple(sorted(
+                    ast.unparse(h.type) if h.type is not None else "*"
+                    for h in child.handlers))
+                out.append((fn, caught, bool(child.finalbody)))
+            visit(child, fn)
+
+    visit(tree, None)
+    return sorted(out)
+
+
+# where the resilience modules may catch: where the reference catches
+RESILIENCE_TRIES = {
+    "core/faults.py": [("inject", (), True)],
+    "core/api.py": [("get_or_build", (), True), ("resize", ("Exception",),
+                                                False)],
+    "core/plan_builder.py": [("_run_task", ("BaseException",), False),
+                             ("_watchdog", ("ValueError",), False),
+                             ("poll", ("queue.Empty",), False),
+                             ("rewarm", ("RuntimeError",), False)],
+    "serving/engine.py": [("_warm_task", ("BaseException",), False)],
+    "serving/resilience.py": [],
+}
+
+
+@pytest.mark.parametrize("module", sorted(RESILIENCE_TRIES))
+def test_resilience_modules_catch_only_where_the_reference_does(module):
+    """The fault, builder, breaker and engine modules catch only where the
+    reference's do: the injection context's ``finally``, the single-flight
+    ``finally``, the eviction listeners, the builder's worker (its failure
+    goes to ``poll()``), retry, watchdog and the drain of its completion
+    queue, and the engine's warm task,
+    which reports to the breaker and re-raises.  The reference's module
+    holds the same handlers."""
+    assert _handlers(os.path.join(PORT, module)) == RESILIENCE_TRIES[module]
+    ref = os.path.join(REPO, "src", "repro", module)
+    ref_caught = sorted(c for _, c, _ in _handlers(ref))
+    assert ref_caught == sorted(c for _, c, _ in RESILIENCE_TRIES[module])
+    if module == "serving/engine.py":
+        tree = ast.parse(open(os.path.join(PORT, module)).read())
+        (warm,) = [n for n in ast.walk(tree)
+                   if isinstance(n, ast.FunctionDef)
+                   and n.name == "_warm_task"]
+        (handler,) = [h for n in ast.walk(warm) if isinstance(n, ast.Try)
+                      for h in n.handlers]
+        last = handler.body[-1]
+        assert isinstance(last, ast.Raise) and last.exc is None
