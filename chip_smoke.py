@@ -314,6 +314,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tasks: one miss, one hit, one build); a ``build_timeout`` waiter on a
    hung owner (``PlanBuildTimeout`` from its ``BuildResult.error``).
 
+19. The SpGEMM mesh (``backend="mesh"``, ``repro_torch.distributed``),
+   with the counts set to 0 just before: no kernel of ours launches (each
+   shard replays the torch stream).  (a) ``spgemm(A, A, "expand",
+   backend="mesh")`` at the defaults (one shard on the card) on the eleven
+   matrices, exact against scipy, 0 host syncs an execute, its execute
+   time (median of ``--reps``) beside the torch stream's on the same
+   pattern; ``iprob`` at the defaults is refused by the planner (9.0M
+   products past one shard's 8,000,000) and runs on 2 shards of the card.
+   (b) ``iprob`` at 2 and 4 shards with ``device="cuda"`` and
+   ``shard_limit=8_000_000``: plan seconds, products a shard, imbalance
+   (< 2), execute time; exact, two runs bit for bit, B = 8 equal to a
+   loop, the gradient of sum(C²) equal to the single-device torch plan's
+   (guard raised) bit for bit; beside it the single-device torch plan at
+   the guard, which rebuilds its stream every call.  (d) The profile's
+   ``comm`` ladder on the card (``comm_base`` alone on one card).  (c)
+   ``method="auto"`` with ``shards=4, device="cuda"`` at the guard's
+   default (phase 7b put it back): ``iprob`` distributed, ``ex22``'s
+   choice beside both estimates under the profile in force and under (d)'s
+   comm terms, each result exact.  (e) ``shards=2`` with ``device=None`` on
+   this one-card machine is refused, naming ``device=``.
+
 The last two lines are the kernels' JSON and the card line; the very last is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero before any result.
@@ -5393,6 +5414,305 @@ def warm_drill_phase(data, sync, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the SpGEMM mesh (backend="mesh")
+# ---------------------------------------------------------------------------
+
+
+MESH_SHARDS = (2, 4)         # (b)'s shard counts, every shard on the card
+MESH_LIMIT = 8_000_000       # (b)'s per-shard guard: the shipped default
+MESH_AUTO = (GUARDED_MATRIX, "ex22")
+MESH_AUTO_SHARDS = 4
+MESH_TRANSIENT_REPS = 3      # a transient execute rebuilds its stream: seconds
+
+
+def raised(fn):
+    """The exception ``fn()`` raised, or None: read from a finished future,
+    which is how a phase checks that a call is refused."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        return pool.submit(fn).exception()
+
+
+def on_card(a, dev):
+    """``a`` with its values on the card (its structure stays host numpy,
+    so no call reads a value back to size its result)."""
+    return a.to(dev)
+
+
+def mesh_default_phase(mats, expected, dev, reps):
+    """Phase 19 (a): ``spgemm(A, A, "expand", backend="mesh")`` at the
+    defaults (one shard on the one card) on every matrix, exact against
+    scipy, 0 host syncs an execute, its execute time beside the torch
+    stream's on the same pattern.  iprob's stream is past one shard's
+    default guard: the planner refuses it there (as the reference's does),
+    and it runs on 2 shards of the card, (b)'s plan."""
+    import torch
+    from repro_torch.core import cached_plan, fast, spgemm
+    from repro_torch.sparse.stats import tile_stats
+
+    lines = {}
+    for name in MATRICES:
+        a = on_card(mats[name], dev)
+        flops = tile_stats(a, a).flops
+        kw = {}
+        if flops > fast.STREAM_MAX_PRODUCTS:
+            err = raised(lambda: spgemm(a, a, "expand", backend="mesh"))
+            check(isinstance(err, ValueError) and "shard_limit" in str(err),
+                  f"mesh (a) {name}: one shard past the guard gave {err!r}")
+            kw = dict(shards=MESH_SHARDS[0], device="cuda")
+        c = spgemm(a, a, "expand", backend="mesh", **kw)
+        check_scipy(c, expected[name], f"mesh (a) {name}")
+        plan = cached_plan(a, a, "expand", backend="mesh", **kw)
+        syncs = host_syncs(lambda: plan.execute(a, a))
+        check(syncs == 0, f"mesh (a) {name}: {syncs} host syncs an execute")
+        tplan = cached_plan(a, a, "expand", backend="torch", device=dev,
+                            stream_limit=max(flops, fast.STREAM_MAX_PRODUCTS))
+        tplan.execute(a, a)
+        stats: dict = {}
+        plan.execute(a, a, stats=stats)
+        lines[name] = dict(
+            products=flops, shards=plan.n_shards, devices=stats["device"],
+            tiles=len(plan.tiles), host_syncs=syncs,
+            execute_ms=median_ms(lambda: plan.execute(a, a), reps),
+            torch_execute_ms=median_ms(lambda: tplan.execute(a, a), reps),
+            **({"defaults_refused": "shard_limit"} if kw else {}))
+        print(json.dumps({"mesh_default": dict(matrix=name, **lines[name])}),
+              flush=True)
+        del plan, tplan
+    torch.cuda.synchronize()
+    print(json.dumps({"mesh_a": dict(
+        matrices=len(lines), exact=True,
+        host_syncs=sum(v["host_syncs"] for v in lines.values()),
+        execute_ms={k: v["execute_ms"] for k, v in lines.items()},
+        torch_execute_ms={k: v["torch_execute_ms"]
+                          for k, v in lines.items()})}), flush=True)
+    return lines
+
+
+def int_stack(nnz, seed, dev):
+    """``BATCH`` value sets in {1, 2, 3} on the card."""
+    import torch
+
+    rng = np.random.default_rng([seed, 19])
+    return torch.from_numpy(
+        rng.integers(1, 4, size=(BATCH, nnz)).astype(np.float32)).to(dev)
+
+
+def sq_grads(apply, av, bv):
+    """Gradient of sum(C²) with respect to both value vectors."""
+    import torch
+
+    x = av.detach().clone().requires_grad_()
+    y = bv.detach().clone().requires_grad_()
+    return torch.autograd.grad((apply(x, y) ** 2).sum(), (x, y))
+
+
+def mesh_guard_phase(mats, expected, dev, reps, seed):
+    """Phase 19 (b): iprob (9.0M products) at 2 and 4 shards on the card
+    under an 8,000,000-product per-shard guard: planned, exact against
+    scipy, bit-stable, B = 8 equal to a loop bit for bit, the gradient of
+    sum(C²) equal to the single-device torch plan's (guard raised) bit for
+    bit; beside it, the single-device torch plan at the same guard, which
+    rebuilds its stream every call."""
+    import torch
+    from repro_torch.core import cached_plan
+
+    name = GUARDED_MATRIX
+    a = on_card(mats[name], dev)
+    av = a.values
+    tplan = cached_plan(a, a, "expand", backend="torch", device=dev,
+                        stream_limit=2**31 - 1)
+    t0 = time.perf_counter()
+    ga_t, gb_t = sq_grads(tplan.stream_apply, av, av)
+    torch.cuda.synchronize()
+    t_grad_build = time.perf_counter() - t0
+    products = tplan.stream.n_products
+    bound = float(torch.maximum(ga_t.abs().max(), gb_t.abs().max()))
+    check(bound < 2**24, f"mesh (b): |grad| reaches {bound}, past exact "
+          "integers in f32")
+    stacks = int_stack(a.nnz, seed, dev), int_stack(a.nnz, seed + 1, dev)
+    out = {}
+    for shards in MESH_SHARDS:
+        t0 = time.perf_counter()
+        plan = cached_plan(a, a, "expand", backend="mesh", shards=shards,
+                           device="cuda", stream_limit=MESH_LIMIT)
+        ss = plan.stream
+        plan_s = time.perf_counter() - t0
+        check(int(ss.per_device.max()) <= MESH_LIMIT
+              and ss.n_products == products and plan.imbalance < 2,
+              f"mesh (b) D={shards}: per shard {ss.per_device.tolist()}, "
+              f"imbalance {plan.imbalance}")
+        t0 = time.perf_counter()
+        c1 = plan.execute(a, a)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        check_scipy(c1, expected[name], f"mesh (b) D={shards}")
+        c2 = plan.execute(a, a)
+        check(same_bits(c1, c2), f"mesh (b) D={shards}: two runs differ")
+        got = plan.execute_batched(*stacks)
+        check(all(torch.equal(got[i].values,
+                              plan.execute(stacks[0][i],
+                                           stacks[1][i]).values)
+                  for i in range(BATCH)),
+              f"mesh (b) D={shards}: batched differs from the loop")
+        t0 = time.perf_counter()
+        ga, gb = sq_grads(plan.stream_apply, av, av)
+        torch.cuda.synchronize()
+        grad_first_s = time.perf_counter() - t0
+        check(torch.equal(ga, ga_t) and torch.equal(gb, gb_t),
+              f"mesh (b) D={shards}: the gradient differs from the torch "
+              "plan's")
+        out[shards] = dict(
+            plan_s=plan_s, first_execute_s=first_s,
+            first_grad_s=grad_first_s, grid=list(plan.grid),
+            tiles=len(plan.tiles),
+            per_shard_products=ss.per_device.tolist(),
+            imbalance=plan.imbalance, padded_slots=ss.padded_slots,
+            mesh_stream_bytes=plan.mesh_stream_nbytes,
+            host_syncs=host_syncs(lambda: plan.execute(a, a)),
+            execute_ms=median_ms(lambda: plan.execute(a, a), reps),
+            batched_ms_per_multiply=median_ms(
+                lambda: plan.execute_batched(*stacks), reps) / BATCH,
+            grad_ms=median_ms(lambda: sq_grads(plan.stream_apply, av, av),
+                              reps))
+        del plan, c1, c2, got, ga, gb
+    guarded = cached_plan(a, a, "expand", backend="torch", device=dev,
+                          stream_limit=MESH_LIMIT)
+    stats: dict = {}
+    check_scipy(guarded.execute(a, a, stats=stats), expected[name],
+                "mesh (b) single-device torch plan at the guard")
+    check(not stats["stream_cached"], "mesh (b): the single-device plan "
+          "kept a stream past its guard")
+    print(json.dumps({"mesh_b": dict(
+        matrix=name, products=products, shard_limit=MESH_LIMIT,
+        exact=True, bit_stable=True, batched_equals_looped=True,
+        batch=BATCH, grad_equals_torch_plan=True, grad_abs_max=bound,
+        torch_grad_first_s=t_grad_build, shards=out,
+        torch_execute_ms=median_ms(lambda: tplan.execute(a, a), reps),
+        torch_grad_ms=median_ms(lambda: sq_grads(tplan.stream_apply, av, av),
+                                reps),
+        transient_torch_execute_ms=median_ms(
+            lambda: guarded.execute(a, a), MESH_TRANSIENT_REPS),
+        transient_reps=MESH_TRANSIENT_REPS)}), flush=True)
+    return out
+
+
+def mesh_comm_phase(dev):
+    """Phase 19 (d): the profile's ``comm`` ladder on the card (one card:
+    ``comm_base`` alone is fitted), its seconds and fit."""
+    import torch
+    from repro_torch.core import profile
+
+    t0 = time.perf_counter()
+    prof = profile.calibrate_profile(scale=0.25, reps=3, sections=("comm",),
+                                     tune=False, device=dev)
+    seconds = time.perf_counter() - t0
+    check("comm_base" in prof.fitted and prof.constants.comm_base > 0,
+          f"mesh (d): the comm ladder fitted {prof.fitted}")
+    check(torch.cuda.device_count() > 1 or "comm_byte" not in prof.fitted,
+          "mesh (d): comm_byte fitted on one card")
+    line = dict(seconds=seconds, cards=torch.cuda.device_count(),
+                comm_base=prof.constants.comm_base,
+                comm_byte=prof.constants.comm_byte,
+                comm_byte_fitted=torch.cuda.device_count() > 1,
+                default_comm_base=profile.DEFAULT_CONSTANTS.comm_base)
+    print(json.dumps({"mesh_d": line}), flush=True)
+    return prof.constants
+
+
+def mesh_auto_phase(mats, expected, dev, measured):
+    """Phase 19 (c): ``method="auto"`` on ``backend="mesh", shards=4,
+    device="cuda"`` at the single-device guard's default (phase 7b put it
+    back after its tuned run): iprob, above the guard, is distributed;
+    ex22's choice is printed beside both estimates, under the profile in
+    force and under (d)'s measured comm terms.  Every result exact."""
+    import dataclasses
+
+    from repro_torch.core import fast, profile, spgemm
+    from repro_torch.core.api import _auto_mesh_plan
+    from repro_torch.core.cost import estimate_mesh_cost, should_distribute
+    from repro_torch.distributed import ShardedSpgemmPlan
+    from repro_torch.sparse.stats import tile_stats
+
+    check(fast.STREAM_MAX_PRODUCTS == fast.DEFAULT_STREAM_MAX_PRODUCTS
+          == MESH_LIMIT, f"mesh (c): the guard is {fast.STREAM_MAX_PRODUCTS}")
+    in_force = profile.current_profile()
+    comm = dataclasses.replace(in_force.constants,
+                               comm_base=measured.comm_base,
+                               comm_byte=measured.comm_byte)
+    for name in MESH_AUTO:
+        a = on_card(mats[name], dev)
+        st = tile_stats(a, a)
+        choice = should_distribute(st, MESH_AUTO_SHARDS)
+        if name == GUARDED_MATRIX:
+            check(choice and st.flops > fast.STREAM_MAX_PRODUCTS,
+                  f"mesh (c) {name}: not distributed")
+        # the plan spgemm(method="auto") takes, then the call itself
+        plan = _auto_mesh_plan(a, a, MESH_AUTO_SHARDS, None, None, True,
+                               "cuda")
+        check(isinstance(plan, ShardedSpgemmPlan) == choice,
+              f"mesh (c) {name}: took {type(plan).__name__}, "
+              f"should_distribute {choice}")
+        check_scipy(plan.execute(a, a), expected[name],
+                    f"mesh (c) {name} auto plan")
+        check_scipy(spgemm(a, a, "auto", backend="mesh",
+                           shards=MESH_AUTO_SHARDS, device="cuda"),
+                    expected[name], f"mesh (c) {name} auto")
+        print(json.dumps({"mesh_c": dict(
+            matrix=name, products=st.flops, guard=fast.STREAM_MAX_PRODUCTS,
+            profile=in_force.tag, distribute=choice,
+            plan=type(plan).__name__,
+            mesh_estimate_s=estimate_mesh_cost(st, MESH_AUTO_SHARDS),
+            single_estimate_s=estimate_mesh_cost(st, 1),
+            distribute_measured_comm=should_distribute(
+                st, MESH_AUTO_SHARDS, constants=comm),
+            mesh_estimate_measured_comm_s=estimate_mesh_cost(
+                st, MESH_AUTO_SHARDS, constants=comm),
+            exact=True)}), flush=True)
+
+
+def mesh_refusal_phase(mats, dev):
+    """Phase 19 (e): ``shards=2`` with ``device=None`` on a one-card machine
+    is refused at execute, the message naming ``device=``."""
+    import torch
+    from repro_torch.core import spgemm
+
+    check(torch.cuda.device_count() == 1,
+          f"mesh (e) assumes one card, found {torch.cuda.device_count()}")
+    a = on_card(mats[MATRICES[0]], dev)
+    err = raised(lambda: spgemm(a, a, "expand", backend="mesh", shards=2))
+    check(isinstance(err, ValueError) and "device=" in str(err),
+          f"mesh (e): shards=2 on one card gave {err!r}")
+    print(json.dumps({"mesh_e": dict(error=type(err).__name__,
+                                     message=str(err))}), flush=True)
+
+
+def mesh_phase(mats, expected, dev, reps, seed, card):
+    """Phase 19: the mesh's parts (a), (b), (d), (c), (e), with the launch
+    counts set to 0 just before: no kernel of ours launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import plan_cache_clear
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    timed(mesh_default_phase, mats, expected, dev, reps)
+    plan_cache_clear()
+    timed(mesh_guard_phase, mats, expected, dev, reps, seed)
+    measured = timed(mesh_comm_phase, dev)
+    timed(mesh_auto_phase, mats, expected, dev, measured)
+    timed(mesh_refusal_phase, mats, dev)
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"mesh phase launched {counts}")
+    plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"mesh phases: {time.perf_counter() - t0:.1f} s, no kernel of ours "
+          f"launched; card: {card}", flush=True)
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line saying how long it took."""
     import torch
@@ -5509,8 +5829,9 @@ def main(argv=None) -> int:
                   args.seed, args.reps)
 
     # the FFN phases hold granite-20b's FFN at full width: the earlier
-    # phases' plans and operands go first
-    del plans, fplans, tplans, mats, expected, stacks, biggest, k1_biggest
+    # phases' plans and operands go first (the matrices and scipy's
+    # products are host arrays, kept for phase 19)
+    del plans, fplans, tplans, stacks, biggest, k1_biggest
     plan_cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5627,6 +5948,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print(f"serve warm phases: {time.perf_counter() - t_warm:.1f} s; card: "
           f"{card}", flush=True)
+
+    # phase 19: the SpGEMM mesh on the Table-1 matrices
+    mesh_phase(mats, expected, dev, args.reps, args.seed, card)
+    del mats, expected
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, build "
           "included", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -14,7 +14,9 @@ execution (the batched kernels K1-b … K4-b on the card).
 a 2-D tile grid whose tiles each run the method the cost model
 (``core.cost``) picks, merged in a fixed order; the model ranks on the
 machine profile (``core.profile``), measured on this machine by
-``calibrate_profile`` or else the defaults.
+``calibrate_profile`` or else the defaults.  ``backend="mesh"``
+(``repro_torch.distributed``) shards the torch stream over D shards, the
+plan-memory guard applying per shard.
 
 The plan LRU builds each key once across threads (single-flight), and
 ``PlanBuilder`` builds and warms plans on background threads under retry,
@@ -50,7 +52,8 @@ from repro_torch.core.api import (
 from repro_torch.core.backends import ExecutionContract, backend_names, \
     get_backend
 from repro_torch.core.cost import AUTO_CANDIDATES, DEFAULT_CONSTANTS, \
-    CostConstants, choose_method, estimate_cost
+    CostConstants, choose_method, estimate_cost, estimate_mesh_cost, \
+    should_distribute
 from repro_torch.core.device_stream import DeviceStream, device_stream, \
     execute_torch, execute_torch_batched, stream_fn, stream_fn_batched
 from repro_torch.core.faults import FaultPlan, FaultRule, InjectedFault
@@ -133,6 +136,8 @@ __all__ = [
     "CostConstants",
     "choose_method",
     "estimate_cost",
+    "estimate_mesh_cost",
+    "should_distribute",
     "DeviceStream",
     "device_stream",
     "execute_torch",

@@ -33,6 +33,13 @@ TiledSpgemmPlan`: the operands are cut into a 2-D tile grid (sized from
 their nnz, or by ``tile=``) and each tile runs the candidate the cost model
 (``core.cost``) predicts cheapest; ``candidates=`` restricts the choice.
 
+``backend="mesh"`` shards the product stream over ``shards`` shards
+(``distributed.spgemm_mesh``; default one a visible card), the plan-memory
+guard applying per shard: ``device=None`` runs shard d on ``cuda:d``, a
+named device runs every shard there.  With ``method="auto"`` the cost
+model's ``should_distribute`` decides whether to shard at all, else the
+torch backend's tile grid runs on one device.
+
 ``device=None`` means the card (``"cuda"``) on the device backends, and
 raises without one; pass ``device="cpu"`` to run the kernels' plain
 versions and the torch stream on the host.  The host backend runs on the
@@ -55,7 +62,7 @@ from collections import OrderedDict
 import torch
 
 from repro_torch.core import backends, fast, profile
-from repro_torch.core.cost import check_candidates
+from repro_torch.core.cost import check_candidates, should_distribute
 from repro_torch.core.planner import (
     ALGORITHMS,
     SpgemmPlan,
@@ -69,7 +76,9 @@ from repro_torch.core.planner import (
     tiled_device,
     tiled_plan_key,
 )
+from repro_torch.device import resolve_device
 from repro_torch.sparse.format import CSC, BatchedCSC
+from repro_torch.sparse.stats import tile_stats
 
 DEFAULT_METHOD = "h-hash-256/256"
 DEFAULT_BACKEND = "cuda"
@@ -223,7 +232,10 @@ class PlanCache:
                         device_stream_bytes=_held(plans,
                                                   "device_stream_nbytes"),
                         fused_stream_bytes=_held(plans,
-                                                 "fused_stream_nbytes"))
+                                                 "fused_stream_nbytes"),
+                        mesh_stream_bytes=sum(
+                            {id(p): getattr(p, "mesh_stream_nbytes", 0)
+                             for p in plans}.values()))
 
     def clear(self) -> None:
         with self._lock:
@@ -268,8 +280,10 @@ def plan_cache_info() -> dict:
     devices (``core.device_stream``) and ``fused_stream_bytes`` the K1 views
     (``core.fused_stream``); each is built at a plan's first execution
     through its engine, one plan may hold all three, and a guarded plan
-    holds none.  A tiled plan's streams are its children's, counted once
-    however many tiles or cache entries share a child.  ``profile`` is the
+    holds none.  A tiled or mesh plan's streams are its children's, counted
+    once however many tiles or cache entries share a child;
+    ``mesh_stream_bytes`` adds the mesh plans' own sharded streams (host
+    index arrays and the shards' device views).  ``profile`` is the
     machine profile's provenance and counters (``core.profile``): which
     constants auto plans rank under, how old the calibration is, and how
     often auto ranked device engines on the uncalibrated defaults.
@@ -362,21 +376,27 @@ def _plan_key(a: CSC, b: CSC, method: str, contract, params: dict,
 def plan_cache_key(a: CSC, b: CSC, method: str | None = None, *,
                    backend: str | None = None, t: float | None = None,
                    b_min: int | None = None, b_max: int | None = None,
-                   stream_limit: int | None = None, device=None) -> tuple:
+                   stream_limit: int | None = None, device=None,
+                   shards: int | None = None) -> tuple:
     """The LRU key :func:`cached_plan` would use for these arguments.
 
     For non-blocking probes: compute the key once, then
     :func:`plan_cache_peek` it on the latency path while a background
     :class:`~repro_torch.core.plan_builder.PlanBuilder` owns the build.
     Costs two pattern fingerprints (O(nnz)), no plan construction; the key
-    holds the stream limit and the device.
+    holds the stream limit and the device.  On ``backend="mesh"`` it holds
+    the shard count (``shards``, default one a visible card), the
+    per-shard guard, the tile spec and the profile's tag as well.
     """
     method, contract = _resolve_method_backend(method, backend)
+    _check_shards(contract, shards)
     if method == "auto":
         raise ValueError(
             "plan_cache_key addresses single-method plans; method='auto' "
             "uses the tiled entry points")
     backends.check_method_knobs(contract, t, b_min, b_max)
+    if contract.name == "mesh":
+        return _mesh_plan_key(a, b, shards, None, stream_limit, device)
     params = resolve_params(method, t=t, b_min=b_min, b_max=b_max)
     return _plan_key(a, b, method, contract, params,
                      plan_device(contract, device), stream_limit)
@@ -387,11 +407,14 @@ def cached_plan(a: CSC, b: CSC, method: str | None = None, *,
                 b_min: int | None = None, b_max: int | None = None,
                 stream_limit: int | None = None,
                 device=None,
+                shards: int | None = None,
                 build_timeout: float | None = None) -> SpgemmPlan:
     """Fetch-or-build a plan through the shared LRU.
 
-    Arguments as in :func:`spgemm`.  ``stream_limit`` overrides the stream
-    guard for this plan only (part of the key), without touching the
+    Arguments as in :func:`spgemm`; on ``backend="mesh"`` a
+    :class:`~repro_torch.distributed.spgemm_mesh.ShardedSpgemmPlan`, with
+    ``stream_limit`` its per-shard guard.  ``stream_limit`` overrides the
+    stream guard for this plan only (part of the key), without touching the
     global ``fast.STREAM_MAX_PRODUCTS``; with ``None`` the plan keeps the
     guard in force when it was built, which is part of the key too.  One
     key builds once across threads (single-flight); ``build_timeout``
@@ -400,11 +423,15 @@ def cached_plan(a: CSC, b: CSC, method: str | None = None, *,
     :data:`DEFAULT_BUILD_TIMEOUT`).
     """
     method, contract = _resolve_method_backend(method, backend)
+    _check_shards(contract, shards)
     if method == "auto":
         raise ValueError(
             "cached_plan builds single-method plans; use plan_spgemm_tiled "
             "for method='auto'")
     backends.check_method_knobs(contract, t, b_min, b_max)
+    if contract.name == "mesh":
+        return _cached_mesh_plan(a, b, shards, None, stream_limit, device,
+                                 build_timeout)
     params = resolve_params(method, t=t, b_min=b_min, b_max=b_max)
     dev = plan_device(contract, device)
     return PLAN_CACHE.get_or_build(
@@ -435,6 +462,71 @@ def _cached_tiled_plan(a: CSC, b: CSC, contract, tile, candidates,
                                        device=device))
 
 
+def _mesh_plan_key(a: CSC, b: CSC, shards, tile,
+                   stream_limit: int | None = None, device=None) -> tuple:
+    """The LRU key of a mesh plan: the shard count, the per-shard guard and
+    the grid spec are different placements, and the profile's tag ranks
+    the placement, so all of them key it, with the device."""
+    from repro_torch.distributed.spgemm_mesh import mesh_plan_key, \
+        resolve_shards
+
+    dev = None if device is None else resolve_device(device)
+    limit = (fast.STREAM_MAX_PRODUCTS if stream_limit is None
+             else int(stream_limit))
+    params = (("profile", profile.current_profile().tag),
+              ("shard_limit", limit), ("shards", resolve_shards(shards, dev)),
+              ("tile", normalize_tile_spec(tile)))
+    return mesh_plan_key(pattern_fingerprint(a), pattern_fingerprint(b),
+                         params, dev)
+
+
+def _cached_mesh_plan(a: CSC, b: CSC, shards=None, tile=None,
+                      stream_limit: int | None = None, device=None,
+                      build_timeout: float | None = None):
+    """Fetch-or-build a mesh plan through the LRU."""
+    from repro_torch.distributed.spgemm_mesh import plan_spgemm_mesh
+
+    key = _mesh_plan_key(a, b, shards, tile, stream_limit, device)
+    n_shards = dict(key[4])["shards"]
+    return PLAN_CACHE.get_or_build(
+        key, lambda: plan_spgemm_mesh(a, b, shards=n_shards, tile=tile,
+                                      shard_limit=stream_limit,
+                                      device=device),
+        timeout=build_timeout)
+
+
+def _auto_mesh_plan(a: CSC, b: CSC, shards, tile, candidates, cache,
+                    device):
+    """``method="auto"`` on the mesh backend: shard where the cost model's
+    :func:`~repro_torch.core.cost.should_distribute` says so (the whole
+    stream above one device's guard, or the mesh estimate below the single
+    device's), else the torch backend's tile grid on one device, whose
+    per-tile race still applies (the reference's jax grid)."""
+    from repro_torch.distributed.spgemm_mesh import plan_spgemm_mesh, \
+        resolve_shards
+
+    n_shards = resolve_shards(
+        shards, None if device is None else resolve_device(device))
+    if should_distribute(tile_stats(a, b), n_shards):
+        if cache:
+            return _cached_mesh_plan(a, b, n_shards, tile, None, device)
+        return plan_spgemm_mesh(a, b, shards=n_shards, tile=tile,
+                                cache=False, device=device)
+    if cache:
+        return _cached_tiled_plan(a, b, backends.get_backend("torch"), tile,
+                                  candidates, device)
+    return plan_spgemm_tiled(a, b, backend="torch", tile=tile,
+                             candidates=candidates, cache=False,
+                             device=device)
+
+
+def _check_shards(contract, shards) -> None:
+    if shards is not None and contract.name != "mesh":
+        raise ValueError(
+            f"shards= applies only to backend='mesh', not "
+            f"{contract.name!r}")
+
+
 def _check_auto_only(method, t, b_min, b_max, tile, candidates) -> None:
     """Arguments of one mode must not be passed with the other."""
     if method != "auto" and (tile is not None or candidates is not None):
@@ -449,11 +541,22 @@ def _check_auto_only(method, t, b_min, b_max, tile, candidates) -> None:
 
 
 def _plan_for(a, b, method, backend, t, b_min, b_max, device, cache,
-              tile=None, candidates=None):
+              tile=None, candidates=None, shards=None):
     """The plan of a call that holds none: from the LRU, or with
-    ``cache=False`` built afresh; a tiled plan for ``method="auto"``."""
+    ``cache=False`` built afresh; a tiled plan for ``method="auto"`` (on
+    the mesh, a mesh plan or a torch grid, as the cost model says)."""
     method, contract = _resolve_method_backend(method, backend)
+    _check_shards(contract, shards)
     _check_auto_only(method, t, b_min, b_max, tile, candidates)
+    if contract.name == "mesh":
+        backends.check_method_knobs(contract, t, b_min, b_max)
+        if method == "auto":
+            return _auto_mesh_plan(a, b, shards, tile, candidates, cache,
+                                   device)
+        if cache:
+            return _cached_mesh_plan(a, b, shards, None, None, device)
+        return plan_spgemm(a, b, method, backend="mesh", shards=shards,
+                           device=device)
     if method == "auto":
         if cache:
             return _cached_tiled_plan(a, b, contract, tile, candidates,
@@ -469,7 +572,8 @@ def _plan_for(a, b, method, backend, t, b_min, b_max, device, cache,
 
 
 def _check_plan_overrides(plan, method, backend, t, b_min, b_max,
-                          device, tile=None, candidates=None) -> None:
+                          device, tile=None, candidates=None,
+                          shards=None) -> None:
     """Reject ``plan=`` calls whose explicit arguments conflict with what
     the held plan was built with."""
     own = dict(plan.params)
@@ -490,9 +594,12 @@ def _check_plan_overrides(plan, method, backend, t, b_min, b_max,
         conflicts.append(
             f"candidates={tuple(candidates)!r} "
             f"(plan has {own.get('candidates', '<unset>')})")
-    if device is not None and not _same_device(torch.device(device),
-                                               plan.device):
+    if device is not None and (plan.device is None or not _same_device(
+            torch.device(device), plan.device)):
         conflicts.append(f"device={device!r} (plan has {plan.device})")
+    if shards is not None and shards != own.get("shards"):
+        conflicts.append(
+            f"shards={shards!r} (plan has {own.get('shards', '<unset>')})")
     if conflicts:
         raise ValueError(
             "arguments conflict with the held plan (a plan carries its own "
@@ -523,6 +630,7 @@ def spgemm(
     validate: str | None = None,
     device=None,
     engine: str | None = None,
+    shards: int | None = None,
 ) -> CSC:
     """Compute C = A @ B with one of the paper's algorithms, or ``"auto"``.
 
@@ -549,13 +657,19 @@ def spgemm(
     of the backend), and ``t``/``b_min``/``b_max`` raise.  On
     ``backend="host"`` the grid's ``"torch"``/``"fused"`` tiles run on
     ``device`` (``None``: the card) and its numpy tiles on the CPU.
+
+    ``backend="mesh"`` shards the multiply over ``shards`` shards (default
+    one a visible card; ``device=None`` runs shard d on ``cuda:d``, a named
+    device runs every shard there), the plan-memory guard applying per
+    shard.  With ``method="auto"`` the cost model decides whether to shard,
+    else the torch backend's tile grid runs on ``device``.
     """
     if plan is not None:
         _check_plan_overrides(plan, method, backend, t, b_min, b_max, device,
-                              tile, candidates)
+                              tile, candidates, shards)
         return plan.execute(a, b, validate=validate, engine=engine)
     p = _plan_for(a, b, method, backend, t, b_min, b_max, device, cache,
-                  tile, candidates)
+                  tile, candidates, shards)
     return p.execute(a, b, validate=validate, engine=engine)
 
 
@@ -575,6 +689,7 @@ def spgemm_batched(
     validate: str | None = None,
     device=None,
     engine: str | None = None,
+    shards: int | None = None,
 ) -> list:
     """B same-pattern multiplies C_b = A_b @ B_b through one plan execution.
 
@@ -593,7 +708,7 @@ def spgemm_batched(
     """
     if plan is not None:
         _check_plan_overrides(plan, method, backend, t, b_min, b_max, device,
-                              tile, candidates)
+                              tile, candidates, shards)
         return plan.execute_batched(a, b, validate=validate, engine=engine)
     if not isinstance(a, BatchedCSC) or not isinstance(b, BatchedCSC):
         raise TypeError(
@@ -604,5 +719,5 @@ def spgemm_batched(
     if a.batch < 1:
         raise ValueError("empty batch")
     p = _plan_for(a.element(0), b.element(0), method, backend, t, b_min,
-                  b_max, device, cache, tile, candidates)
+                  b_max, device, cache, tile, candidates, shards)
     return p.execute_batched(a, b, validate=validate, engine=engine)

@@ -1,7 +1,7 @@
 """Backend/engine registry: one execution contract per backend.
 
-The port registers three backends, the counterparts of the JAX package's
-three single-device ones:
+The port registers four backends, the counterparts of the JAX package's
+four:
 
 * ``"host"`` (the reference's ``"host"``): the faithful numpy oracles of the
   paper's algorithms (``engine="naive"``, ``core.naive``) and the numpy
@@ -19,6 +19,11 @@ three single-device ones:
   (``core.device_stream``): differentiable and batched.  Its numeric phase
   does not depend on the method, so every method spelling collapses to one
   canonical plan (``"expand"``); ``"fused"`` swaps the lowering for K1.
+* ``"mesh"`` (the reference's ``"mesh"``): the torch stream sharded over
+  D shards (``distributed.spgemm_mesh``), each shard replaying its slice
+  of the products on its own device, the partial results reduced in shard
+  order.  The contract mirrors ``"torch"`` (canonical ``"expand"``,
+  differentiable), with the plan-memory guard applied per shard.
 
 The plan's device decides where ``"cuda"`` and ``"torch"`` run: ``"cuda"``
 launches the kernels, ``"cpu"`` (tests only, asked for explicitly) runs
@@ -186,4 +191,17 @@ TORCH = register_backend(ExecutionContract(
     device_resident=True,
     carries_stream=True,
     canonical_method="expand",   # the stream computes expand's contraction
+))
+
+MESH = register_backend(ExecutionContract(
+    name="mesh",
+    # one engine: every shard replays its slice of the sharded stream, the
+    # partials reduced in a plan-static order; the per-shard replay is the
+    # torch stream's, so the contract mirrors torch's
+    engines=(None, "stream"),
+    default_engine="stream",
+    supports_grad=True,
+    device_resident=True,
+    carries_stream=True,
+    canonical_method="expand",
 ))

@@ -1,5 +1,6 @@
-"""Analytical per-tile cost model for ``method="auto"`` (the port's copy of
-the JAX package's ``repro/core/cost.py``, without its mesh functions).
+"""Analytical cost model for ``method="auto"`` (the port's copy of the JAX
+package's ``repro/core/cost.py``): per-tile method choice, and whether the
+mesh backend should shard a multiply at all.
 
 Each tile of a :class:`~repro_torch.core.planner.TiledSpgemmPlan` gets the
 method the model predicts cheapest for that tile's work profile: the
@@ -31,6 +32,11 @@ once.  The relative ``p_*`` terms of the cuda domain are never fitted (the
 JAX package's calibration has no ladder for them).  The model reads only
 :class:`~repro_torch.sparse.stats.TileStats` (pattern statistics, O(nnz));
 it never looks at values.
+
+:func:`estimate_mesh_cost` and :func:`should_distribute` price the mesh
+backend (``distributed.spgemm_mesh``): one shard's slice of the torch
+stream plus the cross-shard reduction (``comm_base``, ``comm_byte``), in
+the seconds domain.
 """
 
 from __future__ import annotations
@@ -49,11 +55,13 @@ from repro_torch.sparse.stats import TileStats
 # wins guard-tripped flop-heavy tiles), and the device engines riding the
 # grid ("torch": the torch stream; "fused": K1).  Cuda: the paper's
 # families, dense-tile SPA vs small-table HASH with SPARS between.  Torch:
-# the torch stream and its K1 lowering.
+# the torch stream and its K1 lowering.  Mesh: the torch stream (the
+# single-device engine should_distribute weighs a mesh plan against).
 AUTO_CANDIDATES = {
     "host": ("spa", "expand", "torch", "fused"),
     "cuda": ("spa", "spars-40/40", "hash-256/256"),
     "torch": ("torch", "fused"),
+    "mesh": ("torch",),
 }
 
 
@@ -83,6 +91,11 @@ class CostConstants:
     # K1 (core/fused_stream.py): one launch for the whole numeric phase
     fused_base: float = 7.9e-5
     fused_prod: float = 3.0e-7
+    # mesh backend (distributed/spgemm_mesh.py): a fixed toll per sharded
+    # execution for the cross-shard reduction, plus a per-byte toll on the
+    # (D-1)/D of the f32 slot axis that leaves each shard
+    comm_base: float = 1.0e-3
+    comm_byte: float = 5.0e-10
     # host esc: expand + explicit LSD radix rounds
     esc_base: float = 2.0e-4
     esc_round: float = 1.2e-7         # per product per radix round
@@ -244,6 +257,58 @@ def estimate_cost(stats: TileStats, method: str, backend: str = "cuda",
     if backends.get_backend(backend).cost_domain == "relative":
         return _kernel_cost(stats, method, c)
     return _host_cost(stats, method, c)
+
+
+def estimate_mesh_cost(stats: TileStats, n_shards: int,
+                       constants: CostConstants | None = None) -> float:
+    """Predicted wall seconds of a mesh execution over ``n_shards`` shards.
+
+    Compute: the torch stream's cost of one shard's ~1/D slice of the
+    product stream (the guard applies per shard, so a slice that fits it
+    never pays the transient rebuild).  Communication: ``comm_base`` plus
+    ``comm_byte`` per byte of the f32 slot axis that leaves a shard,
+    ``4 * |C| * (D-1)/D`` with |C| bounded by the flops.  Seconds domain:
+    comparable with :func:`estimate_cost`'s host and torch estimates.
+    ``constants=None`` consults the machine profile, whose ``comm`` ladder
+    replaces the default comm terms.
+    """
+    c = _resolve_constants(constants)
+    d = max(int(n_shards), 1)
+    flops = stats.flops
+    per_shard = -(-flops // d)
+    if per_shard <= fast.STREAM_MAX_PRODUCTS:
+        compute = c.torch_base + c.torch_prod * per_shard
+    else:
+        compute = _guarded_rebuild_cost(per_shard, c)
+    if d == 1:
+        return compute
+    nnz_c = min(flops, stats.m * stats.n)
+    comm = c.comm_base + c.comm_byte * 4.0 * nnz_c * (d - 1) / d
+    return compute + comm
+
+
+def should_distribute(stats: TileStats, n_shards: int,
+                      constants: CostConstants | None = None,
+                      shard_limit: int | None = None) -> bool:
+    """Whether ``method="auto"`` on the mesh backend should shard.
+
+    True when the whole product stream is above the single-device guard
+    (``shard_limit``, default ``fast.STREAM_MAX_PRODUCTS``: one device would
+    rebuild its stream on every call, while each shard keeps its slice), or
+    when :func:`estimate_mesh_cost` undercuts the single-device torch
+    stream outright.  Always False for one shard.
+    """
+    if int(n_shards) <= 1:
+        return False
+    if constants is None:
+        _note_if_default("mesh", AUTO_CANDIDATES["mesh"])
+    c = _resolve_constants(constants)
+    limit = (fast.STREAM_MAX_PRODUCTS if shard_limit is None
+             else int(shard_limit))
+    if stats.flops > limit:
+        return True
+    single = c.torch_base + c.torch_prod * stats.flops
+    return estimate_mesh_cost(stats, n_shards, c) < single
 
 
 def check_candidates(contract, candidates) -> tuple:

@@ -443,6 +443,7 @@ def plan_spgemm(
     stream_limit: int | None = None,
     block_cols: int = BLOCK_COLS,
     tile_cols: int | None = None,
+    shards: int | None = None,
 ) -> SpgemmPlan:
     """Build the symbolic plan for C = A @ B (pattern-dependent work only).
 
@@ -464,8 +465,18 @@ def plan_spgemm(
     the C columns one launch computes, so a family is cut into
     ``tile_cols``-wide launches: it changes launches and peak memory, never
     values.
+
+    ``backend="mesh"`` returns the
+    :class:`~repro_torch.distributed.spgemm_mesh.ShardedSpgemmPlan` of
+    :func:`~repro_torch.distributed.spgemm_mesh.plan_spgemm_mesh`: the tile
+    grid placed over ``shards`` shards (default one a visible card) on
+    ``device`` (``None``: shard d on ``cuda:d``), ``stream_limit`` acting
+    as the per-shard guard.  Every other backend rejects ``shards``.
     """
     faults.check("plan_spgemm", key=(backend, method))
+    if shards is not None and backend != "mesh":
+        raise ValueError(
+            f"shards= applies only to backend='mesh', not {backend!r}")
     if a.n_cols != b.n_rows:
         raise ValueError(f"shape mismatch {a.shape} @ {b.shape}")
     contract = backends.get_backend(backend)
@@ -478,6 +489,11 @@ def plan_spgemm(
             f"backend='cuda'; backend={backend!r} has none")
     if contract.canonical_method:
         method = contract.canonical_method
+    if backend == "mesh":
+        from repro_torch.distributed.spgemm_mesh import plan_spgemm_mesh
+
+        return plan_spgemm_mesh(a, b, shards=shards,
+                                shard_limit=stream_limit, device=device)
     params = resolve_params(method, t=t, b_min=b_min, b_max=b_max)
     dev = plan_device(contract, device)
     limit = (fast.STREAM_MAX_PRODUCTS if stream_limit is None

@@ -15,7 +15,8 @@ module closes the loop: **measure, fit, persist, predict, cross-check**
 * :func:`calibrate_profile` runs a small synthetic ladder per (backend,
   engine) family (host SPA, the host product stream, the guard-tripped
   transient rebuild, the torch stream and K1 on the card, the last two on
-  the stream ladder's rungs) and fits each
+  the stream ladder's rungs, and the mesh's cross-shard reduction over the
+  visible cards) and fits each
   family's :class:`~repro_torch.core.cost.CostConstants` terms by weighted
   least squares.  It also tunes the stream guard
   (``fast.STREAM_MAX_PRODUCTS``) and the auto tile-grid nnz targets
@@ -639,6 +640,44 @@ def _measure_fused(ladder, reps: int, dev: torch.device):
     return fields, rows, times
 
 
+def _measure_comm(scale: float, reps: int, dev: torch.device):
+    """The mesh's cross-shard reduction
+    (``distributed.spgemm_mesh.reduce_bins``, the step the JAX package's
+    ``psum_scatter`` ladder times) over growing payloads: comm_base +
+    comm_byte * bytes, where D shards' reduction of an S-slot f32 axis
+    moves ``4*S*(D-1)/D`` bytes off each shard.
+
+    The shards are the visible cards, one a shard, on ``dev``'s platform
+    (the CPU alone on the host).  With one shard no byte crosses a link, so
+    only ``comm_base`` is fitted and ``comm_byte`` keeps its value, not
+    reported as fitted.  Several shards on one card would time an add on
+    the card, not a link, so the ladder never stacks them there.
+    """
+    from repro_torch.distributed.spgemm_mesh import reduce_bins
+
+    devices = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if dev.type == "cuda" else [dev])
+    d = len(devices)
+    fields = ("comm_base", "comm_byte") if d > 1 else ("comm_base",)
+    rows, times = [], []
+    for s in (int(8e3 * scale) + d, int(1e5 * scale) + d,
+              int(5e5 * scale) + d, int(2e6 * scale) + d):
+        s = -(-s // d) * d
+        parts = [torch.ones(s, device=x) for x in devices]
+
+        def run():
+            reduce_bins(parts, devices)
+            for x in devices:
+                if x.type == "cuda":
+                    torch.cuda.synchronize(x)
+
+        run()
+        rows.append([1.0, 4.0 * s * (d - 1) / d][: len(fields)])
+        times.append(_best_of(run, reps))
+    return fields, rows, times
+
+
 # ---------------------------------------------------------------------------
 # structural-knob tuning
 # ---------------------------------------------------------------------------
@@ -712,7 +751,7 @@ def _tune_tile_targets(constants: CostConstants, scale: float, reps: int,
 # the calibration entry point
 # ---------------------------------------------------------------------------
 
-SECTIONS = ("spa", "stream", "expand", "torch", "fused")
+SECTIONS = ("spa", "stream", "expand", "torch", "fused", "comm")
 
 
 def calibrate_profile(*, scale: float = 1.0, reps: int = 3,
@@ -730,7 +769,8 @@ def calibrate_profile(*, scale: float = 1.0, reps: int = 3,
     searches the tile targets.  ``save=True`` persists the result with
     :func:`save_profile` and installs it as the current profile.
     ``device`` is where the ``torch`` and ``fused`` ladders and the
-    tile-target probe's device tiles run: ``None`` is the card, and raises
+    tile-target probe's device tiles run, and whose platform's devices the
+    ``comm`` ladder reduces across: ``None`` is the card, and raises
     without one.
     """
     from repro_torch.device import resolve_device
@@ -757,6 +797,8 @@ def calibrate_profile(*, scale: float = 1.0, reps: int = 3,
         measured.append(_measure_torch(ladder, reps, dev))
     if "fused" in sections:
         measured.append(_measure_fused(ladder, reps, dev))
+    if "comm" in sections:
+        measured.append(_measure_comm(scale, reps, dev))
 
     constants, fitted = fit_constants(measured, base=base.constants)
     fitted = tuple(sorted(set(base.fitted) | set(fitted)))

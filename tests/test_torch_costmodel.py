@@ -121,9 +121,8 @@ def test_constants_are_the_references_defaults():
     mine = dataclasses.asdict(cost.DEFAULT_CONSTANTS)
     for key, value in mine.items():
         assert ref_fields[key.replace("torch_", "jax_")] == value, key
-    # the reference's mesh terms wait for the port's mesh
-    assert set(ref_fields) - {k.replace("torch_", "jax_") for k in mine} \
-        == {"comm_base", "comm_byte"}
+    # the mesh's comm terms too: every field has its counterpart
+    assert set(ref_fields) == {k.replace("torch_", "jax_") for k in mine}
 
 
 def test_explicit_constants_change_the_choice_as_in_the_reference():

@@ -328,7 +328,8 @@ def test_engine_capability_errors():
     with pytest.raises(ValueError, match="naive"):
         spgemm_batched(ab, ab, backend="torch", engine="naive",
                        device="cpu", cache=False)
-    with pytest.raises(ValueError, match="host-backend or torch-backend"):
+    with pytest.raises(ValueError,
+                       match="host-backend or mesh-backend or torch-backend"):
         spgemm(a, a, "spa", backend="cuda", engine="stream", device="cpu",
                cache=False)
     with pytest.raises(ValueError, match="validate"):
@@ -336,8 +337,12 @@ def test_engine_capability_errors():
 
 
 def test_backend_registry_contracts():
-    assert set(backend_names()) == {"host", "cuda", "torch"}
+    assert set(backend_names()) == {"host", "cuda", "torch", "mesh"}
     host, cuda, tch = (get_backend(n) for n in ("host", "cuda", "torch"))
+    mesh = get_backend("mesh")
+    assert mesh.supports_grad and mesh.device_resident and mesh.carries_stream
+    assert mesh.canonical_method == "expand"
+    assert mesh.engines == (None, "stream")
     assert host.bit_exact_oracle and not host.supports_grad
     assert not host.device_resident and host.carries_stream
     assert tch.supports_grad and tch.device_resident and tch.carries_stream

@@ -25,8 +25,11 @@ another device refused; and training: a smoke-size train step on the card
 against the same step on the CPU, bit-stable run to run with no op that
 PyTorch knows to be nondeterministic, and the sparse-FFN train step warm
 with no host sync and no plan built, its gradient through K1 equal to the
-torch stream's.  Every test needs a card (marker ``gpu``) and skips
-without one.
+torch stream's; and the SpGEMM mesh with its shards on the card: the
+host stream bit for bit on integer values, the torch plan's gradients, no
+host wait an execute, and more shards than cards refused without
+``device=``.  Every test needs a card (marker ``gpu``) and skips without
+one.
 
 The module pins ``REPRO_PROFILE_DIR`` to a path nothing writes before any
 profile is consulted (as ``tests/conftest.py`` does for the CPU suite,
@@ -1941,3 +1944,78 @@ def test_warm_failures_are_reported_not_hidden(warm_model, cuda):
     assert stats["health"] == "fallback-pinned"
     assert stats["breaker"]["trips"] == 1 and info["failed"] == 1
     assert all(len(g) == 3 for g in got)
+
+
+# ---------------------------------------------------------------------------
+# the SpGEMM mesh (backend="mesh"), its shards on one card
+# ---------------------------------------------------------------------------
+
+
+def _int_operand(n, z, seed, n_rows):
+    m = generate.random_uniform_csc(n, z, seed=seed, n_rows=n_rows)
+    rng = np.random.default_rng(seed + 100)
+    return type(m)(torch.from_numpy(
+        rng.integers(1, 8, m.nnz).astype(np.float32)), m.row_indices,
+        m.col_ptr, m.shape)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_mesh_on_card_equals_host_stream_without_a_sync(cuda, shards):
+    """Every shard on the card: C equals the host stream bit for bit on
+    integer values, two runs agree, batched equals looped, and an
+    execute on card operands makes no host sync."""
+    a = _int_operand(160, 8, 0, 120).to(cuda)
+    b = _int_operand(120, 7, 1, 160).to(cuda)
+    total = int(ops_per_column(a, b).sum())
+    # past one shard's guard on 4 shards: only the mesh keeps the stream
+    limit = total // 2 if shards > 1 else None
+    plan = plan_spgemm(a, b, "expand", backend="mesh", shards=shards,
+                       device="cuda", stream_limit=limit)
+    want = plan_spgemm(a, b, "expand", backend="host").execute(
+        a.to("cpu"), b.to("cpu"), engine="stream")
+    c = plan.execute(a, b)
+    assert c.values.device.type == "cuda"
+    assert np.array_equal(_np(c.col_ptr), _np(want.col_ptr))
+    assert np.array_equal(_np(c.row_indices), _np(want.row_indices))
+    assert np.array_equal(_np(c.values), _np(want.values).astype(np.float32))
+    assert torch.equal(plan.execute(a, b).values, c.values)
+    stack = torch.stack([a.values, 2 * a.values])
+    bstack = torch.stack([b.values, b.values])
+    outs = plan.execute_batched(stack, bstack)
+    for i in range(2):
+        assert torch.equal(outs[i].values,
+                           plan.execute(stack[i], bstack[i]).values)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        plan.execute(a, b)
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert not syncs, [str(w.message) for w in syncs]
+
+
+def test_mesh_gradients_on_card_equal_the_torch_plan(cuda):
+    a = _int_operand(50, 5, 2, 40).to(cuda)
+    b = _int_operand(30, 4, 3, 50).to(cuda)
+    mesh = plan_spgemm(a, b, "expand", backend="mesh", shards=4,
+                       device="cuda")
+    tplan = plan_spgemm(a, b, "expand", backend="torch", device=cuda)
+
+    def grads(apply):
+        x = a.values.clone().requires_grad_()
+        y = b.values.clone().requires_grad_()
+        return torch.autograd.grad((apply(x, y) ** 2).sum(), (x, y))
+
+    for got, want in zip(grads(mesh.stream_apply), grads(tplan.stream_apply)):
+        assert torch.equal(got, want)
+
+
+def test_mesh_with_no_device_needs_a_card_a_shard(cuda):
+    """``device=None`` puts shard d on ``cuda:d``: more shards than cards
+    are refused at execute, the message naming ``device=``."""
+    a = _int_operand(30, 3, 21, 30).to(cuda)
+    cards = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="device="):
+        spgemm(a, a, "expand", backend="mesh", shards=cards + 1)

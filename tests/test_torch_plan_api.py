@@ -241,8 +241,9 @@ def test_plan_cache_hit_miss_eviction_and_resize():
     assert info == {
         "hits": 0, "misses": 0, "evictions": 0, "size": 0, "max_size": 64,
         "hit_rate": 0.0, "stream_bytes": 0, "device_stream_bytes": 0,
-        "fused_stream_bytes": 0, "wasted_builds": 0, "listener_errors": 0,
-        "wait_timeouts": 0, "in_flight": 0, "builders": []}
+        "fused_stream_bytes": 0, "mesh_stream_bytes": 0, "wasted_builds": 0,
+        "listener_errors": 0, "wait_timeouts": 0, "in_flight": 0,
+        "builders": []}
 
 
 # --- held-plan conflicts -----------------------------------------------------

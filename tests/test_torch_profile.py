@@ -128,7 +128,8 @@ def test_save_load_roundtrip(tmp_path):
 
 def test_unknown_tuning_and_constant_keys_are_dropped(tmp_path):
     """A file carrying the JAX package's ``fused_block`` knob (K1 has no
-    such block) or its ``jax_*``/``comm_*`` constants loads without them."""
+    such block) or its ``jax_*`` constants loads without them; its
+    ``comm_*`` terms, which the port's mesh shares, load."""
     doc = _measured().to_json()
     doc["tuning"] = {"fused_block": 64, "stream_max_products": 5}
     doc["constants"]["jax_base"] = 1.0
@@ -137,7 +138,8 @@ def test_unknown_tuning_and_constant_keys_are_dropped(tmp_path):
     path.write_text(json.dumps(doc))
     back = profile.load_profile(path=str(path))
     assert back.tuning == {"stream_max_products": 5}
-    assert back.constants == DEFAULT_CONSTANTS
+    assert back.constants == dataclasses.replace(DEFAULT_CONSTANTS,
+                                                 comm_byte=1.0)
 
 
 def test_load_missing_returns_none(tmp_path):
@@ -530,9 +532,8 @@ def test_fit_fields_and_constants_equal_the_references(seed):
     for f in dataclasses.fields(got_c):
         assert getattr(got_c, f.name) == getattr(want_c, _ref_field(f.name))
     assert dataclasses.asdict(DEFAULT_CONSTANTS) == {
-        f: v for f, v in ((k.replace("jax_", "torch_"), v)
-                          for k, v in dataclasses.asdict(REF_DEFAULTS).items())
-        if not f.startswith("comm_")}
+        k.replace("jax_", "torch_"): v
+        for k, v in dataclasses.asdict(REF_DEFAULTS).items()}
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -643,7 +644,7 @@ def test_auto_calibration_runs_once_and_persists(monkeypatch, tmp_path):
 
 
 def test_unknown_section_raises():
-    for bad in ("comm", "jax"):
+    for bad in ("jax", "pallas"):
         with pytest.raises(ValueError, match="unknown sections"):
             profile.calibrate_profile(sections=("spa", bad), device="cpu")
 

@@ -49,7 +49,8 @@ def test_no_jax_or_reference_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels, "
             "repro_torch.convert, repro_torch.sparse, repro_torch.models, "
-            "repro_torch.configs, repro_torch.serving\n"
+            "repro_torch.configs, repro_torch.serving, "
+            "repro_torch.distributed\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n")
@@ -126,14 +127,14 @@ def test_cpu_tensor_with_cuda_device_raises(kernel):
 
 def test_no_fallback_in_wrappers():
     """No wrapper catches its kernel's failure: the kernel modules, the
-    stream engines (fused, torch and host), the host oracles and the sparse
-    FFN hold no ``try`` at all (their locks are ``with`` blocks), and
+    stream engines (fused, torch, mesh and host), the host oracles and the
+    sparse FFN hold no ``try`` at all (their locks are ``with`` blocks), and
     chip_smoke.py catches no phase failure."""
     for f in ("kernels/spa.py", "kernels/spars.py", "kernels/hash_spgemm.py",
               "kernels/fused_stream.py", "kernels/bsr_spmm.py",
               "kernels/ops.py", "core/fused_stream.py",
               "core/device_stream.py", "core/naive.py", "core/fast.py",
-              "models/sparse_ffn.py"):
+              "distributed/spgemm_mesh.py", "models/sparse_ffn.py"):
         tree = ast.parse(open(os.path.join(PORT, f)).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), f
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())

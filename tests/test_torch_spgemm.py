@@ -42,12 +42,15 @@ def test_methods_without_kernel_family_raise(method):
 
 
 @pytest.mark.parametrize("kw", [dict(backend="jax"), dict(engine="stream"),
-                                dict(backend="pallas"), dict(backend="mesh")])
+                                dict(backend="pallas"),
+                                dict(backend="mesh", engine="fused")])
 def test_only_the_cuda_backend_and_naive_engine(kw):
     """The reference's backend names "jax" and "pallas" are "torch" and
-    "cuda" here, the mesh is not ported, and the "cuda" backend's engines
-    are "naive" (the default) and "fused" (tests/test_torch_fused.py):
-    "stream" is the host and torch backends'."""
+    "cuda" here, the mesh's one engine is "stream"
+    (tests/test_torch_distributed_spgemm.py), and the "cuda" backend's
+    engines are "naive" (the default) and "fused"
+    (tests/test_torch_fused.py): "stream" is the host, torch and mesh
+    backends'."""
     a, b = adversarial("random")
     with pytest.raises(ValueError, match="backend|engine"):
         spgemm(a, b, device="cpu", **kw)
