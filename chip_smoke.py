@@ -335,6 +335,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    comm terms, each result exact.  (e) ``shards=2`` with ``device=None`` on
    this one-card machine is refused, naming ``device=``.
 
+20. The launch dry run (``repro_torch.launch``) and the donated decode
+   step, with the counts set to 0 just before: no kernel of ours launches.
+   (a) In worker processes (spawned; meta tensors only, never the card),
+   ``run_cells`` for every decode cell of ``shapes_for`` (decode_32k and
+   long_500k) of the ten configs at their published widths and depths,
+   ``llama4-maverick-400b-a17b`` included, and for qwen2-0.5b's
+   train_4k: one trace under ``FlopCounterMode`` a cell, its records on
+   the 16x16 and 2x16x16 meshes.  A line a record: trace seconds, param_mode, argument,
+   output and alias GB a device, flops against model_flops.  A cell that
+   fails to trace fails the phase, and so does a decode_32k cell whose
+   arguments reach 80 GB a device on 16x16.  The CLI traces the other
+   prefill and train cells (a prefill cell takes 2-17 minutes, longer
+   than the run can spare).  (b)
+   qwen2-0.5b x decode_32k at the cell's own shape (B = 128, S = 32768,
+   24 layers) on the host mesh (1x1, the card): its record from a meta
+   trace; f32 params from ``--seed``, a 51.54 GB bf16 cache filled by the
+   same generator, cur_len per slot below 32768; the card's allocation
+   within 1 % of the record's argument bytes; one ``decode_step(...,
+   donate_cache=True)`` under ``FlopCounterMode``, whose count must equal
+   the meta trace's, the cache's tensors and ``data_ptr`` unchanged, the
+   logits finite and a second step's bit for bit; the peak memory, the
+   step's median ms, device time and idle share beside the byte floor of
+   ``hbm_bytes_estimate`` at 3.35 TB/s.  (c) qwen2-0.5b (24 layers) and
+   falcon-mamba-7b (2 of 64) at B = 4, S = 4096: two donated steps each
+   against the copying step, logits and cache bit for bit, every leaf in
+   place but a mamba window whose dtype the first step changes.  (b) runs
+   first, with the host to itself; (a)'s workers start after it and trace
+   while (c) runs.
+
 The last two lines are the kernels' JSON and the card line; the very last is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
 the repository beside it, the script exits non-zero before any result.
@@ -5713,6 +5742,277 @@ def mesh_phase(mats, expected, dev, reps, seed, card):
           f"launched; card: {card}", flush=True)
 
 
+# phase 20: the launch dry run (``repro_torch.launch``) and the donated
+# decode step
+# traced here: every decode cell and the quickest train cell; the CLI
+# traces the other prefill and train cells (45 s to past 45 minutes each:
+# every operation on meta runs a Python meta kernel)
+SWEEP_KINDS = ("decode",)
+SWEEP_EXTRA = (("qwen2-0.5b", "train_4k"),)
+DRYRUN_CARD_ARCH = "qwen2-0.5b"
+DONATION_MODELS = {"qwen2-0.5b": None,     # every layer
+                   "falcon-mamba-7b": 2}   # 2 of its 64 layers
+DONATION_B, DONATION_S = 4, 4096
+
+
+def sweep_cell(arch, shape_name):
+    """One meta trace of (arch, shape) and its records on the 16x16 and
+    2x16x16 meshes (a worker process's task)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.dryrun import run_cells
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.config import ALL_SHAPES
+
+    shape = {s.name: s for s in ALL_SHAPES}[shape_name]
+    with contextlib.redirect_stdout(io.StringIO()):
+        return run_cells(arch, shape, [
+            make_production_mesh(multi_pod=False),
+            make_production_mesh(multi_pod=True)])
+
+
+def sweep_pool():
+    """Worker processes for the sweep, spawned: they trace on meta and never
+    touch the card."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    workers = max(1, (os.cpu_count() or 2) - 1)
+    print(f"dryrun (a): {workers} worker processes", flush=True)
+    return ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+
+
+def start_sweep(pool):
+    """Phase 20 (a)'s cells submitted to ``pool``, the slowest first:
+    {cell: future}."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import shapes_for
+
+    cells = list(SWEEP_EXTRA) + [
+        (arch, s.name) for arch in sorted(ARCHS)
+        for s in shapes_for(ARCHS[arch]) if s.kind in SWEEP_KINDS]
+    print(f"dryrun (a): {len(cells)} cells, every {'/'.join(SWEEP_KINDS)} "
+          f"cell and {SWEEP_EXTRA}", flush=True)
+    return {cell: pool.submit(sweep_cell, *cell) for cell in cells}
+
+
+def finish_sweep(futures, t0):
+    """Phase 20 (a): every cell's records, one line a cell and mesh; a cell
+    that failed to trace fails the phase, and so does a decode_32k cell
+    whose arguments reach the card's memory a device on 16x16."""
+    from repro_torch.launch.dryrun import DEVICE_BYTES
+
+    recs = {cell: f.result() for cell, f in futures.items()}
+    for (arch, shape), pair in sorted(recs.items()):
+        for rec in pair:
+            mem = rec["memory"]
+            args = mem["argument_size_in_bytes"]
+            ratio = rec["cost"]["flops"] / rec["model_flops"]
+            print(f"dryrun (a) {arch} {shape} {rec['mesh']}: trace "
+                  f"{rec['trace_seconds']:.3f} s, param_mode "
+                  f"{rec['param_mode']}, arguments {args / 1e9:.3f} GB a "
+                  f"device, out {mem['output_size_in_bytes'] / 1e9:.3f} GB, "
+                  f"alias {mem['alias_size_in_bytes'] / 1e9:.3f} GB, flops "
+                  f"{rec['cost']['flops']:.4g} = {ratio:.3f} x model_flops",
+                  flush=True)
+            if shape == "decode_32k" and rec["mesh"] == "16x16":
+                check(args < DEVICE_BYTES,
+                      f"{arch} decode_32k: {args} argument bytes a device "
+                      f"on 16x16, past the card's {DEVICE_BYTES:.0f}")
+    traced = sum(pair[0]["trace_seconds"] for pair in recs.values())
+    print(f"dryrun (a): {len(recs)} cells traced ({2 * len(recs)} records),"
+          f" {traced:.1f} s of traces, {time.perf_counter() - t0:.1f} s "
+          "wall", flush=True)
+    return recs
+
+
+def card_arguments(cfg, shape, dev, seed):
+    """The cell's arguments on the card: f32 params drawn from ``seed``, a
+    bf16 cache filled by the same generator, tokens and per-slot cur_len
+    below the cache length."""
+    import torch
+    from repro_torch.models import init_cache, init_model
+
+    b, s = shape.global_batch, shape.seq_len
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = init_model(cfg, g, dev)
+    cache = init_cache(cfg, b, s, device=dev)
+    for leaf in tree_leaves(cache):
+        leaf.normal_(generator=g)
+    token = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=dev,
+                          dtype=torch.int32)
+    cur_len = torch.randint(0, s, (b,), generator=g, device=dev,
+                            dtype=torch.int32)
+    return params, token, cache, cur_len
+
+
+def dryrun_card_phase(dev, seed, reps, card):
+    """Phase 20 (b): qwen2-0.5b x decode_32k at the cell's own shape on the
+    host mesh (1x1, the card): the record of its meta trace against the
+    card's allocation, flop count and one donated step."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import Cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import DECODE_32K, decode_step
+    from repro_torch.models.accounting import hbm_bytes_estimate
+    from repro_torch.training.tree import tree_paths
+
+    cfg, shape = get_config(DRYRUN_CARD_ARCH), DECODE_32K
+    cell = Cell(cfg, shape, make_host_mesh("meta"))
+    out, secs, meta_flops = cell.trace()
+    rec = cell.record(out, secs, meta_flops)
+    del cell, out
+    want = rec["memory"]["argument_size_in_bytes"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params, token, cache, cur_len = card_arguments(cfg, shape, dev, seed)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base
+    check(abs(allocated - want) <= 0.01 * want,
+          f"dryrun (b): {allocated} bytes allocated for the arguments, the "
+          f"record says {want}")
+    given = tree_paths(cache)
+    ptrs = {k: t.data_ptr() for k, t in given.items()}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        logits, new = decode_step(params, cfg, token, cache, cur_len,
+                                  donate_cache=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    card_flops = counter.get_total_flops()
+    check(card_flops == meta_flops,
+          f"dryrun (b): {card_flops} flops on the card, {meta_flops} traced "
+          "on meta")
+    got = tree_paths(new)
+    check(got.keys() == given.keys()
+          and all(got[k] is given[k] for k in given)
+          and all(t.data_ptr() == ptrs[k] for k, t in got.items()),
+          "dryrun (b): the donated step did not return its cache's tensors")
+    check(logits.shape == (shape.global_batch, 1, cfg.vocab_padded)
+          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          "dryrun (b): logits not finite or of the wrong shape")
+    first = logits.clone()
+
+    @torch.no_grad()
+    def step():
+        return decode_step(params, cfg, token, cache, cur_len,
+                           donate_cache=True)
+
+    again, _ = step()
+    check(torch.equal(bits(again), bits(first)),
+          "dryrun (b): a second donated step's logits differ")
+    del again, logits, new
+    ms = median_ms(step, reps)
+    prof = device_profile(step, n=3)
+    device_ms = sum(prof.values())
+    top = [(k.replace("void ", "").replace("at::native::", "")[:100],
+            round(v, 3))
+           for k, v in sorted(prof.items(), key=lambda kv: -kv[1])[:6]]
+    idle = idle_share(device_ms, ms)
+    w_local = tree_bytes(params)
+    floor = hbm_bytes_estimate(cfg, shape, n_devices=1, model_shards=1,
+                               w_local=w_local)
+    floor_ms = floor / PEAK_BYTES_PER_S * 1e3
+    print(f"dryrun (b) {DRYRUN_CARD_ARCH} decode_32k on 1x1 (B = "
+          f"{shape.global_batch}, S = {shape.seq_len}, {cfg.n_layers} "
+          f"layers): record arguments {want} B, allocated {allocated} B "
+          f"({(allocated - want) / want * 100:+.4f} %); params {w_local} B "
+          f"f32, cache {tree_bytes(cache)} B bf16; peak "
+          f"{peak / 1e9:.3f} GB during the step; flops {card_flops} on the "
+          f"card = {meta_flops} on meta (trace {secs:.3f} s); step "
+          f"{ms:.3f} ms (median of {reps}) against a byte floor of "
+          f"{floor / 1e9:.3f} GB / 3.35 TB/s = {floor_ms:.3f} ms "
+          f"({ms / floor_ms:.2f}x); device {device_ms:.3f} ms a step "
+          f"(idle share {None if idle is None else round(idle, 4)}), top "
+          f"device ops {top}; cache "
+          f"data_ptr unchanged; logits finite; card: {card}", flush=True)
+    del params, token, cache, cur_len, given, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def donation_phase(dev, seed):
+    """Phase 20 (c): the donated step against the copying one at B = 4,
+    S = 4096, two steps each (the second from the first's cache, where a
+    mamba window is f32): logits and cache bit for bit, and the donated
+    step's cache the given tensors wherever the dtype stays."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.training.tree import tree_paths
+
+    shape = ShapeConfig("donation", DONATION_S, DONATION_B, "decode")
+    for arch, n_layers in DONATION_MODELS.items():
+        cfg = get_config(arch)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        params, token, cache, cur_len = card_arguments(cfg, shape, dev, seed)
+        for i in range(2):
+            with torch.no_grad():
+                want, want_cache = decode_step(params, cfg, token,
+                                               clone_tree(cache), cur_len)
+                given = tree_paths(cache)
+                ptrs = {k: t.data_ptr() for k, t in given.items()}
+                got, got_cache = decode_step(params, cfg, token, cache,
+                                             cur_len, donate_cache=True)
+            check(torch.equal(bits(got), bits(want)),
+                  f"donation {arch} step {i}: logits differ from the "
+                  "copying step's")
+            gp, wp = tree_paths(got_cache), tree_paths(want_cache)
+            differ = tree_bits_differ(got_cache, want_cache)
+            check(gp.keys() == wp.keys() and not differ
+                  and all(gp[k].dtype == wp[k].dtype for k in gp),
+                  f"donation {arch} step {i}: cache differs at {differ}")
+            kept = [k for k in gp if gp[k] is given[k]]
+            new = sorted(set(gp) - set(kept))
+            check(all(gp[k].data_ptr() == ptrs[k] for k in kept)
+                  and all(given[k].dtype != gp[k].dtype for k in new),
+                  f"donation {arch} step {i}: leaves {new} copied")
+            print(f"donation (c) {arch} ({cfg.n_layers} layers, B = "
+                  f"{DONATION_B}, S = {DONATION_S}) step {i}: logits and "
+                  f"cache bit for bit the copying step's; {len(kept)} of "
+                  f"{len(gp)} cache leaves updated in place"
+                  + (f", new (dtype changed): {new}" if new else ""),
+                  flush=True)
+            cache = got_cache
+            cur_len = cur_len + 1
+        del params, token, cache, want_cache, got_cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def dryrun_phase(dev, seed, reps, card):
+    """Phase 20, with the launch counts set to 0 just before: (b) timed
+    with the host to itself, then (a) in worker processes while (c), which
+    times nothing, runs on the card.  The dry run and the donated step
+    launch no kernel of ours."""
+    import torch
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    timed(dryrun_card_phase, dev, seed, reps, card)
+    with sweep_pool() as pool:
+        t_sweep = time.perf_counter()
+        futures = start_sweep(pool)
+        timed(donation_phase, dev, seed)
+        timed(finish_sweep, futures, t_sweep)
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"dryrun phase launched {counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"dryrun phases: {time.perf_counter() - t0:.1f} s, no kernel of "
+          f"ours launched; card: {card}", flush=True)
+
+
 def timed(phase, *args):
     """``phase(*args)``, with a line saying how long it took."""
     import torch
@@ -5952,6 +6252,9 @@ def main(argv=None) -> int:
     # phase 19: the SpGEMM mesh on the Table-1 matrices
     mesh_phase(mats, expected, dev, args.reps, args.seed, card)
     del mats, expected
+
+    # phase 20: the launch dry run and the donated decode step
+    dryrun_phase(dev, args.seed, args.reps, card)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, build "
           "included", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -10,12 +10,13 @@ from repro_torch.models.config import (
 )
 from repro_torch.models.layers import dense, ffn, ffn_table
 from repro_torch.models.lm import (
-    backbone, decode_step, decode_step_loop, init_cache, init_model,
-    model_tables, prefill, train_loss,
+    abstract_model, backbone, decode_step, decode_step_loop, init_cache,
+    init_model, model_specs, model_tables, prefill, train_loss,
 )
 from repro_torch.models.moe import moe_aux_loss, moe_dispatch_spgemm, \
     moe_ffn, moe_table
-from repro_torch.models.params import Leaf, init_params, linear
+from repro_torch.models.params import Leaf, abstract_params, init_params, \
+    linear, partition_specs
 from repro_torch.models.sparse_ffn import SparseFFN, SparseMatmul, \
     densify_ffn_params, prune_blocks, sparsify_ffn_params
 from repro_torch.models.ssm import mamba1_forward, mamba2_forward, \
@@ -24,9 +25,10 @@ from repro_torch.models.ssm import mamba1_forward, mamba2_forward, \
 __all__ = [
     "ALL_SHAPES", "DECODE_32K", "LONG_500K", "PREFILL_32K", "TRAIN_4K",
     "ModelConfig", "MoEConfig", "SSMConfig", "ShapeConfig", "shapes_for",
-    "smoke", "backbone", "decode_step", "decode_step_loop", "init_cache",
-    "init_model", "model_tables", "prefill", "train_loss",
-    "Leaf", "SparseFFN", "SparseMatmul", "dense", "densify_ffn_params",
+    "smoke", "abstract_model", "abstract_params", "backbone",
+    "decode_step", "decode_step_loop", "init_cache", "init_model",
+    "model_specs", "model_tables", "partition_specs", "prefill",
+    "train_loss", "Leaf", "SparseFFN", "SparseMatmul", "dense", "densify_ffn_params",
     "ffn", "ffn_table", "init_params", "linear", "mamba1_forward",
     "mamba2_forward", "mamba_forward", "mamba_init_state", "mamba_table",
     "moe_aux_loss", "moe_dispatch_spgemm", "moe_ffn", "moe_table",

@@ -14,8 +14,7 @@ take as ``shared``), "attn_ffn_cross" (the VLM's gated cross-attention
 layer), "enc_attn_ffn" (the encoder's non-causal layer) and
 "dec_attn_cross_ffn" (the decoder's layer with cross-attention to the
 encoder's memory).  The reference's sharding hints
-(``distributed/hints.py``) are no-ops on one device and are left out until
-the mesh is ported.
+(``distributed/hints.py``) are no-ops on one device and are left out.
 """
 
 from __future__ import annotations
@@ -260,20 +259,33 @@ def sub_cache_shape(cfg, kind, batch, cache_len, dtype=torch.bfloat16,
     return out
 
 
+def _donated(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``new`` written into ``old``, which is returned; ``new`` itself
+    where its dtype or shape differs from ``old``'s (a bf16 conv window
+    comes back f32), as XLA leaves such a donated buffer unused."""
+    if new.dtype != old.dtype or new.shape != old.shape:
+        return new
+    return old.copy_(new)
+
+
 def _sub_decode(p, shared, cfg, kind, h, cache, cur_len, *, sffn=None,
-                sffn_host=False):
+                sffn_host=False, donate=False):
     if kind == "mamba":
         y, (conv, hs) = mamba_forward(
             p["mamba"], cfg, rms_norm(p["ln"], h, cfg.norm_eps),
             state=(cache["conv"], cache["h"]))
+        if donate:
+            conv = _donated(cache["conv"], conv)
+            hs = _donated(cache["h"], hs)
         return h + y, {"conv": conv, "h": hs}
     if kind == "shared_attn":
-        return _sub_decode(shared, None, cfg, "attn_ffn", h, cache, cur_len)
+        return _sub_decode(shared, None, cfg, "attn_ffn", h, cache, cur_len,
+                           donate=donate)
     if kind not in ("attn_ffn", "attn_moe") + CROSS_KINDS:
         raise ValueError(kind)
     a, ck, cv = attention_decode(
         p["attn"], cfg, rms_norm(p["ln1"], h, cfg.norm_eps),
-        cache["k"], cache["v"], cur_len)
+        cache["k"], cache["v"], cur_len, donate=donate)
     h = h + a
     cache = dict(cache, k=ck, v=cv)
     if kind in CROSS_KINDS:
@@ -295,7 +307,7 @@ def _sub_decode(p, shared, cfg, kind, h, cache, cur_len, *, sffn=None,
 
 
 def _decode_reps(stacked, shared, cfg, kinds, h, caches, cur_len, sparse_ffn,
-                 sffn_host):
+                 sffn_host, donate=False):
     sparse_ffn = sparse_ffn or {}
     old_reps, per_rep = [], []
     for r in range(_n_rep(stacked)):
@@ -305,18 +317,21 @@ def _decode_reps(stacked, shared, cfg, kinds, h, caches, cur_len, sparse_ffn,
             h, new_c[f"l{i}"] = _sub_decode(
                 p_rep.get(f"l{i}", {}), shared, cfg, kind, h,
                 c_rep[f"l{i}"], cur_len, sffn=sparse_ffn.get(f"l{i}"),
-                sffn_host=sffn_host)
+                sffn_host=sffn_host, donate=donate)
         old_reps.append(c_rep)
         per_rep.append(new_c)
     return h, _restack(caches, old_reps, per_rep)
 
 
 def stage_decode(stacked, shared, cfg, kinds, h, caches, cur_len, *,
-                 sparse_ffn=None):
+                 sparse_ffn=None, donate=False):
     """Decode over reps; caches stacked on the rep axis.  Overlay FFNs run
-    the plans' device stream."""
+    the plans' device stream.  With ``donate`` each rep's cache views take
+    their new values in place, so :func:`_restack` returns ``caches``'
+    own tensors (:func:`~repro_torch.models.lm.decode_step`'s
+    ``donate_cache``)."""
     return _decode_reps(stacked, shared, cfg, kinds, h, caches, cur_len,
-                        sparse_ffn, False)
+                        sparse_ffn, False, donate)
 
 
 def stage_decode_loop(stacked, shared, cfg, kinds, h, caches, cur_len, *,

@@ -213,15 +213,42 @@ def attention(p, cfg, x, *, kv_src=None, causal=True, use_rope=True):
     return dense(p["wo"], out.reshape(b, s, hq * dh).to(x.dtype))
 
 
-def attention_decode(p, cfg, x, cache_k, cache_v, cur_len):
+def _row_index(cur, s_max):
+    """Where :func:`_write_row` stores slot b's row: (slots, ``cur[b]``
+    clamped into [0, S), whether ``cur[b]`` lies in [0, S)).  Taken once
+    for a layer's K and V."""
+    rows = torch.arange(cur.shape[0], device=cur.device)
+    inside = ((cur >= 0) & (cur < s_max))[:, None, None]
+    return rows, cur.clamp(0, s_max - 1).long(), inside
+
+
+def _write_row(cache, new, at):
+    """``cache`` [B,S,Hkv,Dh] with row ``cur[b]`` of slot b set to
+    ``new[b]`` in place (``at``: :func:`_row_index`): an indexed store of
+    B rows.  A slot whose ``cur`` lies outside [0, S) writes back the row
+    it reads, so the cache keeps it as the masked write keeps it; nothing
+    waits for the host."""
+    rows, pos, inside = at
+    cache[rows, pos] = torch.where(inside, new.to(cache.dtype),
+                                   cache[rows, pos])
+    return cache
+
+
+def attention_decode(p, cfg, x, cache_k, cache_v, cur_len, *, donate=False):
     """One-token decode against a KV cache.
 
     x [B,1,D]; cache_k/v [B,S,Hkv,Dh]; cur_len: an int or a ``[B]`` tensor
     of per-slot counts of tokens already cached (continuous batching).  The
     new K/V is written at each slot's ``cur_len`` by ``torch.where`` on a
     slot mask, and the scores are masked past it: no index depends on the
-    data and nothing waits for the host.  Returns (out [B,1,D], new_k,
-    new_v).
+    data and nothing waits for the host.  With ``donate`` the new rows are
+    stored into ``cache_k``/``cache_v`` themselves (:func:`_write_row`), B
+    rows each, where the masked write makes a new full-size tensor; the
+    values are the same.  The copying step keeps the masked write: a
+    clone and the indexed store are more, smaller launches a layer, and
+    made a host-bound decode step at the engine's shape (qwen2-0.5b, 4
+    slots of 256) 16 % slower on an H100.
+    Returns (out [B,1,D], new_k, new_v).
     """
     b = x.shape[0]
     s_max = cache_k.shape[1]
@@ -238,9 +265,14 @@ def attention_decode(p, cfg, x, cache_k, cache_v, cur_len):
     k = rope(k, pos, cfg.rope_theta)
     # per-slot write of the new KV at position cur_len[b]
     steps = torch.arange(s_max, device=x.device)[None, :]
-    slot = (steps == cur[:, None])[..., None, None]
-    cache_k = torch.where(slot, k.to(cache_k.dtype), cache_k)
-    cache_v = torch.where(slot, v.to(cache_v.dtype), cache_v)
+    if donate:
+        at = _row_index(cur, s_max)
+        cache_k = _write_row(cache_k, k[:, 0], at)
+        cache_v = _write_row(cache_v, v[:, 0], at)
+    else:
+        slot = (steps == cur[:, None])[..., None, None]
+        cache_k = torch.where(slot, k.to(cache_k.dtype), cache_k)
+        cache_v = torch.where(slot, v.to(cache_v.dtype), cache_v)
     s = _einsum("bqhgd,bkhd->bhgqk", q * dh ** -0.5,
                 cache_k.to(q.dtype))
     mask = (steps <= cur[:, None])[:, None, None, None, :]

@@ -4,9 +4,12 @@ The port of the JAX package's ``repro/models/lm.py``, every family.  Public
 surface:
   model_tables(cfg)                          -> declarative param table
   init_model(cfg, generator, device=None)    -> param tree on the card
+  abstract_model(cfg, dtype) / model_specs(cfg, rules)
+                                             -> meta tensors / PartitionSpecs
   train_loss(params, cfg, batch)             batch: tokens, labels (+aux)
   prefill(params, cfg, tokens, aux=None)     -> final hidden
-  decode_step(params, cfg, token, cache, cur_len) -> (logits, cache)
+  decode_step(params, cfg, token, cache, cur_len, donate_cache=False)
+                                             -> (logits, cache)
   init_cache(cfg, batch, cache_len)
 
 ``sparse_ffn=`` is the spgemm-path FFN overlay of
@@ -33,7 +36,8 @@ from repro_torch.models.blocks import stage_cache, stage_decode, \
     stage_decode_loop, stage_forward, superblock_table, _sub_table
 from repro_torch.models.layers import embed, embed_table, lm_logits, \
     lm_loss, rms_norm, unembed_table
-from repro_torch.models.params import init_params, stack_tables
+from repro_torch.models.params import abstract_params, init_params, \
+    partition_specs, stack_tables
 
 AUX_COEF = 0.01
 
@@ -59,6 +63,18 @@ def init_model(cfg, generator: torch.Generator, device=None):
     """The model's f32 params on ``device`` (default the card), drawn from
     ``generator`` (which lies on that device)."""
     return init_params(model_tables(cfg), generator, device)
+
+
+def abstract_model(cfg, dtype=torch.bfloat16):
+    """The model's params on ``device="meta"`` in ``dtype``: shapes without
+    storage (the launch dry run's arguments)."""
+    return abstract_params(model_tables(cfg), dtype)
+
+
+def model_specs(cfg, rules):
+    """Each param's ``PartitionSpec`` under ``rules``
+    (``repro_torch.distributed.sharding.sharding_rules``)."""
+    return partition_specs(model_tables(cfg), rules)
 
 
 def _memory_from_aux(params, cfg, aux):
@@ -115,19 +131,29 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
     return stage_cache(cfg, kinds, n_rep, batch, cache_len, dtype, device)
 
 
-def decode_step(params, cfg, token, cache, cur_len, *, sparse_ffn=None):
+def decode_step(params, cfg, token, cache, cur_len, *, sparse_ffn=None,
+                donate_cache=False):
     """token [B,1] int -> (logits [B,1,Vpad], new_cache).
 
     ``cur_len``: an int, or a ``[B]`` tensor of per-slot counts of tokens
     already in the cache.  With ``sparse_ffn``, each overlaid sub-layer's
     FFN runs its plans' product stream on the device; on operands already
     there, a step whose plans are built makes no host sync.
+
+    ``donate_cache=True`` is the reference's ``donate_argnums`` on the
+    cache: the step writes each layer's new K/V row and its new SSM state
+    into the tensors of ``cache`` and returns them, so the returned cache
+    is ``cache`` (its tensors, not copies) and the step holds no second
+    copy of it.  A leaf whose new value has another dtype (a bf16 conv
+    window comes back f32) cannot take it in place and comes back new, as
+    XLA leaves a donated buffer of another dtype unused.  Logits and cache
+    contents equal the copying step's bit for bit.
     """
     h = embed(params["embed"], token)
     _, kinds, _, _ = superblock_table(cfg)
     h, new_cache = stage_decode(params["blocks"], params.get("shared"), cfg,
                                 kinds, h, cache, cur_len,
-                                sparse_ffn=sparse_ffn)
+                                sparse_ffn=sparse_ffn, donate=donate_cache)
     h = rms_norm(params["final_norm"], h, cfg.norm_eps)
     return lm_logits(params["unembed"], cfg, h), new_cache
 

@@ -1,16 +1,24 @@
-"""Declarative parameters: one table drives init and shapes.
+"""Declarative parameters: one table drives init, shapes, and sharding.
 
 A *table* is a nested dict whose leaves are ``Leaf(shape, axes, init)``:
   shape : tuple of ints
   axes  : tuple of logical axis names (len == len(shape)); None = replicated
   init  : "normal:<std>" | "zeros" | "ones" | "fan_in" | "ssm_a" | "dt_bias"
 
-The port of the JAX package's ``repro/models/params.py`` as far as the
-dense model stack needs it: :func:`init_params` draws every leaf from one
-explicit ``torch.Generator``; :func:`stack_tables` prepends the reps' axis
-that ``models.blocks`` loops over.  ``abstract_params`` and
-``partition_specs`` wait for the mesh and the dry run, the only callers of
-a table's shapes and shardings without its values.
+The port of the JAX package's ``repro/models/params.py``.  From one table
+  * :func:`init_params` draws every leaf from one explicit
+    ``torch.Generator``;
+  * :func:`abstract_params` gives its tensors on ``device="meta"`` (a shape
+    and a dtype, no storage: the counterpart of ``jax.ShapeDtypeStruct``);
+  * :func:`partition_specs` gives each leaf's
+    :class:`~repro_torch.distributed.sharding.PartitionSpec`.
+:func:`stack_tables` prepends the reps' axis that ``models.blocks`` loops
+over.
+
+``rules`` maps logical axis -> mesh axis (or tuple).  Divisibility is
+checked per leaf: if a dim doesn't divide over the assigned mesh axes, the
+rule falls back to a prefix of the mesh-axis tuple, then to replication,
+so one rule set serves every architecture.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import PartitionSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +42,18 @@ class Leaf:
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
                              "in length")
+
+
+def _is_leaf(x):
+    return isinstance(x, Leaf)
+
+
+def _map_table(table, fn):
+    """``fn`` on every leaf of ``table``, keys in sorted order (the order
+    ``jax.tree_util`` flattens a dict)."""
+    if _is_leaf(table):
+        return fn(table)
+    return {k: _map_table(table[k], fn) for k in sorted(table)}
 
 
 def _init_leaf(leaf: Leaf, generator, device):
@@ -76,13 +97,43 @@ def init_params(table, generator: torch.Generator, device=None):
     seed: tests carry weights across as numpy arrays instead.
     """
     dev = resolve_device(device)
+    return _map_table(table, lambda l: _init_leaf(l, generator, dev))
 
-    def walk(node):
-        if isinstance(node, Leaf):
-            return _init_leaf(node, generator, dev)
-        return {k: walk(node[k]) for k in sorted(node)}
 
-    return walk(table)
+def abstract_params(table, dtype=torch.float32):
+    """The table's tensors on ``device="meta"``: shapes and ``dtype``, no
+    storage."""
+    return _map_table(
+        table, lambda l: torch.empty(l.shape, dtype=dtype, device="meta"))
+
+
+def _spec_for(leaf: Leaf, rules: dict) -> PartitionSpec:
+    parts = []
+    used: set = set()  # a mesh axis may shard at most one dim per tensor
+    for dim, ax in zip(leaf.shape, leaf.axes):
+        assigned = rules.get(ax)
+        if assigned is None:
+            parts.append(None)
+            continue
+        if isinstance(assigned, str):
+            assigned = (assigned,)
+        assigned = tuple(a for a in assigned if a not in used)
+        # longest prefix of the mesh-axis tuple that divides the dim
+        chosen = None
+        for k in range(len(assigned), 0, -1):
+            prod = math.prod(rules["__sizes__"][a] for a in assigned[:k])
+            if dim % prod == 0:
+                chosen = assigned[:k]
+                break
+        if chosen:
+            used.update(chosen)
+        parts.append(chosen if chosen is None or len(chosen) > 1
+                     else chosen[0])
+    return PartitionSpec(*parts)
+
+
+def partition_specs(table, rules: dict):
+    return _map_table(table, lambda l: _spec_for(l, rules))
 
 
 def linear(d_in, d_out, ax_in, ax_out, *, bias=False, init="fan_in"):

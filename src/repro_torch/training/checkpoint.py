@@ -13,7 +13,7 @@ A bf16 leaf is stored as its two bytes an element, a ``V2`` void array
 with manifest dtype ``"bfloat16"``, as the reference's ``ml_dtypes``
 array is saved; the crc32 is over the same bytes.  Restore places each
 leaf on its template leaf's device and dtype; the reference's
-``shardings=`` (its elastic re-shard) comes with the mesh.
+``shardings=`` (its elastic re-shard across devices) is not ported yet.
 """
 
 from __future__ import annotations

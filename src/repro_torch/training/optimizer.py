@@ -11,8 +11,9 @@ updated, the counterpart of the reference's donated buffers, so a step
 holds no second copy of either.  Its arithmetic is the reference's,
 operation for operation in f32 (``torch.round``, like ``jnp.round``,
 rounds half to even); the gradient norm adds the leaves in sorted-key
-order, the order of ``jax.tree_util``.  The reference's ``opt_state_specs``
-(a ``PartitionSpec`` tree) comes with the mesh.
+order, the order of ``jax.tree_util``.  :func:`opt_state_specs` gives
+the state's ``PartitionSpec`` tree, leaf for leaf the layout of
+:func:`adamw_init`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed.sharding import PartitionSpec
 from repro_torch.training.tree import tree_leaves, tree_map
 
 
@@ -108,3 +110,19 @@ def adamw_update(grads, opt_state, params, cfg: AdamWConfig, lr):
 
     tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
     return params, opt_state
+
+
+def opt_state_specs(param_specs, cfg: AdamWConfig, params_abstract):
+    """PartitionSpec tree for the optimizer state (mirrors params): an
+    8-bit moment is ``{"q": spec, "scale": spec}`` with the scale's last
+    entry None (its last dim is 1), an f32 moment the param's spec."""
+
+    def moment_spec(spec, p):
+        if cfg.quantize_moments and _quantizable(p):
+            scale = (PartitionSpec(*(list(spec)[:-1] + [None])) if len(spec)
+                     else spec)
+            return {"q": spec, "scale": scale}
+        return spec
+
+    m = tree_map(moment_spec, param_specs, params_abstract)
+    return {"step": PartitionSpec(), "m": m, "v": m}

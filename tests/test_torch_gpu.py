@@ -2019,3 +2019,99 @@ def test_mesh_with_no_device_needs_a_card_a_shard(cuda):
     cards = torch.cuda.device_count()
     with pytest.raises(ValueError, match="device="):
         spgemm(a, a, "expand", backend="mesh", shards=cards + 1)
+
+
+# -- the launch dry run and the donated decode step ------------------------
+
+
+def _dryrun_args(cfg, b, s, dev, seed=0):
+    """A decode cell's arguments on ``dev``: f32 params and a bf16 cache
+    drawn from ``seed``, tokens and per-slot ``cur_len`` below ``s``."""
+    from repro_torch.models import init_cache, init_model
+    from repro_torch.training.tree import tree_leaves
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = init_model(cfg, g, dev)
+    cache = init_cache(cfg, b, s, device=dev)
+    for leaf in tree_leaves(cache):
+        leaf.normal_(generator=g)
+    token = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=dev,
+                          dtype=torch.int32)
+    cur = torch.randint(0, s, (b,), generator=g, device=dev,
+                        dtype=torch.int32)
+    return params, token, cache, cur
+
+
+def test_dryrun_decode_cell_on_card_matches_its_record(cuda):
+    """Phase 20 (b) of ``chip_smoke.py`` at a small batch: qwen2-0.5b at
+    full width and depth, B = 8, S = 2048, on the host mesh.  The record's
+    argument bytes against the card's allocation (1 %), the flop count of
+    the donated step on the card equal to the meta trace's, the cache
+    updated in place, the logits finite and bit-stable."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import Cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decode_step
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.training.tree import tree_paths
+
+    cfg = get_config("qwen2-0.5b")
+    shape = ShapeConfig("decode_32k", 2048, 8, "decode")
+    cell = Cell(cfg, shape, make_host_mesh("meta"))
+    out, secs, meta_flops = cell.trace()
+    want = cell.record(out, secs, meta_flops)["memory"][
+        "argument_size_in_bytes"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params, token, cache, cur = _dryrun_args(cfg, 8, 2048, cuda)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base
+    assert abs(allocated - want) <= 0.01 * want
+    given = tree_paths(cache)
+    ptrs = {k: t.data_ptr() for k, t in given.items()}
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        logits, new = decode_step(params, cfg, token, cache, cur,
+                                  donate_cache=True)
+    assert counter.get_total_flops() == meta_flops
+    got = tree_paths(new)
+    assert all(got[k] is given[k] and got[k].data_ptr() == ptrs[k]
+               for k in given)
+    assert torch.isfinite(logits[..., :cfg.vocab]).all()
+    with torch.no_grad():
+        again, _ = decode_step(params, cfg, token, cache, cur,
+                               donate_cache=True)
+    assert torch.equal(again.view(torch.int32), logits.view(torch.int32))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b",
+                                  "zamba2-2.7b", "qwen3-moe-30b-a3b",
+                                  "llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2"])
+def test_donated_decode_on_card_equals_the_copying_step(arch, cuda):
+    """Smoke size on the card, two steps: the donated step's logits and
+    cache equal the copying step's bit for bit, and every cache leaf is
+    the given tensor (its storage unchanged) but a mamba window whose
+    dtype the first step changes."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import decode_step, smoke
+    from repro_torch.training.tree import tree_map, tree_paths
+
+    cfg = smoke(ARCHS[arch])
+    params, token, cache, cur = _dryrun_args(cfg, 3, 64, cuda, seed=1)
+    for _ in range(2):
+        with torch.no_grad():
+            want, want_cache = decode_step(
+                params, cfg, token, tree_map(torch.clone, cache), cur)
+            given = tree_paths(cache)
+            ptrs = {k: t.data_ptr() for k, t in given.items()}
+            got, got_cache = decode_step(params, cfg, token, cache, cur,
+                                         donate_cache=True)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        gp, wp = tree_paths(got_cache), tree_paths(want_cache)
+        assert gp.keys() == wp.keys()
+        for k in gp:
+            assert gp[k].dtype == wp[k].dtype and torch.equal(gp[k], wp[k])
+            if gp[k].dtype == given[k].dtype:
+                assert gp[k] is given[k] and gp[k].data_ptr() == ptrs[k]
+        cache, cur = got_cache, cur + 1

@@ -60,6 +60,26 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.models.accounting", "repro_torch.distributed.sharding",
+    "repro_torch.launch.mesh", "repro_torch.launch.specs",
+    "repro_torch.launch.dryrun"])
+def test_the_launch_modules_load_no_jax(module):
+    """The dry run and the modules it calls import neither JAX nor the JAX
+    package (the reference's dry run sets ``XLA_FLAGS`` at import; the
+    port's sets nothing), and the production mesh holds no device."""
+    code = (f"import os, sys, {module}\n"
+            "from repro_torch.launch.mesh import make_production_mesh\n"
+            "assert make_production_mesh(multi_pod=True).devices is None\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(bad, 'XLA_FLAGS' in os.environ)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert out.stdout.strip() == "[] False"
+
 def test_spgemm_without_device_needs_a_card():
     """device=None means the card: with none present it raises instead of
     carrying on on the CPU."""
