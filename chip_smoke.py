@@ -342,7 +342,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    long_500k) of the ten configs at their published widths and depths,
    ``llama4-maverick-400b-a17b`` included, and for qwen2-0.5b's
    train_4k: one trace under ``FlopCounterMode`` a cell, its records on
-   the 16x16 and 2x16x16 meshes.  A line a record: trace seconds, param_mode, argument,
+   the 16x16 and 2x16x16 meshes; the same pool traces phase 21 (b).  A line a record: trace seconds, param_mode, argument,
    output and alias GB a device, flops against model_flops.  A cell that
    fails to trace fails the phase, and so does a decode_32k cell whose
    arguments reach 80 GB a device on 16x16.  The CLI traces the other
@@ -363,6 +363,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    place but a mamba window whose dtype the first step changes.  (b) runs
    first, with the host to itself; (a)'s workers start after it and trace
    while (c) runs.
+
+21. The multi-device pieces on the one card (``repro_torch.distributed``,
+   ``launch.dryrun --pipeline``, ``training.checkpoint``), with the counts
+   set to 0 just before: no kernel of ours launches.  (a) qwen2-0.5b at
+   full width and depth (f32 weights from ``--seed``) through
+   ``pipelined_apply`` in 2 stages of 12 reps on a ``pod`` mesh over the
+   card, 4 microbatches of [2, 1024] embedded tokens: bit for bit the
+   unpipelined ``stage_forward`` over the whole stack, no sharding hint
+   recorded inside a stage under the 2x16x16 mesh (the unpipelined stack
+   records 7 a rep); both forwards' medians, device time and idle share.
+   (b) ``run_pipeline_check``, the dry run's ``--pipeline`` record,
+   traced on meta in phase 20's worker pool beside its sweep.  (c)
+   ``quantize_tree``, ``dequantize_tree`` and ``ef_compress`` over the
+   whole parameter tree as gradients, each timed beside its byte bound at
+   3.35 TB/s with the device kernels a call makes; ``psum_compressed`` on 2
+   shards of the card bit for bit the hand-computed mean and bit-stable.
+   (d) The params saved once and restored plainly and with ``shardings=``
+   on the host mesh: bit for bit, every leaf on the card; the seconds of
+   each.
 
 The last two lines are the kernels' JSON and the card line; the very last is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -5993,7 +6012,8 @@ def dryrun_phase(dev, seed, reps, card):
     """Phase 20, with the launch counts set to 0 just before: (b) timed
     with the host to itself, then (a) in worker processes while (c), which
     times nothing, runs on the card.  The dry run and the donated step
-    launch no kernel of ours."""
+    launch no kernel of ours.  The sweep's pool also traces phase 21 (b),
+    the dry run's pipeline record: returns its (done) future."""
     import torch
     from repro_torch import kernels
 
@@ -6002,6 +6022,7 @@ def dryrun_phase(dev, seed, reps, card):
     timed(dryrun_card_phase, dev, seed, reps, card)
     with sweep_pool() as pool:
         t_sweep = time.perf_counter()
+        record = pool.submit(pipeline_record)
         futures = start_sweep(pool)
         timed(donation_phase, dev, seed)
         timed(finish_sweep, futures, t_sweep)
@@ -6011,6 +6032,295 @@ def dryrun_phase(dev, seed, reps, card):
     torch.cuda.empty_cache()
     print(f"dryrun phases: {time.perf_counter() - t0:.1f} s, no kernel of "
           f"ours launched; card: {card}", flush=True)
+    return record
+
+
+# phase 21: the multi-device pieces on the one card (``repro_torch.
+# distributed``: the GPipe pipeline, the gradient compression; the dry
+# run's pipeline record; ``restore_checkpoint(shardings=)``)
+PIPE_ARCH = "qwen2-0.5b"   # full width and depth: 24 layers
+PIPE_STAGES, PIPE_MICRO, PIPE_BM, PIPE_SEQ = 2, 4, 2, 1024
+PIPE_REPS = 5              # medians of the pipelined and unpipelined forwards
+COMP_REPS = 5              # queued calls a compression timing
+
+
+def pipeline_record():
+    """Phase 21 (b), a worker process's task (meta tensors only, never the
+    card): the dry run's pipeline record (its flops equal the unpipelined
+    stack's: ``tests/test_torch_dryrun_pipeline.py``)."""
+    import contextlib
+    import io
+
+    import repro_torch.launch.dryrun as dr
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return dr.run_pipeline_check()
+
+
+def finish_pipeline_record(future):
+    """Phase 21 (b): the record, traced in phase 20's sweep pool."""
+    rec = future.result()
+    mem = rec["memory"]
+    print(f"pipeline (b) dry run --pipeline ({rec['arch']}, "
+          f"{rec['shape']}, mesh {rec['mesh']}): trace "
+          f"{rec['trace_seconds']:.3f} s on meta in phase 20's sweep pool, "
+          f"flops {rec['cost']['flops']}; arguments "
+          f"{mem['argument_size_in_bytes']} B a device, output "
+          f"{mem['output_size_in_bytes']} B", flush=True)
+    return rec
+
+
+def pipeline_phase(dev, seed, reps, card):
+    """Phase 21 (a): qwen2-0.5b at full width and depth in ``PIPE_STAGES``
+    stages on the card (a ``pod`` mesh over the one device),
+    ``PIPE_MICRO`` microbatches of [``PIPE_BM``, ``PIPE_SEQ``] embedded
+    tokens: the pipelined forward equal to the unpipelined stack bit for
+    bit, no hint recorded inside a stage, both timed.  Returns the
+    params for (c) and (d)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import pipelined_apply, \
+        stage_params_of
+    from repro_torch.launch.dryrun import pipeline_stage_fn
+    from repro_torch.launch.mesh import Mesh, make_production_mesh
+    from repro_torch.models import init_model
+    from repro_torch.models.layers import embed
+
+    t0 = time.perf_counter()
+    cfg = get_config(PIPE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_model(cfg, gen, dev)
+    tokens = torch.randint(0, cfg.vocab, (PIPE_MICRO, PIPE_BM, PIPE_SEQ),
+                           generator=gen, device=dev)
+    with torch.no_grad():
+        x_micro = embed(params["embed"], tokens)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fn = pipeline_stage_fn(cfg)
+    mesh = Mesh(("pod",), (PIPE_STAGES,), (dev,))
+    staged = stage_params_of(params["blocks"], PIPE_STAGES)
+
+    @torch.no_grad()
+    def piped():
+        return pipelined_apply(mesh, fn, staged, x_micro)
+
+    @torch.no_grad()
+    def flat():
+        return torch.stack([fn(params["blocks"], x_micro[i])
+                            for i in range(PIPE_MICRO)])
+
+    # under the 2x16x16 mesh, where every hint outside a stage records
+    with make_production_mesh(multi_pod=True) as ctx:
+        got = piped()
+    check(ctx.hints == [], f"pipeline (a): {len(ctx.hints)} hints recorded "
+          "inside the stages")
+    with make_production_mesh(multi_pod=True) as ctx:
+        want = flat()
+    check(len(ctx.hints) == PIPE_MICRO * cfg.n_layers * 7,
+          f"pipeline (a): {len(ctx.hints)} hints recorded by the "
+          "unpipelined stack")
+    check(got.shape == x_micro.shape and got.device == x_micro.device
+          and bool(torch.isfinite(got).all()),
+          "pipeline (a): output of the wrong shape or device, or not finite")
+    check(torch.equal(bits(got), bits(want)),
+          "pipeline (a): the pipelined forward differs from the "
+          "unpipelined stack")
+    del got, want
+    t2 = time.perf_counter()
+    piped_ms, flat_ms = median_ms(piped, reps), median_ms(flat, reps)
+    prof = {name: device_profile(f, n=1) for name, f in
+            (("pipelined", piped), ("unpipelined", flat))}
+    dev_ms = {k: sum(v.values()) for k, v in prof.items()}
+    print(f"pipeline (a) {PIPE_ARCH} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}) in {PIPE_STAGES} stages of "
+          f"{cfg.n_layers // PIPE_STAGES} reps on one card, {PIPE_MICRO} "
+          f"microbatches of [{PIPE_BM}, {PIPE_SEQ}]: bit for bit the "
+          f"unpipelined stack; 0 hints inside the stages "
+          f"({PIPE_MICRO * cfg.n_layers * 7} outside, unpipelined); "
+          f"pipelined {piped_ms:.3f} ms, unpipelined {flat_ms:.3f} ms "
+          f"(medians of {reps}); device {dev_ms['pipelined']:.3f} / "
+          f"{dev_ms['unpipelined']:.3f} ms, idle share "
+          f"{idle_share(dev_ms['pipelined'], piped_ms)} / "
+          f"{idle_share(dev_ms['unpipelined'], flat_ms)}; init "
+          f"{t1 - t0:.2f} s, the checked runs {t2 - t1:.2f} s, the timing "
+          f"{time.perf_counter() - t2:.2f} s; card: {card}", flush=True)
+    del x_micro, staged
+    return cfg, params
+
+
+def device_kernels(fn) -> int:
+    """Device kernels and copies of one call of ``fn`` (torch.profiler),
+    after one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU)
+
+
+def hand_mean(xs):
+    """The f32 mean of int8-quantized shards by hand: per row absmax / 127
+    (at least 1e-20), codes rounded half to even and clipped to +-127,
+    dequantized, added in shard order; 1-D leaves as they are."""
+    import torch
+
+    parts = []
+    for x in xs:
+        if x.ndim >= 2:
+            scale = torch.clamp(x.abs().amax(-1, keepdim=True) / 127.0,
+                                min=1e-20)
+            x = torch.clamp(torch.round(x / scale), -127, 127).to(
+                torch.int8).float() * scale
+        parts.append(x)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total / len(xs)
+
+
+def compression_phase(cfg, params, dev, seed, card):
+    """Phase 21 (c): ``quantize_tree``, ``dequantize_tree`` and
+    ``ef_compress`` over qwen2-0.5b's whole parameter tree as a gradient
+    tree, each timed (CUDA events, queued) beside its byte bound at
+    3.35 TB/s, with the device kernels a call makes; ``psum_compressed`` on
+    2 shards of the card equal to the hand-computed mean bit for bit and
+    bit-stable."""
+    import torch
+    from repro_torch.distributed import dequantize_tree, ef_compress, \
+        psum_compressed, quantize_tree
+    from repro_torch.training.tree import tree_leaves as leaves, tree_map, \
+        tree_paths
+
+    grads = params
+    every = list(leaves(grads))
+    mats = [t for t in every if t.ndim >= 2]
+    n_all = sum(t.numel() for t in every)
+    n_mat = sum(t.numel() for t in mats)
+    n_vec = n_all - n_mat
+    rows = sum(t.numel() // t.shape[-1] for t in mats)
+    codes = n_mat + 4 * rows              # int8 codes and f32 scales
+    q = quantize_tree(grads)
+    for k, leaf in tree_paths(grads).items():
+        if leaf.ndim >= 2:
+            node = q
+            for part in k.split("/"):
+                node = node[part]
+            check(node["q"].dtype == torch.int8
+                  and node["q"].shape == leaf.shape
+                  and node["scale"].shape == leaf.shape[:-1] + (1,),
+                  f"compression (c): {k} quantized to the wrong form")
+    residual = tree_map(torch.zeros_like, grads)
+    work = {
+        "quantize_tree": (lambda: quantize_tree(grads), 4 * n_mat + codes),
+        "dequantize_tree": (lambda: dequantize_tree(q), codes + 4 * n_mat),
+        # reads grads and residual, writes the codes, the 1-D leaves'
+        # corrected values and the new residual
+        "ef_compress": (lambda: ef_compress(grads, residual),
+                        8 * n_all + codes + 4 * n_vec + 4 * n_all),
+    }
+    out = {}
+    for name, (fn, nbytes) in work.items():
+        ms = event_ms(fn, COMP_REPS)
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[name] = dict(ms=round(ms, 4), bound_ms=round(bound, 4),
+                         bytes=nbytes, x_bound=round(ms / bound, 2),
+                         device_kernels=device_kernels(fn))
+    del q, residual
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    other = tree_map(lambda t: torch.randn(t.shape, generator=gen,
+                                           device=dev) * 0.02, grads)
+    shards = [grads, other]
+    got = psum_compressed(shards, [dev, dev])
+    again = psum_compressed(shards, [dev, dev])
+    for k, x0 in tree_paths(grads).items():
+        want = hand_mean([x0, tree_paths(other)[k]])
+        for tree in got + again:
+            leaf = tree_paths(tree)[k]
+            check(leaf.device == x0.device
+                  and torch.equal(bits(leaf), bits(want)),
+                  f"compression (c): psum_compressed's {k} differs from "
+                  "the hand-computed mean or from run to run")
+    del got, again
+    psum_ms = event_ms(lambda: psum_compressed(shards, [dev, dev]),
+                       COMP_REPS)
+    print(f"compression (c) {PIPE_ARCH}'s parameter tree as gradients "
+          f"({len(every)} leaves, {len(mats)} of rank >= 2, {n_all} values, "
+          f"{4 * n_all} B f32): {json.dumps(out)}; psum_compressed on 2 "
+          f"shards of the card: bit for bit the hand-computed mean, "
+          f"bit-stable, {psum_ms:.3f} ms; card: {card}", flush=True)
+    del other, shards
+
+
+def restore_phase(cfg, params, dev, card):
+    """Phase 21 (d): qwen2-0.5b's params saved once, restored plainly and
+    with ``shardings=`` from ``param_sharding(model_specs(...),
+    make_host_mesh())``: bit for bit, every leaf on the card."""
+    import torch
+    from repro_torch.distributed.sharding import param_sharding, \
+        sharding_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_specs
+    from repro_torch.training import restore_checkpoint, save_checkpoint
+    from repro_torch.training.tree import tree_paths
+
+    directory = tempfile.mkdtemp(prefix="chip-smoke-restore-")
+    atexit.register(shutil.rmtree, directory, True)
+    t0 = time.perf_counter()
+    path = save_checkpoint(directory, 1, params)
+    t1 = time.perf_counter()
+    plain, _, _ = restore_checkpoint(path, params)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    mesh = make_host_mesh(dev)
+    shardings = param_sharding(model_specs(cfg, sharding_rules(mesh)), mesh)
+    got, step, _ = restore_checkpoint(path, params, shardings=shardings)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    pg, pp = tree_paths(got), tree_paths(plain)
+    check(step == 1 and pg.keys() == pp.keys()
+          and all(t.device.type == torch.device(dev).type
+                  for t in pg.values())
+          and all(torch.equal(bits(pg[k]), bits(pp[k])) for k in pp)
+          and all(torch.equal(bits(pg[k]), bits(v))
+                  for k, v in tree_paths(params).items()),
+          "restore (d): the restore with shardings= differs from the plain "
+          "one or from the saved params, or a leaf is off the card")
+    print(f"restore (d) {PIPE_ARCH} params ({tree_bytes(params)} B): save "
+          f"{t1 - t0:.2f} s, plain restore {t2 - t1:.2f} s, restore with "
+          f"shardings= on the host mesh {t3 - t2:.2f} s; bit for bit, "
+          f"{len(pg)} leaves on the card; card: {card}", flush=True)
+    shutil.rmtree(directory, ignore_errors=True)
+
+
+def multi_device_phase(dev, seed, reps, card, record):
+    """Phase 21, with the launch counts set to 0 just before: (a), (c)
+    and (d) on the card, and (b), ``record``, the future of the pipeline
+    record that phase 20's pool traced.  None of them launches a kernel of
+    ours."""
+    import torch
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    cfg, params = timed(pipeline_phase, dev, seed, reps, card)
+    timed(compression_phase, cfg, params, dev, seed, card)
+    timed(restore_phase, cfg, params, dev, card)
+    timed(finish_pipeline_record, record)
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"pipeline phase launched {counts}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"multi-device phases: {time.perf_counter() - t0:.1f} s, no "
+          f"kernel of ours launched; card: {card}", flush=True)
 
 
 def timed(phase, *args):
@@ -6254,7 +6564,10 @@ def main(argv=None) -> int:
     del mats, expected
 
     # phase 20: the launch dry run and the donated decode step
-    dryrun_phase(dev, args.seed, args.reps, card)
+    record = dryrun_phase(dev, args.seed, args.reps, card)
+
+    # phase 21: the pipeline, the compression and the sharded restore
+    multi_device_phase(dev, args.seed, PIPE_REPS, card, record)
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, build "
           "included", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -17,10 +17,14 @@ does what it can know from one process:
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-34b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multipod/--singlepod]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --pipeline   # PP trace
 
-Artifacts: $REPRO_CACHE/dryrun_torch/<arch>__<shape>__<mesh>.json
-(``REPRO_CACHE`` defaults to ``.cache``).  Never ``.../dryrun/``: that is
-the reference's directory, which its own tests read.
+Artifacts: $REPRO_CACHE/dryrun_torch/<arch>__<shape>__<mesh>.json and
+``pipeline_pp2.json`` (``REPRO_CACHE`` defaults to ``.cache``).  Never
+``.../dryrun/``: that is the reference's directory, which its own tests
+read.  A cell is traced under ``with mesh:`` of its first mesh, so the
+sharding hints record what they would ask of the partitioner
+(``Cell.hints``); they change nothing in the trace.
 
 A record holds the reference's fields (``arch``, ``shape``, ``kind``,
 ``param_mode``, ``mesh``, ``n_devices``, ``seq_len``, ``global_batch``,
@@ -32,6 +36,13 @@ that are the very argument tensors), ``cost.flops`` and ``model_flops``
 (``models.accounting``).  What only a TPU compile gives is named in
 ``tpu_only``: a one-process trace has no temporaries, no generated code,
 no collectives and no HLO.
+
+``--pipeline`` (:func:`run_pipeline_check`) traces the reference's
+pipeline cell: qwen2-0.5b's blocks in 2 stages over ``pod`` of the
+2x16x16 mesh (``distributed.pipeline``), 4 microbatches of [8, 4096]
+tokens.  Its record keeps the reference's keys with the same
+substitutions; the staged params are split over ``pod``, the microbatches
+and the output replicated.
 """
 
 from __future__ import annotations
@@ -46,6 +57,8 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCHS, get_config
+from repro_torch.distributed.pipeline import pipelined_apply, \
+    stage_params_of
 from repro_torch.distributed.sharding import (
     NamedSharding, P, batch_spec, mesh_axis_sizes, param_sharding,
     sharding_rules)
@@ -53,12 +66,14 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import (
     decode_input_specs, prefill_input_specs, train_input_specs)
 from repro_torch.models.accounting import local_param_bytes, model_flops
+from repro_torch.models.blocks import stage_forward, superblock_table
 from repro_torch.models.config import ShapeConfig, shapes_for
 from repro_torch.models.lm import abstract_model, decode_step, model_specs, \
     prefill
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, \
     opt_state_specs
 from repro_torch.training.train_loop import TrainConfig, build_train_step
+from repro_torch.training.tree import tree_map
 
 #: the port's model computes in f32, so its params are f32: a bf16 weight
 #: meets an f32 activation in ``dense`` and fails
@@ -72,6 +87,10 @@ SERVE_PARAM_BYTES = 9 / 16 * DEVICE_BYTES
 TPU_ONLY = ("compile_seconds", "memory.temp_size_in_bytes",
             "memory.generated_code_size_in_bytes",
             "cost (every key but flops)", "collectives", "hlo_bytes")
+
+#: the reference's pipeline cell (``run_pipeline_check``)
+PIPELINE_ARCH = "qwen2-0.5b"
+PIPELINE_STAGES, PIPELINE_MICRO, PIPELINE_BM, PIPELINE_SEQ = 2, 4, 8, 4096
 
 
 def out_dir() -> str:
@@ -213,11 +232,13 @@ class Cell:
         return self
 
     def trace(self):
-        """Run the step once under ``FlopCounterMode``: (outputs, seconds,
-        flops)."""
+        """Run the step once under ``FlopCounterMode`` and ``with mesh:``
+        of the cell's mesh: (outputs, seconds, flops).  The hints made
+        are kept in ``self.hints``."""
         t0 = time.perf_counter()
-        with FlopCounterMode(display=False) as counter:
+        with self.mesh as ctx, FlopCounterMode(display=False) as counter:
             out = self.step(*self.args)
+        self.hints = ctx.hints
         return out, time.perf_counter() - t0, counter.get_total_flops()
 
     def record(self, out, seconds: float, flops: int) -> dict:
@@ -276,6 +297,56 @@ def run_cell(arch: str, shape: ShapeConfig, *, multi_pod: bool,
                      device=device)[0]
 
 
+def pipeline_stage_fn(cfg):
+    """The pipeline's ``stage_fn``: the cell's super-block over a stage's
+    reps, returning the residual stream."""
+    _, kinds, _, _ = superblock_table(cfg)
+
+    def stage_fn(p_stage, x):
+        h, _ = stage_forward(p_stage, None, cfg, kinds, x)
+        return h
+
+    return stage_fn
+
+
+def run_pipeline_check(multi_pod: bool = True) -> dict:
+    """The reference's PP-over-pod check on qwen2-0.5b, traced on meta:
+    ``PIPELINE_STAGES`` stages over ``pod``, ``PIPELINE_MICRO``
+    microbatches of [``PIPELINE_BM``, ``PIPELINE_SEQ``] activations."""
+    cfg = get_config(PIPELINE_ARCH)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    staged = stage_params_of(abstract_model(cfg, PARAM_DTYPE)["blocks"],
+                             PIPELINE_STAGES)
+    x_micro = torch.empty((PIPELINE_MICRO, PIPELINE_BM, PIPELINE_SEQ,
+                           cfg.d_model),
+                          dtype=PARAM_DTYPE, device="meta")
+    t0 = time.perf_counter()
+    with mesh, torch.no_grad(), \
+            FlopCounterMode(display=False) as counter:
+        out = pipelined_apply(mesh, pipeline_stage_fn(cfg), staged, x_micro,
+                              axis="pod")
+    seconds = time.perf_counter() - t0
+    spec_p = tree_map(lambda _: NamedSharding(mesh, P("pod")), staged)
+    rec = {"arch": PIPELINE_ARCH, "shape": "pipeline_pp2",
+           "kind": "pipeline",
+           "param_dtype": str(PARAM_DTYPE).replace("torch.", ""),
+           "mesh": "x".join(str(n) for n in mesh.shape),
+           "trace_seconds": round(seconds, 3),
+           "memory": {
+               "argument_size_in_bytes": local_bytes((staged, x_micro),
+                                                     (spec_p, None)),
+               "output_size_in_bytes": local_bytes(out, None),
+               "alias_size_in_bytes": 0},
+           "cost": {"flops": counter.get_total_flops()},
+           "tpu_only": [k for k in TPU_ONLY if k != "hlo_bytes"]}
+    mem = rec["memory"]
+    print(f"[dryrun] pipeline pp2 mesh={rec['mesh']} "
+          f"trace={rec['trace_seconds']}s flops={rec['cost']['flops']:.3g} "
+          f"args={mem['argument_size_in_bytes'] / 1e9:.2f}GB "
+          f"out={mem['output_size_in_bytes'] / 1e9:.2f}GB a device")
+    return rec
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", type=str, default="")
@@ -283,10 +354,19 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multipod", action="store_true")
     ap.add_argument("--singlepod", action="store_true")
+    ap.add_argument("--pipeline", action="store_true")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
     directory = out_dir()
     os.makedirs(directory, exist_ok=True)
+
+    if args.pipeline:
+        rec = run_pipeline_check()
+        path = os.path.join(directory, "pipeline_pp2.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(rec, f, indent=1)
+        os.replace(path + ".tmp", path)
+        return
 
     multi = []
     if args.singlepod or not args.multipod:

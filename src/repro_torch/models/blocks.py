@@ -13,8 +13,7 @@ tied block of the hybrid family's shared table, which the functions here
 take as ``shared``), "attn_ffn_cross" (the VLM's gated cross-attention
 layer), "enc_attn_ffn" (the encoder's non-causal layer) and
 "dec_attn_cross_ffn" (the decoder's layer with cross-attention to the
-encoder's memory).  The reference's sharding hints
-(``distributed/hints.py``) are no-ops on one device and are left out.
+encoder's memory).
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.hints import hint
 from repro_torch.models import params as pp
 from repro_torch.models.layers import attention, attention_decode, \
     attention_table, cross_attention_cached, ffn, ffn_table, remat, rms_norm
@@ -224,6 +224,7 @@ def stage_forward(stacked, shared, cfg, kinds, h, *, memory=None,
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for p_rep in _unstack(stacked, _n_rep(stacked)):
+        h = hint(h, "dp", None, None)  # the residual stream's batch sharding
         h, aux = remat(block, h, aux, p_rep, policy=cfg.remat)
     return h, aux
 

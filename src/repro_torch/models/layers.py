@@ -27,6 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint, \
     create_selective_checkpoint_contexts
 
+from repro_torch.distributed.hints import hint, hint_heads
 from repro_torch.models import params as pp
 
 NEG_INF = -1e30
@@ -199,18 +200,21 @@ def attention(p, cfg, x, *, kv_src=None, causal=True, use_rope=True):
     skv = kv_in.shape[1]
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     g = hq // hkv
-    q = dense(p["wq"], x).reshape(b, s, hkv, g, dh)
-    k = dense(p["wk"], kv_in).reshape(b, skv, hkv, dh)
-    v = dense(p["wv"], kv_in).reshape(b, skv, hkv, dh)
+    q = hint_heads(dense(p["wq"], x).reshape(b, s, hkv, g, dh))
+    k = hint_heads(dense(p["wk"], kv_in).reshape(b, skv, hkv, dh),
+                   head_dims=(2,))
+    v = hint_heads(dense(p["wv"], kv_in).reshape(b, skv, hkv, dh),
+                   head_dims=(2,))
     if use_rope:
         positions = torch.arange(s, device=x.device)[None, :]
         kv_positions = torch.arange(skv, device=x.device)[None, :]
-        q = rope(q.reshape(b, s, hkv * g, dh), positions,
-                 cfg.rope_theta).reshape(b, s, hkv, g, dh)
-        k = rope(k, kv_positions, cfg.rope_theta)
+        q = hint_heads(rope(q.reshape(b, s, hkv * g, dh), positions,
+                            cfg.rope_theta).reshape(b, s, hkv, g, dh))
+        k = hint_heads(rope(k, kv_positions, cfg.rope_theta), head_dims=(2,))
     out = _chunked_attn(q, k, v, causal=causal, q_offset=0,
                         q_chunk=cfg.attn_q_chunk, kv_chunk=cfg.attn_kv_chunk)
-    return dense(p["wo"], out.reshape(b, s, hq * dh).to(x.dtype))
+    out = hint(out.reshape(b, s, hq * dh).to(x.dtype), "dp", None, "model")
+    return dense(p["wo"], out)
 
 
 def _row_index(cur, s_max):

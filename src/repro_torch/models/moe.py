@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.hints import hint
 from repro_torch.models import params as pp
 from repro_torch.models.layers import _einsum, dense
 
@@ -181,16 +182,20 @@ def moe_ffn(p, cfg, x):
     g = _n_groups(t)
     tg = t // g
     cap = _capacity(tg, cfg)
+    xg = hint(xf.reshape(g, tg, d), "dp", None, None)
     eg = expert_idx.reshape(g, tg, k)
     x_disp, dst, keep, g_sorted, _, order = _dispatch(
-        xf.reshape(g, tg, d), eg, gate_vals.reshape(g, tg, k), e=e, cap=cap)
+        xg, eg, gate_vals.reshape(g, tg, k), e=e, cap=cap)
+    x_disp = hint(x_disp, "dp", "model", None, None)        # [G,E,cap,D]
 
     # the reference's plain products "gecd,edf->gecf", "gecf,efd->gecd"
     hid = _einsum("gecd,edf->gecf", x_disp, p["gate"].to(x.dtype))
     up = _einsum("gecd,edf->gecf", x_disp, p["up"].to(x.dtype))
     y_disp = _einsum("gecf,efd->gecd", F.silu(hid) * up,
                      p["down"].to(x.dtype))                  # [G,E,cap,D]
+    y_disp = hint(y_disp, "dp", "model", None, None)
     y = _combine(y_disp, dst, keep, g_sorted, order, eg)
+    y = hint(y.reshape(g, tg, d), "dp", None, None).reshape(t, d)
 
     if "shared" in p:
         sh = p["shared"]

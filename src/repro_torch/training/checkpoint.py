@@ -12,13 +12,19 @@ files; ``keep=`` drops the oldest.
 A bf16 leaf is stored as its two bytes an element, a ``V2`` void array
 with manifest dtype ``"bfloat16"``, as the reference's ``ml_dtypes``
 array is saved; the crc32 is over the same bytes.  Restore places each
-leaf on its template leaf's device and dtype; the reference's
-``shardings=`` (its elastic re-shard across devices) is not ported yet.
+leaf on its template leaf's device and dtype, or with ``shardings=`` (a
+tree of ``distributed.sharding.NamedSharding``) on the device its mesh
+holds: the reference's elastic re-shard, on the one device a process
+drives.  A sharding's spec must fit its leaf's rank and divide its
+dimensions, as ``jax.device_put`` demands; a mesh with no devices (the
+production mesh) or over several distinct devices is refused, since one
+process holds no global array across cards.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
@@ -28,6 +34,7 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import NamedSharding, mesh_axis_sizes
 from repro_torch.training.tree import tree_map, tree_paths
 
 
@@ -125,9 +132,56 @@ def latest_checkpoint(directory: str) -> str | None:
     return best[1] if best else None
 
 
-def restore_checkpoint(path: str, template, verify: bool = True):
+def _sharding_devices(template, shardings) -> dict:
+    """``{key: device}`` of each leaf under its sharding in ``shardings``
+    (the template's structure), after checking each spec against its
+    leaf's rank and dimensions and each mesh's devices."""
+    specs = tree_paths(shardings) if isinstance(shardings, dict) \
+        else {"": shardings}
+    leaves = tree_paths(template)
+    if specs.keys() != leaves.keys():
+        raise ValueError(
+            "shardings do not have the template's structure: "
+            f"{sorted(set(specs) ^ set(leaves))[:8]}")
+    out = {}
+    for key, like in leaves.items():
+        sh = specs[key]
+        if not isinstance(sh, NamedSharding):
+            raise ValueError(f"sharding of {key} is {sh!r}, not a "
+                             "NamedSharding")
+        mesh, spec = sh.mesh, tuple(sh.spec)
+        if len(spec) > like.ndim:
+            raise ValueError(f"sharding {spec} of {key} has {len(spec)} "
+                             f"entries for a leaf of rank {like.ndim}")
+        sizes = mesh_axis_sizes(mesh)
+        for dim, part in zip(like.shape, spec):
+            axes = () if part is None else \
+                part if isinstance(part, tuple) else (part,)
+            n = math.prod(sizes[a] for a in axes)
+            if dim % n:
+                raise ValueError(f"sharding {spec} of {key}: dimension "
+                                 f"{dim} does not divide over {axes} "
+                                 f"({n} positions)")
+        if mesh.devices is None:
+            raise ValueError(f"sharding of {key} is on {mesh!r}, which "
+                             "holds no devices (a mesh that is sized, "
+                             "never run)")
+        devices = set(mesh.devices)
+        if len(devices) != 1:
+            raise ValueError(f"sharding of {key} spans {len(devices)} "
+                             "devices; one process restores onto one")
+        out[key] = mesh.devices[0]
+    return out
+
+
+def restore_checkpoint(path: str, template, shardings=None,
+                       verify: bool = True):
     """Load into ``template``'s structure, each leaf on its template
-    leaf's device and dtype.  Returns (tree, step, extra)."""
+    leaf's device and dtype, or on its sharding's device when
+    ``shardings`` (the same structure) is given.  Returns (tree, step,
+    extra)."""
+    placed = None if shardings is None \
+        else _sharding_devices(template, shardings)
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     leaves = manifest["leaves"]
@@ -143,7 +197,8 @@ def restore_checkpoint(path: str, template, verify: bool = True):
             raise ValueError(
                 f"shape mismatch for {key}: ckpt {arr.shape} vs "
                 f"expected {tuple(like.shape)}")
-        return _from_numpy(arr, meta["dtype"]).to(device=like.device,
+        device = like.device if placed is None else placed[key]
+        return _from_numpy(arr, meta["dtype"]).to(device=device,
                                                   dtype=like.dtype)
 
     # tree_map visits the template's leaves in the order tree_paths lists

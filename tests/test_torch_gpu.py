@@ -28,8 +28,11 @@ with no host sync and no plan built, its gradient through K1 equal to the
 torch stream's; and the SpGEMM mesh with its shards on the card: the
 host stream bit for bit on integer values, the torch plan's gradients, no
 host wait an execute, and more shards than cards refused without
-``device=``.  Every test needs a card (marker ``gpu``) and skips without
-one.
+``device=``; and the multi-device pieces on the one card: the pipelined
+smoke-size stack bit for bit the unpipelined one, ``psum_compressed`` on
+2 shards bit-stable and the hand-computed mean, and
+``restore_checkpoint(shardings=)`` placing each leaf on the card.  Every
+test needs a card (marker ``gpu``) and skips without one.
 
 The module pins ``REPRO_PROFILE_DIR`` to a path nothing writes before any
 profile is consulted (as ``tests/conftest.py`` does for the CPU suite,
@@ -2115,3 +2118,74 @@ def test_donated_decode_on_card_equals_the_copying_step(arch, cuda):
             if gp[k].dtype == given[k].dtype:
                 assert gp[k] is given[k] and gp[k].data_ptr() == ptrs[k]
         cache, cur = got_cache, cur + 1
+
+
+def test_pipelined_stack_on_card_equals_unpipelined(cuda):
+    """Smoke-size qwen2-0.5b in 2 and 4 stages on a ``pod`` mesh over the
+    card: bit for bit the unpipelined stack, on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import pipelined_apply, \
+        stage_params_of
+    from repro_torch.launch.dryrun import pipeline_stage_fn
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import init_model, smoke
+
+    cfg = smoke(get_config("qwen2-0.5b"))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_model(cfg, gen, cuda)
+    x = torch.randn((3, 2, 32, cfg.d_model), generator=gen, device=cuda)
+    fn = pipeline_stage_fn(cfg)
+    with torch.no_grad():
+        want = torch.stack([fn(params["blocks"], x[i]) for i in range(3)])
+        for n_stages in (2, 4):
+            got = pipelined_apply(
+                Mesh(("pod",), (n_stages,), (cuda,)), fn,
+                stage_params_of(params["blocks"], n_stages), x)
+            assert got.is_cuda
+            assert torch.equal(got.view(torch.int32),
+                               want.view(torch.int32))
+
+
+def test_psum_compressed_on_card_is_bit_stable(cuda):
+    """2 shards of the card: the mean of the dequantized shards added in
+    shard order, bit for bit, twice."""
+    from repro_torch.distributed import dequantize_tree, psum_compressed, \
+        quantize_tree
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    shards = [{"w": torch.randn((64, 300), generator=gen, device=cuda),
+               "b": torch.randn((17,), generator=gen, device=cuda)}
+              for _ in range(2)]
+    got = psum_compressed(shards, [cuda, cuda])
+    again = psum_compressed(shards, [cuda, cuda])
+    deq = [dequantize_tree(quantize_tree(s)) for s in shards]
+    for k in ("w", "b"):
+        want = (deq[0][k] + deq[1][k]) / 2
+        for tree in got + again:
+            assert tree[k].is_cuda
+            assert torch.equal(tree[k].view(torch.int32),
+                               want.view(torch.int32))
+
+
+def test_restore_with_shardings_places_each_leaf_on_card(cuda, tmp_path):
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import param_sharding, \
+        sharding_rules
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_model, model_specs, smoke
+    from repro_torch.training import restore_checkpoint, save_checkpoint
+    from repro_torch.training.tree import tree_map, tree_paths
+
+    cfg = smoke(get_config("qwen2-0.5b"))
+    params = init_model(cfg, torch.Generator().manual_seed(2), "cpu")
+    path = save_checkpoint(str(tmp_path), 1, params)
+    mesh = make_host_mesh()
+    shardings = param_sharding(model_specs(cfg, sharding_rules(mesh)), mesh)
+    template = tree_map(lambda t: t.to("meta"), params)
+    got, step, _ = restore_checkpoint(path, template, shardings=shardings)
+    assert step == 1
+    want = tree_paths(params)
+    for k, leaf in tree_paths(got).items():
+        assert leaf.is_cuda, k
+        assert torch.equal(leaf.cpu().view(torch.int32),
+                           want[k].view(torch.int32)), k

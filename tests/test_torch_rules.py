@@ -63,7 +63,9 @@ def test_importing_the_port_loads_no_jax():
 @pytest.mark.parametrize("module", [
     "repro_torch.models.accounting", "repro_torch.distributed.sharding",
     "repro_torch.launch.mesh", "repro_torch.launch.specs",
-    "repro_torch.launch.dryrun"])
+    "repro_torch.launch.dryrun", "repro_torch.distributed.hints",
+    "repro_torch.distributed.pipeline",
+    "repro_torch.distributed.compression"])
 def test_the_launch_modules_load_no_jax(module):
     """The dry run and the modules it calls import neither JAX nor the JAX
     package (the reference's dry run sets ``XLA_FLAGS`` at import; the
