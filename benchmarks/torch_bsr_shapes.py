@@ -63,10 +63,9 @@ F32_FLOPS, MEM_BYTES = 67e12, 3.35e12   # the H100 SXM's published peaks
 ABLATIONS = {
     "fma": (("acc[r][v] = __fadd_rn(acc[r][v], __fmul_rn(wr[r], xv[v]));",
              "acc[r][v] = fmaf(wr[r], xv[v], acc[r][v]);"),),
-    "no_x": (("const float4 x4 =\n                *reinterpret_cast<const "
-              "float4*>(xs + kk * kCols + 4 * q);",
-              "const float4 x4 = q ? lo4 : hi4;"),
-             ("xv[0] = xs[kk * kCols];", "xv[0] = lo4.x;")),
+    "no_x": (("read_x<kVec>(xs + kk * kCols, xv);",
+              "for (int v = 0; v < kVec; ++v) xv[v] = v & 1 ? lo4.x : hi4.y;"),
+             ("xv[0] = widen(xs[kk * kCols]);", "xv[0] = lo4.x;")),
     "no_w": (("const float4 lo4 = w4[2 * kk];",
               "const float4 lo4 = make_float4(w0, w1, w0, w1);"),
              ("const float4 hi4 = w4[2 * kk + 1];",

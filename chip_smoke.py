@@ -144,31 +144,47 @@ Phases, each of which fails the run (non-zero exit, no result line):
    24576), weights from ``--seed`` through the port's ``init_params``,
    converted by ``SparseFFN.from_params`` at keep_density 0.9 (the dense
    path) and 0.25 (the bsr path), each path asserted; per matrix the
-   pruned weight from ``prune_blocks`` and an integer-valued SparseMatmul
-   (values in {-2 ... 2}) on the same kept blocks.
+   pruned weight from ``prune_blocks`` (each host weight pruned once a
+   density, in threads), which the converted weight must equal, and an
+   integer-valued SparseMatmul (values in {-2 ... 2}) on the converted
+   one's kept blocks, built on the card; the activations, and the same
+   rounded to bf16.
 10. BSR kernels: K5 and K5-b each against its plain version, bit for bit,
-   on real and integer values, at B = 1 and B = 8: the full-width gate and
-   down matrices of the bsr path on a 128-column slice of x, and edge cases
-   (all block-rows empty, some empty, max_nb padding, 8x16 and 16x16
-   blocks, a ragged column tile, 8x8 blocks on 132 and 130 columns: the
-   128-column instance and the generic one); each batched slice against
+   on real and integer values, at B = 1 and B = 8, in f32 and on bf16
+   operands (f32 blocks on bf16 x, the FFN's pair, and bf16 blocks on bf16
+   x): the full-width gate and down matrices of the bsr path on a
+   128-column slice of x, and edge cases (all block-rows empty, some
+   empty, max_nb padding, 8x16 and 16x16 blocks, a ragged column tile,
+   8x8 blocks on 132, 136 and 130 columns: the 128-column instance and
+   the generic one, N = 132 taking the generic one on bf16 x, whose rows
+   must be a multiple of 16 bytes for TMA); on integer values also against
+   the f64 product rounded once to x's dtype; each batched slice against
    K5.
 11. Sparse FFN path: a prefill x [2048, 6144] and a batch xs [8, 128, 6144]
-   through ``SparseFFN`` at both densities, with the counts set to 0 just
-   before: three K5 launches per prefill and three K5-b per batch on the
-   bsr path, none on the dense path; every output within 1e-5 normwise of
-   the f64 FFN on the pruned weights; then each SparseMatmul on its own at
-   both shapes, exactly equal to the f64 product of its pruned weight on
-   integer values and within 1e-5 normwise on real ones.
+   through ``SparseFFN`` at both densities, on f32 activations and on the
+   same rounded to bf16, with the counts set to 0 just before: three K5
+   launches per prefill and three K5-b per batch on the bsr path (bf16
+   ones on bf16 activations), none on the dense path; every output within
+   1e-5 normwise of the f64 FFN on the pruned weights (1e-2 on bf16
+   activations, whose outputs are bf16 on the bsr path and f32 on the
+   dense path, as the reference promotes); then each SparseMatmul on its
+   own at both shapes, exactly equal to the f64 product of its pruned
+   weight on integer values (on bf16 integer x, to that product rounded
+   once to the output's dtype) and within 1e-5 normwise on real ones.
 12. Sparse FFN timing: per density the conversion s, the forward's median
-   ms, its device span and idle share by CUDA events, each matmul's device
-   ms, the flop savings and the error against the unpruned FFN; the K5 /
-   K5-b rows: each kernel against its plain version, bit for bit, on gate's
-   and down's operands of the bsr path (prefill for K5, batch for K5-b),
-   and timed on gate's beside ``torch.matmul`` of the pruned weight (and,
-   for K5-b, the BSR-tensor product); each row adds the bound of the exact
-   order (a multiply and an add a product, twice the operation bound) and
-   the launch's shape (``bsr_layout``).
+   ms (on f32 and bf16 activations), its device span and idle share by
+   CUDA events, each matmul's device ms, the flop savings and the error
+   against the unpruned FFN; the K5 / K5-b rows: each kernel against its
+   plain version, bit for bit, on gate's and down's operands of the bsr
+   path (prefill for K5, batch for K5-b), and timed on gate's beside
+   ``torch.matmul`` of the pruned weight (and, for K5-b, the BSR-tensor
+   product); each row adds the bound of the exact order (a multiply and an
+   add a product, twice the operation bound) and the launch's shape
+   (``bsr_layout``); the bf16 rows the same on the bf16 activations (f32
+   blocks, the path's pair, and bf16 blocks, whose bound is the tensor
+   cores' bf16 rate), beside the library call on them and the
+   "widen-around" time (x widened, the f32 launch, the output narrowed),
+   which the port never runs.
 
 13. The model stack (``repro_torch.models.lm``) with its FFNs on the SpGEMM
    stream: granite-20b at full width (d_model 6144, 48 heads, 1 KV head,
@@ -392,6 +408,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import concurrent.futures
 import gc
 import json
 import os
@@ -412,9 +429,11 @@ MATRICES = ("S40PI_n1", "bcspwr09", "tols1090", "fpga_dcop_05", "watt_1",
 DEFAULT = None   # spgemm()'s own default method (h-hash-256/256)
 METHODS = (DEFAULT, "spa", "h-spa-16/64", "spars-16/64", "hash-256/256")
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, and f32 outside the tensor cores
+# NVIDIA H100 SXM data sheet: HBM3 rate, f32 outside the tensor cores, and
+# bf16 on the tensor cores (dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 
 KERNELS = {
     "fused": dict(name="fused_stream", route="cuda",
@@ -447,6 +466,14 @@ KERNELS = {
     "bsr_b": dict(name="bsr_spmm_batched", route="cuda",
                   source="src/repro_torch/csrc/bsr_spmm.cu",
                   replaces="src/repro/models/sparse_ffn.py:264"),
+    # the same wrappers' launches with a bf16 operand (the reference's
+    # kernel is dtype-generic: x's dtype out, f32 sums)
+    "bsr_bf16": dict(name="bsr_spmm_bf16", route="cuda",
+                     source="src/repro_torch/csrc/bsr_spmm.cu",
+                     replaces="src/repro/kernels/bsr_spmm.py:26"),
+    "bsr_b_bf16": dict(name="bsr_spmm_batched_bf16", route="cuda",
+                       source="src/repro_torch/csrc/bsr_spmm.cu",
+                       replaces="src/repro/models/sparse_ffn.py:264"),
 }
 GROUP_KERNELS = ("spa", "spars", "hash")   # the per-group path's
 BATCH = 8   # value sets per batched call: BENCH_batched.json's config.batch
@@ -2386,9 +2413,12 @@ def group_work(kind, op):
     return batch * products, a_bytes + b_bytes + out_bytes
 
 
-def bound_ms(products, nbytes):
+def bound_ms(products, nbytes, peak=PEAK_F32_PER_S):
+    """The larger of the bytes' time at the memory rate and the
+    multiply-adds' (two operations each) at ``peak`` operations a second,
+    in ms, and which of the two it is."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = 2 * products / PEAK_F32_PER_S
+    t_ops = 2 * products / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -2990,60 +3020,101 @@ def int_values(shape, gen, dev):
 def ffn_setup(dev, seed):
     """granite-20b's FFN at full width from ``seed``: the params through the
     port's ``init_params`` (``fan_in``, as ``ffn_table``), the real-valued
-    activations of the prefill [T, D] and the batch [B, T, D], and per
-    keep_density the SparseFFN as a user converts it (timed), each matrix's
-    pruned weight from ``prune_blocks`` (the oracle's), and an
-    integer-valued SparseMatmul on the same kept blocks."""
+    activations of the prefill [T, D] and the batch [B, T, D] and the same
+    rounded to bf16, and per keep_density the SparseFFN as a user converts
+    it (timed); then each matrix's pruned weight from ``prune_blocks`` (the
+    oracle's: each host weight pruned once a density, the six in threads),
+    which the converted one must equal, and an integer-valued SparseMatmul
+    on the converted one's kept blocks (built on the card)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.models import SparseFFN, SparseMatmul, ffn_table, \
-        init_params, prune_blocks
+    from repro_torch.models import SparseFFN, ffn_table, init_params, \
+        prune_blocks
 
     cfg = get_config(FFN_ARCH)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(ffn_table(cfg), gen, device=dev)
-    host = {name: params[name]["w"].T.cpu().numpy() for name in FFN_MATRICES}
     d = cfg.d_model
+    acts = dict(prefill=torch.randn((PREFILL_TOKENS, d), generator=gen,
+                                    device=dev),
+                batched=torch.randn((FFN_BATCH, FFN_BATCH_TOKENS, d),
+                                    generator=gen, device=dev))
     data = dict(cfg=cfg, params=params, gen=gen, ffns={}, pruned={},
-                ints={}, conversion_s={}, acts=dict(
-                    prefill=torch.randn((PREFILL_TOKENS, d), generator=gen,
-                                        device=dev),
-                    batched=torch.randn((FFN_BATCH, FFN_BATCH_TOKENS, d),
-                                        generator=gen, device=dev)))
-    for keep, path in FFN_KEEPS.items():
+                ints={}, conversion_s={}, acts=acts,
+                acts_bf16={k: v.bfloat16() for k, v in acts.items()})
+    for keep in FFN_KEEPS:
         t0 = time.perf_counter()
-        sp = SparseFFN.from_params(params, keep_density=keep,
-                                   t_density=FFN_T_DENSITY, device=dev)
+        data["ffns"][keep] = SparseFFN.from_params(
+            params, keep_density=keep, t_density=FFN_T_DENSITY, device=dev)
         torch.cuda.synchronize()
         data["conversion_s"][keep] = time.perf_counter() - t0
-        data["ffns"][keep] = sp
+    t0 = time.perf_counter()
+    host = {name: params[name]["w"].T.contiguous().cpu().numpy()
+            for name in FFN_MATRICES}
+    with concurrent.futures.ThreadPoolExecutor(
+            len(FFN_KEEPS) * len(FFN_MATRICES)) as pool:
+        jobs = {(keep, name): pool.submit(prune_blocks, host[name],
+                                          FFN_BLOCK, FFN_BLOCK, keep)
+                for keep in FFN_KEEPS for name in FFN_MATRICES}
+        pruned = {key: job.result() for key, job in jobs.items()}
+    del host
+    prune_s = time.perf_counter() - t0
+    for keep, path in FFN_KEEPS.items():
+        sp = data["ffns"][keep]
         for name in FFN_MATRICES:
             m = getattr(sp, name)
             label = f"{FFN_ARCH} {name} keep {keep}"
             check(m.path == path, f"{label}: path {m.path}, not {path}")
-            w_p, density = prune_blocks(host[name], FFN_BLOCK, FFN_BLOCK,
-                                        keep)
+            w_p, density = pruned[keep, name]
             check(density == m.density, f"{label}: density {m.density} vs "
                   f"prune_blocks' {density}")
+            check(torch.equal(held_weight(m), torch.from_numpy(w_p).to(dev)),
+                  f"{label}: the converted weight is not prune_blocks'")
             data["pruned"][keep, name] = w_p
-            vals = int_values(w_p.shape, gen, dev).cpu().numpy()
-            w_int = np.where(w_p != 0, vals, np.float32(0))
-            mi = SparseMatmul.from_dense(
-                w_int, bm=FFN_BLOCK, bk=FFN_BLOCK, keep_density=keep,
-                t_density=FFN_T_DENSITY, device=dev)
-            check(mi.path == path and mi.density == density
-                  and (path == "dense" or (
-                      torch.equal(mi.block_nnz, m.block_nnz)
-                      and torch.equal(mi.block_idx, m.block_idx))),
-                  f"{label}: the integer-valued weight pruned to other "
-                  "blocks")
-            data["ints"][keep, name] = (mi, w_int)
+            data["ints"][keep, name] = integer_matmul(m, gen, dev)
     print(f"sparse FFN: {FFN_ARCH} (d_model {cfg.d_model}, d_ff "
           f"{cfg.d_ff}) converted at keep_density "
           f"{json.dumps({str(k): v for k, v in FFN_KEEPS.items()})} in "
           f"{json.dumps({str(k): v for k, v in data['conversion_s'].items()})}"
-          " s", flush=True)
+          f" s; the oracle's {len(pruned)} prunings {prune_s:.2f} s",
+          flush=True)
     return data
+
+
+def held_weight(m):
+    """The weight [M, K] that a dense- or bsr-path SparseMatmul holds, on
+    its device, in its dtype."""
+    import torch
+
+    if m.path == "dense":
+        return m.dense_w
+    n_rb, max_nb, bm, bk = m.blocks.shape
+    dev = m.blocks.device
+    live = torch.arange(max_nb, device=dev)[None] < m.block_nnz[:, None]
+    rows = torch.arange(n_rb, device=dev)[:, None].expand(-1, max_nb)[live]
+    w = torch.zeros((n_rb, m.shape[1] // bk, bm, bk), dtype=m.blocks.dtype,
+                    device=dev)
+    w[rows, m.block_idx[live].long()] = m.blocks[live]
+    return w.permute(0, 2, 1, 3).reshape(m.shape)
+
+
+def integer_matmul(m, gen, dev):
+    """``(SparseMatmul, its weight [M, K] f32 on the card)``: integer values
+    in {-2 ... 2} on the kept blocks of ``m`` (its path, density, and on the
+    bsr path its ``block_idx`` and ``block_nnz`` as they are)."""
+    import torch
+    from repro_torch.models import SparseMatmul
+
+    if m.path == "dense":
+        w = torch.where(m.dense_w != 0, int_values(m.shape, gen, dev), 0.0)
+        return SparseMatmul("dense", w, None, None, None, m.shape,
+                            m.density), w
+    live = (torch.arange(m.blocks.shape[1], device=dev)[None]
+            < m.block_nnz[:, None])[:, :, None, None]
+    blocks = torch.where(live, int_values(m.blocks.shape, gen, dev), 0.0)
+    mi = SparseMatmul("bsr", None, m.block_idx, m.block_nnz, blocks,
+                      m.shape, m.density)
+    return mi, held_weight(mi)
 
 
 def bsr_ops(m):
@@ -3051,6 +3122,10 @@ def bsr_ops(m):
 
 
 EDGE_K = 320   # columns of the edge cases' weights (rows of their x)
+#: (blocks, x) dtypes that phase 10 holds K5 and K5-b to: f32, and the two
+#: pairs on bf16 activations (the FFN's f32 blocks, and bf16 blocks)
+BSR_DTYPES = (("float32", "float32"), ("float32", "bfloat16"),
+              ("bfloat16", "bfloat16"))
 
 
 def bsr_edge_cases(dev):
@@ -3059,8 +3134,10 @@ def bsr_edge_cases(dev):
     a few block-rows empty, one block-row far longer than the rest (the
     others padded to its max_nb), 8x16 and 16x16 blocks, a column count
     that is not a multiple of the kernel's column tile, and 8x8 blocks on
-    132 columns (the 128-column instance, its second tile 4 wide) and on
-    130 (the generic instance)."""
+    132 columns (the 128-column instance in f32, its second tile 4 wide;
+    the generic one on bf16 x, whose rows are not a multiple of 16 bytes),
+    136 (the 128-column instance in both) and 130 (the generic
+    instance)."""
     import torch
     from repro_torch.kernels import bsr_from_dense
     from repro_torch.models import prune_blocks
@@ -3084,13 +3161,16 @@ def bsr_edge_cases(dev):
     yield "blocks_8x16", ops(prune_blocks(w, 8, 16, 0.4)[0], 8, 16), 256
     yield "blocks_16x16", ops(prune_blocks(w, 16, 16, 0.4)[0], 16, 16), 200
     yield "blocks_8x8_n132", ops(prune_blocks(w, 8, 8, 0.3)[0], 8, 8), 132
+    yield "blocks_8x8_n136", ops(prune_blocks(w, 8, 8, 0.3)[0], 8, 8), 136
     yield "blocks_8x8_n130", ops(prune_blocks(w, 8, 8, 0.3)[0], 8, 8), 130
 
 
-def compare_bsr(ops, xs, label):
+def compare_bsr(ops, xs, label, w_exact=None):
     """K5 on xs[0] and K5-b on xs [B, K, N] against their plain versions
-    on the same tensors, exactly; the batched slices against K5; returns
-    (max |difference| of K5, of K5-b)."""
+    on the same tensors, exactly; the batched slices against K5; with
+    ``w_exact`` (an integer-valued weight [M, K] on the card), K5-b also
+    against the f64 product rounded once to x's dtype.  Returns (max
+    |difference| of K5, of K5-b)."""
     import torch
     from repro_torch import kernels
 
@@ -3098,7 +3178,8 @@ def compare_bsr(ops, xs, label):
     got = kernels.bsr_spmm(*ops, xs[0], bn=bn)
     torch.cuda.synchronize()
     want = kernels.bsr_spmm_plain(*ops, xs[0])
-    check(got.shape == want.shape and torch.equal(got, want),
+    check(got.shape == want.shape and got.dtype == xs.dtype
+          and torch.equal(got, want),
           f"bsr_spmm {label}: kernel != plain version")
     got_b = kernels.bsr_spmm_batched(*ops, xs, bn=bn)
     torch.cuda.synchronize()
@@ -3110,74 +3191,118 @@ def compare_bsr(ops, xs, label):
         check(torch.equal(got_b[b], got if b == 0 else kernels.bsr_spmm(
             *ops, xs[b], bn=bn)), f"bsr_spmm_batched {label}: slice {b} != "
             "bsr_spmm")
-    return (float((got - want).abs().max()) if got.numel() else 0.0,
-            float((got_b - want_b).abs().max()) if got_b.numel() else 0.0)
+    if w_exact is not None:
+        exact = (w_exact.double() @ xs.double()).to(xs.dtype)
+        check(torch.equal(got_b, exact), f"bsr_spmm_batched {label}: "
+              "integer values differ from the f64 product rounded once")
+    diff = [(g.float() - w.float()).abs().max() if g.numel() else 0.0
+            for g, w in ((got, want), (got_b, want_b))]
+    return tuple(float(v) for v in diff)
 
 
 def bsr_kernel_phase(data, dev):
     """K5 and K5-b against their plain versions, bit for bit, on real and
-    integer values: the full-width gate and down matrices of the bsr path
-    on a 128-column slice of x (B = 1 and B = 8), and the edge cases."""
+    integer values, in each (blocks, x) dtype pair of BSR_DTYPES: the
+    full-width gate and down matrices of the bsr path on a 128-column
+    slice of x (B = 1 and B = 8), and the edge cases; on integer values
+    the f64 product too, rounded once to x's dtype (exact in f32 sums)."""
     import torch
+    from repro_torch import kernels
+    from repro_torch.models import SparseMatmul
 
     keep = next(k for k, path in FFN_KEEPS.items() if path == "bsr")
     gen = data["gen"]
-    errs, n = [0.0, 0.0], 0
-    cases = []
+    cases = []   # (label, ops, xs, integer-valued weight or None)
     for name in ("gate", "down"):
         m = getattr(data["ffns"][keep], name)
-        mi, _ = data["ints"][keep, name]
+        mi, w_int = data["ints"][keep, name]
         k_dim = m.shape[1]
         cases.append((f"{name} keep {keep}, real", bsr_ops(m), torch.randn(
-            (FFN_BATCH, k_dim, BSR_SLICE), generator=gen, device=dev)))
+            (FFN_BATCH, k_dim, BSR_SLICE), generator=gen, device=dev), None))
         cases.append((f"{name} keep {keep}, integer", bsr_ops(mi), int_values(
-            (FFN_BATCH, k_dim, BSR_SLICE), gen, dev)))
+            (FFN_BATCH, k_dim, BSR_SLICE), gen, dev), w_int))
     for label, ops, n_cols in bsr_edge_cases(dev):
-        k_dim = EDGE_K
-        for kind, xs in (("real", torch.randn((FFN_BATCH, k_dim, n_cols),
-                                              generator=gen, device=dev)),
-                         ("integer", int_values((FFN_BATCH, k_dim, n_cols),
-                                                gen, dev))):
-            cases.append((f"{label}, {kind}", ops, xs))
-    for label, ops, xs in cases:
-        for batch in (1, FFN_BATCH):
-            e = compare_bsr(ops, xs[:batch], label)
-            errs = [max(a, b) for a, b in zip(errs, e)]
-            n += 1
-    for name, err in zip(("bsr_spmm", "bsr_spmm_batched"), errs):
-        print(f"kernel {name}: {n} comparisons with the plain version "
-              f"(B = 1 and {FFN_BATCH}), max |diff| {err}", flush=True)
+        bi, bnnz, blocks = ops
+        mi, w_int = integer_matmul(SparseMatmul(
+            "bsr", None, bi, bnnz, blocks,
+            (bi.shape[0] * blocks.shape[2], EDGE_K), 0.0), gen, dev)
+        xs_int = int_values((FFN_BATCH, EDGE_K, n_cols), gen, dev)
+        cases += [(f"{label}, real", ops, torch.randn(
+            (FFN_BATCH, EDGE_K, n_cols), generator=gen, device=dev), None),
+                  (f"{label}, integer x", ops, xs_int, None),
+                  (f"{label}, integer", bsr_ops(mi), xs_int, w_int)]
+    errs, n = {}, {}
+    for label, (bi, bnnz, blocks), xs, w_exact in cases:
+        # real blocks on integer x in f32 only; the bf16 pairs take
+        # the real and the integer cases
+        pairs = BSR_DTYPES[:1] if label.endswith("integer x") else BSR_DTYPES
+        for w_dtype, x_dtype in pairs:
+            ops = (bi, bnnz, blocks.to(getattr(torch, w_dtype)))
+            xd = xs.to(getattr(torch, x_dtype))
+            for batch in (1, FFN_BATCH):
+                e = compare_bsr(ops, xd[:batch], f"{label} ({w_dtype} "
+                                f"blocks, {x_dtype} x)", w_exact)
+                key = (w_dtype, x_dtype)
+                errs[key] = [max(a, b) for a, b in zip(errs.get(key, e), e)]
+                n[key] = n.get(key, 0) + 1
+    for (w_dtype, x_dtype), err in errs.items():
+        for name, e in zip(("bsr_spmm", "bsr_spmm_batched"), err):
+            print(f"kernel {name} ({w_dtype} blocks, {x_dtype} x): "
+                  f"{n[w_dtype, x_dtype]} comparisons with the plain version "
+                  f"(B = 1 and {FFN_BATCH}), max |diff| {e}", flush=True)
+    lays = {f"N = {n_cols}": {x_dtype: kernels.bsr_layout(
+        192 // 8, 8, 8, n_cols, FFN_BATCH, True,
+        getattr(torch, x_dtype))["instance"] for x_dtype in ("float32",
+                                                             "bfloat16")}
+        for n_cols in (130, 132, 136, 256)}
+    print(f"kernel bsr_spmm: 8x8 edge cases' instances by x's dtype "
+          f"{json.dumps(lays)}", flush=True)
+    counts = kernels.launch_counts()
+    print("kernel bsr_spmm: bf16 launches so far "
+          f"{json.dumps({k: v for k, v in counts.items() if 'bsr' in k})}",
+          flush=True)
+
+
+FFN_BF16_TOL = 1e-2   # normwise against f64 on bf16 activations
 
 
 def ffn_path(data):
     """Drive SparseFFN as a user serves with it, at full width: one prefill
-    [T, D] and one batch [B, T, D] per keep_density, with the counts set to
-    0 just before and read just after; each call's launches must be three
-    K5 (prefill) or three K5-b (batch) on the bsr path and none on the
-    dense path."""
+    [T, D] and one batch [B, T, D] per keep_density, on f32 activations and
+    on the same rounded to bf16, with the counts set to 0 just before and
+    read just after; each call's launches must be three K5 (prefill) or
+    three K5-b (batch) on the bsr path, bf16 ones on bf16 activations, and
+    none on the dense path.  Returns the outputs by (keep, shape, dtype)
+    and the counts."""
     from repro_torch import kernels
 
     kernels.reset_launch_counts()
     out, launches = {}, {}
     for keep, sp in data["ffns"].items():
-        for shape, x in data["acts"].items():
-            before = kernels.launch_counts()
-            out[keep, shape] = sp(x)
-            after = kernels.launch_counts()
-            launches[keep, shape] = {k: v - before[k] for k, v in after.items()
-                                     if v > before[k]}
+        for dtype, acts in (("f32", data["acts"]), ("bf16", data["acts_bf16"])):
+            for shape, x in acts.items():
+                before = kernels.launch_counts()
+                out[keep, shape, dtype] = sp(x)
+                after = kernels.launch_counts()
+                launches[keep, shape, dtype] = {
+                    k: v - before[k] for k, v in after.items()
+                    if v > before[k]}
     counts = kernels.launch_counts()
     print(f"sparse FFN path: {FFN_ARCH} prefill {PREFILL_TOKENS} tokens and "
           f"a batch of {FFN_BATCH} x {FFN_BATCH_TOKENS} at keep_density "
-          f"{sorted(FFN_KEEPS)}; launches "
-          f"{json.dumps({f'{k} {s}': v for (k, s), v in launches.items()})}",
+          f"{sorted(FFN_KEEPS)}, f32 and bf16 activations; launches "
+          f"{json.dumps({' '.join(map(str, k)): v for k, v in launches.items()})}",
           flush=True)
-    for (keep, shape), got in launches.items():
+    for (keep, shape, dtype), got in launches.items():
         name = "bsr_spmm" if shape == "prefill" else "bsr_spmm_batched"
-        want = {name: 3} if FFN_KEEPS[keep] == "bsr" else {}
-        check(got == want, f"sparse FFN keep {keep} {shape}: launches {got}, "
-              f"expected {want}")
-    for name in ("bsr_spmm", "bsr_spmm_batched"):
+        want = {}
+        if FFN_KEEPS[keep] == "bsr":
+            want = {name: 3, **({f"{name}_bf16": 3} if dtype == "bf16"
+                                else {})}
+        check(got == want, f"sparse FFN keep {keep} {shape} {dtype}: "
+              f"launches {got}, expected {want}")
+    for name in ("bsr_spmm", "bsr_spmm_batched", "bsr_spmm_bf16",
+                 "bsr_spmm_batched_bf16"):
         check(counts[name] > 0, f"{name} was not launched on the FFN path")
     return out, counts
 
@@ -3193,24 +3318,37 @@ def pruned_params64(data, keep, dev):
 
 def check_ffn_path(data, out, dev):
     """Every FFN output of the path is finite, of its input's shape, and
-    within FFN_TOL normwise of ``ffn`` on the pruned weights in f64."""
+    near ``ffn`` on the pruned weights in f64 (on the activations as
+    given): within FFN_TOL normwise on f32 activations; on bf16 ones in
+    the reference's dtype (bf16 through the bsr path's three bf16 matmuls,
+    f32 from the dense path's f32 weights) and within FFN_BF16_TOL."""
+    import torch
     from repro_torch.models import ffn
 
     errs = {}
-    for keep in FFN_KEEPS:
+    for keep, path in FFN_KEEPS.items():
         p64 = pruned_params64(data, keep, dev)
-        for shape, x in data["acts"].items():
-            got = out[keep, shape]
-            label = f"sparse FFN keep {keep} {shape}"
-            check(got.shape == x.shape and got.isfinite().all(),
-                  f"{label}: shape {tuple(got.shape)} or non-finite values")
-            errs[keep, shape] = rel_err(got, ffn(p64, x.double()))
-            check(errs[keep, shape] <= FFN_TOL, f"{label}: normwise error "
-                  f"{errs[keep, shape]} against the f64 pruned FFN")
+        for dtype, acts, tol in (("f32", data["acts"], FFN_TOL),
+                                 ("bf16", data["acts_bf16"], FFN_BF16_TOL)):
+            want_dtype = (torch.bfloat16 if dtype == "bf16" and path == "bsr"
+                          else torch.float32)
+            for shape, x in acts.items():
+                got = out[keep, shape, dtype]
+                label = f"sparse FFN keep {keep} {shape} {dtype}"
+                check(got.shape == x.shape and got.dtype == want_dtype
+                      and got.isfinite().all(),
+                      f"{label}: shape {tuple(got.shape)}, dtype "
+                      f"{got.dtype} or non-finite values")
+                e = errs[keep, shape, dtype] = rel_err(got, ffn(p64,
+                                                                x.double()))
+                check(e <= tol, f"{label}: normwise error {e} against the "
+                      "f64 pruned FFN")
         del p64
     print("sparse FFN path: every output within "
-          f"{FFN_TOL} of the f64 pruned-dense FFN; errors "
-          f"{json.dumps({f'{k} {s}': v for (k, s), v in errs.items()})}",
+          f"{FFN_TOL} (f32) and {FFN_BF16_TOL} (bf16 activations; bf16 out "
+          "on the bsr path, f32 on the dense path) of the f64 pruned-dense "
+          "FFN; errors "
+          f"{json.dumps({' '.join(map(str, k)): v for k, v in errs.items()})}",
           flush=True)
     return errs
 
@@ -3218,11 +3356,13 @@ def check_ffn_path(data, out, dev):
 def check_ffn_matmuls(data, dev):
     """Each SparseMatmul on its own, prefill width and batched: on integer
     weights and activations every output equals the f64 product of the
-    pruned weight exactly; on real ones it is within FFN_TOL normwise."""
+    pruned weight exactly, and on bf16 integer activations that product
+    rounded once to the output's dtype (bf16 on the bsr path, f32 on the
+    dense path); on real ones it is within FFN_TOL normwise."""
     import torch
 
     gen = data["gen"]
-    errs = {}
+    errs, n_bf16 = {}, 0
     for keep, path in FFN_KEEPS.items():
         for name in FFN_MATRICES:
             m = getattr(data["ffns"][keep], name)
@@ -3238,18 +3378,28 @@ def check_ffn_matmuls(data, dev):
                 errs[keep, name, len(shape)] = e = rel_err(
                     run(x), w64 @ x.double())
                 check(e <= FFN_TOL, f"{label} {shape}: normwise error {e}")
-            w64 = torch.from_numpy(w_int).to(dev, torch.float64)
+            w64 = w_int.double()
             for shape in ((k_dim, PREFILL_TOKENS),
                           (FFN_BATCH, k_dim, FFN_BATCH_TOKENS)):
                 run = mi if len(shape) == 2 else mi.batched
                 x = int_values(shape, gen, dev)
-                check(torch.equal(run(x).double(), w64 @ x.double()),
+                exact = w64 @ x.double()
+                check(torch.equal(run(x).double(), exact),
                       f"{label} {shape}: integer values differ from the f64 "
                       "product")
+                got = run(x.bfloat16())
+                want = exact.to(torch.bfloat16 if path == "bsr"
+                                else torch.float32)
+                check(got.dtype == want.dtype and torch.equal(got, want),
+                      f"{label} {shape}: integer values on bf16 x differ "
+                      "from the f64 product rounded once")
+                n_bf16 += 1
             del w64
     print(f"sparse FFN matmuls: {len(errs)} real-valued products within "
           f"{FFN_TOL} normwise (largest {max(errs.values())}), every "
-          "integer-valued one equal to the f64 product", flush=True)
+          f"integer-valued one equal to the f64 product, and {n_bf16} on "
+          "bf16 integer activations to that product rounded once (bf16 on "
+          "the bsr path, f32 on the dense path)", flush=True)
     return errs
 
 
@@ -3276,7 +3426,8 @@ def ffn_timing_phase(data, reps):
     median of ``reps``, ending in a synchronize), its device span and idle
     share by CUDA events, each matmul's device time (CUDA events: K5 / K5-b
     on the bsr path, the f32 matmul on the dense path), the flop savings
-    and the relative error against the unpruned FFN."""
+    and the relative error against the unpruned FFN; and the forward's
+    median, device span and idle share on the bf16 activations."""
     from repro_torch.models import ffn
 
     cfg, params = data["cfg"], data["params"]
@@ -3304,40 +3455,81 @@ def ffn_timing_phase(data, reps):
                     name: event_ms(lambda: matmul(m, a), reps)
                     for name, m, a in mats}}
             del mats
+            # the same forward on the bf16-rounded activations
+            inp = data["acts_bf16"][shape]
+            forward = statistics.median(execute_ms(lambda: sp(inp), reps))
+            span = event_ms(lambda: sp(inp), reps, per_call=True)
+            line[shape]["bf16"] = {
+                "out_dtype": str(sp(inp).dtype).split(".")[-1],
+                "forward_ms_median": forward, "device_span_ms": span,
+                "device_idle_share": max(0.0, 1 - span / forward)}
         line["flop_savings"] = dense_flops / sp.flops_per_token
         lines[keep] = line
         print(json.dumps(line), flush=True)
     return lines
 
 
-def bsr_work(m, x):
+def bsr_work(m, x, blocks=None):
     """(multiply-adds, bytes) one K5 launch needs on ``x [K, N]`` (or
-    ``[B, K, N]``): the kept blocks, their indices and the counts read
-    once, x read once and the output written once; bm * bk multiply-adds
-    per kept block, column and activation set."""
+    ``[B, K, N]``) with ``m``'s blocks (or ``blocks`` in their place, of
+    the same shape): the kept blocks, their indices and the counts read
+    once, x read once and the output (in x's dtype) written once; bm * bk
+    multiply-adds per kept block, column and activation set."""
+    blocks = m.blocks if blocks is None else blocks
     batch = x.shape[0] if x.dim() == 3 else 1
     kept = int(m.block_nnz.sum())
-    bm, bk = m.blocks.shape[2:]
+    bm, bk = blocks.shape[2:]
     n = x.shape[-1]
-    nbytes = (kept * (bm * bk + 1) * 4 + m.block_nnz.numel() * 4
-              + x.numel() * 4 + batch * m.shape[0] * n * 4)
+    nbytes = (kept * (bm * bk * blocks.element_size() + 4)
+              + m.block_nnz.numel() * 4 + x.numel() * x.element_size()
+              + batch * m.shape[0] * n * x.element_size())
     return batch * kept * bm * bk * n, nbytes
 
 
+def bsr_compare_path(fn, plain, sp, acts, shape, label):
+    """``fn`` against ``plain`` bit for bit on gate's and down's operands
+    of the FFN on ``acts[shape]``; returns (max |difference|, gate's BSR
+    operands and x)."""
+    import torch
+
+    operands = {name: (bsr_ops(mat), a) for name, mat, a
+                in ffn_operands(sp, acts[shape])
+                if name in ("gate", "down")}
+    err = 0.0
+    for name, (ops, a) in operands.items():
+        got, want = fn(*ops, a), plain(*ops, a)
+        check(got.dtype == a.dtype and torch.equal(got, want),
+              f"{label} on {name}'s {shape} operand {list(a.shape)} "
+              f"{a.dtype}: kernel != plain version")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        del got, want
+    return err, operands["gate"]
+
+
 def bsr_kernel_report(data, counts, dev, reps):
-    """The rows of K5 and K5-b.  Each kernel is held against its plain
-    version, bit for bit, on the operands the FFN path gives it on the bsr
-    path: gate's x^T and down's h, [D, T] and [F, T] for K5 (the prefill),
-    [B, D, T] and [B, F, T] for K5-b (the batch); the row's max_abs_err is
-    the larger of the two.  Each is timed on gate's operand, the plain
-    version once; ``exact_order_bound_ms`` is the bound with two
-    instructions a product (``__fmul_rn`` and ``__fadd_rn``, the order
-    that the kernel and its plain version share), ``at.layout`` the
-    launch's shape.  The library call is ``torch.matmul`` of the pruned dense
-    weight (f32, full precision); the K5-b row also times the BSR-tensor
-    product ``w.to_sparse_bsr((8, 8)) @ x`` once per activation set (at the
-    prefill's N = 2048 that product asks for more than the card's memory
-    beside the FFN).  The port never calls either."""
+    """The rows of K5 and K5-b, on f32 and on bf16 activations.  Each kernel
+    is held against its plain version, bit for bit, on the operands the
+    FFN path gives it on the bsr path: gate's x^T and down's h, [D, T] and
+    [F, T] for K5 (the prefill), [B, D, T] and [B, F, T] for K5-b (the
+    batch); the row's max_abs_err is the larger of the two.  Each is timed
+    on gate's operand, the plain version once; ``exact_order_bound_ms`` is
+    the bound with two instructions a product (``__fmul_rn`` and
+    ``__fadd_rn``, the order that the kernel and its plain version share),
+    ``at.layout`` the launch's shape.  The library call is ``torch.matmul``
+    of the pruned dense weight (f32, full precision); the K5-b row also
+    times the BSR-tensor product ``w.to_sparse_bsr((8, 8)) @ x`` once per
+    activation set (at the prefill's N = 2048 that product asks for more
+    than the card's memory beside the FFN).  The port never calls either.
+
+    The bf16 rows (``bsr_spmm_bf16``, ``bsr_spmm_batched_bf16``) count the
+    path's bf16 launches and time its pair, the FFN's f32 blocks on bf16 x
+    (f32 SIMT products: the f32 bound), beside ``widen_around_ms`` (x
+    widened, the f32 launch, the output narrowed: what the kernel does not
+    do) and the library call ``torch.matmul(w_pruned, x.float())``; and,
+    under ``bf16_blocks``, the same for bf16 blocks on bf16 x, whose bound
+    is the tensor cores' bf16 rate (the products of two bf16 values are
+    exact there too) and whose library call is ``torch.matmul`` of the
+    bf16 pruned weight (cuBLAS on the tensor cores)."""
     import torch
     from repro_torch import kernels
 
@@ -3346,24 +3538,15 @@ def bsr_kernel_report(data, counts, dev, reps):
     m = sp.gate
     w = torch.from_numpy(data["pruned"][keep, "gate"]).to(dev)
     w_bsr = w.to_sparse_bsr((FFN_BLOCK, FFN_BLOCK))
+    n_rb, _, bm, bk = m.blocks.shape
     rows = []
     for kind, shape in (("bsr", "prefill"), ("bsr_b", "batched")):
         info = KERNELS[kind]
         fn, plain = ((kernels.bsr_spmm, kernels.bsr_spmm_plain)
                      if kind == "bsr" else (kernels.bsr_spmm_batched,
                                             kernels.bsr_spmm_batched_plain))
-        operands = {name: (bsr_ops(mat), a) for name, mat, a
-                    in ffn_operands(sp, data["acts"][shape])
-                    if name in ("gate", "down")}
-        err = 0.0
-        for name, (ops, a) in operands.items():
-            got, want = fn(*ops, a), plain(*ops, a)
-            check(torch.equal(got, want), f"{info['name']} on {name}'s "
-                  f"{shape} operand {list(a.shape)}: kernel != plain version")
-            err = max(err, float((got - want).abs().max()))
-            del got, want
-        ops, x = operands["gate"]
-        del operands
+        err, (ops, x) = bsr_compare_path(fn, plain, sp, data["acts"], shape,
+                                         info["name"])
         want = fn(*ops, x).double()
         check(rel_err(w @ x, want) <= FFN_TOL,
               f"{info['name']}: torch.matmul disagrees")
@@ -3377,9 +3560,9 @@ def bsr_kernel_report(data, counts, dev, reps):
         plain_ms = event_ms(lambda: plain(*ops, x), reps=1, warmup=0)
         products, nbytes = bsr_work(m, x)
         b_ms, by = bound_ms(products, nbytes)
-        n_rb, _, bm, bk = m.blocks.shape
         rows.append(dict(
-            info, launches=counts[info["name"]], max_abs_err=err,
+            info, launches=counts[info["name"]]
+            - counts[f"{info['name']}_bf16"], max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
             exact_order_bound_ms=bound_ms(2 * products, nbytes)[0],
             library_ms=event_ms(lambda: w @ x, reps),
@@ -3393,6 +3576,57 @@ def bsr_kernel_report(data, counts, dev, reps):
                         n_rb, bm, bk, x.shape[-1],
                         x.shape[0] if x.dim() == 3 else 1))))
         del want, x
+
+        # on bf16 activations: the path's pair, then bf16 blocks
+        info = KERNELS[kind + "_bf16"]
+        err, (ops, x) = bsr_compare_path(fn, plain, sp, data["acts_bf16"],
+                                         shape, info["name"])
+        ops16 = ops[:2] + (ops[2].bfloat16(),)
+        got, want = fn(*ops16, x), plain(*ops16, x)
+        check(torch.equal(got, want), f"{info['name']} (bf16 blocks) on "
+              f"gate's {shape} operand: kernel != plain version")
+        err16 = float((got.float() - want.float()).abs().max())
+        want = fn(*ops, x).double()
+        w16 = w.bfloat16()
+        check(rel_err(w @ x.float(), want) <= FFN_BF16_TOL,
+              f"{info['name']}: torch.matmul disagrees")
+        check(rel_err(w16 @ x, got.double()) <= FFN_BF16_TOL,
+              f"{info['name']}: torch.matmul of the bf16 weight disagrees")
+        del got, want
+
+        def widen_around(o):
+            return fn(*o[:2], o[2].float(), x.float()).bfloat16()
+
+        products, nbytes = bsr_work(m, x)
+        b_ms, by = bound_ms(products, nbytes)
+        products16, nbytes16 = bsr_work(m, x, ops16[2])
+        b16_ms, by16 = bound_ms(products16, nbytes16, PEAK_BF16_PER_S)
+        rows.append(dict(
+            info, launches=counts[info["name"]], max_abs_err=err,
+            ms=event_ms(lambda: fn(*ops, x), reps),
+            plain_ms=event_ms(lambda: plain(*ops, x), reps=1, warmup=0),
+            bound_ms=b_ms, bound_by=by,
+            exact_order_bound_ms=bound_ms(2 * products, nbytes)[0],
+            widen_around_ms=event_ms(lambda: widen_around(ops), reps),
+            library_ms=event_ms(lambda: w @ x.float(), reps),
+            bf16_blocks=dict(
+                max_abs_err=err16, ms=event_ms(lambda: fn(*ops16, x), reps),
+                plain_ms=event_ms(lambda: plain(*ops16, x), reps=1,
+                                  warmup=0),
+                bound_ms=b16_ms, bound_by=by16, bytes=nbytes16,
+                exact_order_f32_bound_ms=bound_ms(2 * products16,
+                                                  nbytes16)[0],
+                widen_around_ms=event_ms(lambda: widen_around(ops16), reps),
+                library_ms=event_ms(lambda: w16 @ x, reps)),
+            at=dict(arch=FFN_ARCH, matrix="gate", keep_density=keep,
+                    shape=list(m.shape), x=list(x.shape), x_dtype="bfloat16",
+                    blocks_dtype="float32", multiply_adds=products,
+                    bytes=nbytes, compared_on=["gate", "down"],
+                    layout=kernels.bsr_layout(
+                        n_rb, bm, bk, x.shape[-1],
+                        x.shape[0] if x.dim() == 3 else 1, True,
+                        torch.bfloat16))))
+        del x, ops16, w16
         torch.cuda.synchronize()
     return rows
 

@@ -85,6 +85,15 @@ def train_state_from_reference(state, device=None) -> dict:
 ffn_params_from_reference = model_params_from_reference
 
 
+def bf16_from_reference(a, device=None) -> torch.Tensor:
+    """The torch bf16 tensor of a JAX-package bf16 array given as numpy (an
+    ``ml_dtypes.bfloat16`` array, which ``torch.from_numpy`` does not take),
+    on ``device`` (default the card), value for value: widened to f32 in
+    numpy and narrowed back in torch, both exact."""
+    w = np.array(a, np.float32)
+    return torch.from_numpy(w).to(resolve_device(device)).bfloat16()
+
+
 def sparse_matmul_from_reference(path, dense_w, block_idx, block_nnz, blocks,
                                  shape, density, device=None, *, w_csc=None,
                                  stream_limit=None) -> SparseMatmul:

@@ -66,12 +66,19 @@ KERNELS = (fused_stream, spa_spgemm, spars_spgemm, hash_spgemm, bsr_spmm,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.n_launches = 0
+        if hasattr(k, "n_launches_bf16"):
+            k.n_launches_bf16 = 0
         for tier in getattr(k, "n_launches_by_tier", ()):
             k.n_launches_by_tier[tier] = 0
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.n_launches for k in KERNELS}
+    """Each wrapper's launches by its name; K5's and K5-b's launches with a
+    bf16 operand also under ``<name>_bf16``."""
+    counts = {k.__name__: k.n_launches for k in KERNELS}
+    counts.update({f"{k.__name__}_bf16": k.n_launches_bf16 for k in KERNELS
+                   if hasattr(k, "n_launches_bf16")})
+    return counts
 
 
 __all__ = [

@@ -49,10 +49,13 @@ SIGNATURES = {
     "repro_fused_stream_launch": (_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I,
                                   _P, _P),
     # block_idx, block_nnz, blocks, n_rb, max_nb, bm, bk, x, k_dim, n,
-    # batch, out, stream
-    "repro_bsr_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P),
-    # K5's launch shape (no launch): n_rb, bm, bk, n, batch, aligned, out
-    "repro_bsr_layout": (_I, _I, _I, _I, _I, _I, _P),
+    # batch, out, stream, and the dtype codes (0 f32, 1 bf16) of the blocks
+    # and of x
+    "repro_bsr_launch": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P, _P,
+                         _I, _I),
+    # K5's launch shape (no launch): n_rb, bm, bk, n, batch, aligned, out,
+    # x's dtype code
+    "repro_bsr_layout": (_I, _I, _I, _I, _I, _I, _P, _I),
 }
 
 _LOCK = threading.Lock()

@@ -13,16 +13,19 @@ from __future__ import annotations
 import torch
 
 
-def check_tensors(named: dict, is_value, device=None) -> torch.device:
+def check_tensors(named: dict, is_value, device=None,
+                  value_dtypes=(torch.float32,)) -> torch.device:
     """Check that every tensor of ``named`` is a contiguous torch.Tensor,
-    f32 where ``is_value(name)`` and int32 elsewhere, all on one CPU or
+    of one of ``value_dtypes`` where ``is_value(name)`` (f32 unless the
+    wrapper's kernel takes more) and int32 elsewhere, all on one CPU or
     CUDA device (``device`` when given); return that device."""
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
-        want = torch.float32 if is_value(name) else torch.int32
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+        want = value_dtypes if is_value(name) else (torch.int32,)
+        if t.dtype not in want:
+            raise TypeError(f"{name} must be "
+                            f"{' or '.join(map(str, want))}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     devices = {t.device for t in named.values()}

@@ -4,8 +4,10 @@ The counterpart of the JAX package's Pallas BSR kernel
 (``repro/kernels/bsr_spmm.py::bsr_spmm``) and of its vmapped form in
 ``repro/models/sparse_ffn.py`` (``SparseMatmul.batched``, K5-b): a weight in
 padded BSR (``block_idx [n_rb, max_nb]`` int32, ``block_nnz [n_rb]`` int32,
-``blocks [n_rb, max_nb, bm, bk]`` f32) times dense activations ``x [K, N]``
-(``[B, K, N]`` batched) gives ``[n_rb * bm, N]`` (``[B, n_rb * bm, N]``).  On
+``blocks [n_rb, max_nb, bm, bk]``) times dense activations ``x [K, N]``
+(``[B, K, N]`` batched) gives ``[n_rb * bm, N]`` (``[B, n_rb * bm, N]``).
+The reference's dtype contract: ``blocks`` and ``x`` each f32 or bf16, the
+sums in f32 and the result in x's dtype, rounded once.  On
 a CUDA tensor the wrappers launch the hand-written kernel (a CTA a group of
 16 block-rows x a column tile x a batch element, x staged in shared memory
 chunk by chunk, an 8-row register tile a lane; :func:`bsr_layout` reports
@@ -34,20 +36,25 @@ MAX_COLS = 2**31 - 1 - 256
 #: the keys of :func:`bsr_layout`, in ``repro_bsr_layout``'s order
 LAYOUT_KEYS = ("vec", "chunk", "slabs", "groups", "ctas", "group_units",
                "stages")
+#: the value dtypes the kernel takes, and their codes in its C entry points
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def bsr_layout(n_rb: int, bm: int, bk: int, n: int, batch: int = 1,
-               aligned: bool = True) -> dict:
+               aligned: bool = True, x_dtype=torch.float32) -> dict:
     """The launch's shape as ``csrc/bsr_spmm.cu`` chooses it (its
     ``repro_bsr_layout``; this builds the kernel library): the instance
     (``"8x8"`` or ``"generic"``), columns a lane (``vec``) and a tile
     (``cols``), block-columns a chunk, units (8-row slabs) a block-row,
     groups, CTAs (groups x column tiles x batch elements), units a group
     and stages of x in flight.  ``aligned``: x has rows and x and the
-    output start on 16 bytes."""
+    output start on 16 bytes.  ``x_dtype``: x's (and the output's) dtype;
+    a bf16 row must be a multiple of 16 bytes for the 8x8 instances too (N
+    a multiple of 8), and a stage holds twice the rows."""
     out = (ctypes.c_longlong * len(LAYOUT_KEYS))()
     _build.library().repro_bsr_layout(n_rb, bm, bk, n, batch, int(aligned),
-                                      ctypes.addressof(out))
+                                      ctypes.addressof(out),
+                                      DTYPE_CODES[x_dtype])
     lay = dict(zip(LAYOUT_KEYS, out))
     return dict(instance="generic" if lay["vec"] == 1 else "8x8",
                 cols=32 * lay["vec"], **lay)
@@ -56,7 +63,8 @@ def bsr_layout(n_rb: int, bm: int, bk: int, n: int, batch: int = 1,
 def _check(block_idx, block_nnz, blocks, x, bn, device,
            batched: bool = False) -> torch.device:
     named = dict(block_idx=block_idx, block_nnz=block_nnz, blocks=blocks, x=x)
-    dev = check_tensors(named, lambda name: name in ("blocks", "x"), device)
+    dev = check_tensors(named, lambda name: name in ("blocks", "x"), device,
+                        value_dtypes=tuple(DTYPE_CODES))
     if block_idx.dim() != 2 or blocks.dim() != 4 \
             or tuple(blocks.shape[:2]) != tuple(block_idx.shape) \
             or tuple(block_nnz.shape) != tuple(block_idx.shape[:1]):
@@ -87,22 +95,35 @@ def _check(block_idx, block_nnz, blocks, x, bn, device,
 
 
 def _launch(block_idx, block_nnz, blocks, xs, dev) -> torch.Tensor:
-    """``out [B, n_rb * bm, N]`` for the ``B = xs.shape[0]`` activation
-    sets ``xs``, one K5 launch if there is any output."""
+    """``out [B, n_rb * bm, N]`` in xs's dtype for the ``B = xs.shape[0]``
+    activation sets ``xs``, one K5 launch if there is any output."""
     n_rb, max_nb, bm, bk = blocks.shape
     batch, k_dim, n = xs.shape
-    out = torch.empty((batch, n_rb * bm, n), dtype=torch.float32, device=dev)
+    out = torch.empty((batch, n_rb * bm, n), dtype=xs.dtype, device=dev)
     if out.numel():
         _build.launch(
             "repro_bsr_launch", block_idx.data_ptr(), block_nnz.data_ptr(),
             blocks.data_ptr(), n_rb, max_nb, bm, bk, xs.data_ptr(), k_dim, n,
-            batch, out.data_ptr(), stream_handle(dev))
+            batch, out.data_ptr(), stream_handle(dev),
+            DTYPE_CODES[blocks.dtype], DTYPE_CODES[xs.dtype])
     return out
+
+
+def _count(wrapper, blocks, x, out) -> None:
+    """One launch more on ``wrapper`` if ``out`` had any element, and on
+    its bf16 count too if either value operand is bf16."""
+    launched = out.numel() > 0
+    wrapper.n_launches += launched
+    wrapper.n_launches_bf16 += launched and torch.bfloat16 in (blocks.dtype,
+                                                               x.dtype)
 
 
 def bsr_spmm(block_idx, block_nnz, blocks, x, *, bn: int = 128,
              device=None) -> torch.Tensor:
-    """``[n_rb * bm, N]`` = BSR(A) @ x for ``x [K, N]`` f32.
+    """``[n_rb * bm, N]`` = BSR(A) @ x for ``x [K, N]``, in x's dtype.
+
+    ``blocks`` and ``x`` are each f32 or bf16 (the reference's contract:
+    the sums are f32, a bf16 result is rounded once).
 
     ``N`` must be a multiple of ``bn`` (the reference's contract; the
     kernel's own tile is 256, 128 or 32 columns, masked at the edge:
@@ -121,11 +142,13 @@ def bsr_spmm(block_idx, block_nnz, blocks, x, *, bn: int = 128,
     if dev.type == "cpu":
         return bsr_spmm_plain(block_idx, block_nnz, blocks, x)
     out = _launch(block_idx, block_nnz, blocks, x[None], dev)
-    bsr_spmm.n_launches += out.numel() > 0
+    _count(bsr_spmm, blocks, x, out)
     return out[0]
 
 
 bsr_spmm.n_launches = 0
+#: the launches with a bf16 operand, counted in ``n_launches`` too
+bsr_spmm.n_launches_bf16 = 0
 
 
 def bsr_spmm_batched(block_idx, block_nnz, blocks, xs, *, bn: int = 128,
@@ -137,11 +160,12 @@ def bsr_spmm_batched(block_idx, block_nnz, blocks, xs, *, bn: int = 128,
     if dev.type == "cpu":
         return bsr_spmm_batched_plain(block_idx, block_nnz, blocks, xs)
     out = _launch(block_idx, block_nnz, blocks, xs, dev)
-    bsr_spmm_batched.n_launches += out.numel() > 0
+    _count(bsr_spmm_batched, blocks, xs, out)
     return out
 
 
 bsr_spmm_batched.n_launches = 0
+bsr_spmm_batched.n_launches_bf16 = 0
 
 
 def bsr_spmm_plain(block_idx, block_nnz, blocks, x) -> torch.Tensor:
@@ -158,10 +182,13 @@ def bsr_spmm_batched_plain(block_idx, block_nnz, blocks, xs) -> torch.Tensor:
     steps run nb outer, kk inner, so each output element sums its products
     from 0 in the kernel's order.  Padded blocks are never touched.
     Block-rows are visited most-blocks first, so the live ones at step nb
-    are a prefix.
+    are a prefix.  bf16 operands are widened to f32 first (exact), and the
+    f32 result is rounded once to x's dtype, as the kernel does.
     """
     batch, _, n = xs.shape
     n_rb, _, bm, bk = blocks.shape
+    dtype = xs.dtype
+    blocks, xs = blocks.float(), xs.float()
     out = torch.zeros((batch, n_rb, bm, n), dtype=torch.float32,
                       device=xs.device)
     if n_rb:
@@ -180,7 +207,7 @@ def bsr_spmm_batched_plain(block_idx, block_nnz, blocks, xs) -> torch.Tensor:
             for kk in range(bk):
                 acc = acc + w[None, :, :, kk, None] * xs[:, x_row + kk, None]
             out[:, rows] = acc
-    return out.reshape(batch, n_rb * bm, n)
+    return out.reshape(batch, n_rb * bm, n).to(dtype)
 
 
 def bsr_from_dense(w, bm: int, bk: int):

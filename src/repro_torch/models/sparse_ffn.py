@@ -49,8 +49,9 @@ def prune_blocks(w, bm: int, bk: int, keep_density: float):
     """Keep the ``keep_density`` fraction of ``bm x bk`` blocks of ``w``
     with the largest max-magnitude (ties at the threshold all kept), zero
     the rest; returns ``(w_pruned f32 [M, K], kept-block fraction)``.
-    Host numpy, the reference's own pruning."""
-    w = np.asarray(w, np.float32)
+    Host numpy, the reference's own pruning; ``w`` is an array or a tensor
+    (a bf16 one widened to f32, as the reference widens its weight)."""
+    w = np.asarray(_host(w), np.float32)
     m, k = w.shape
     if m % bm or k % bk:
         raise ValueError(f"a {w.shape} weight does not split into {bm}x{bk} "
@@ -66,14 +67,20 @@ def prune_blocks(w, bm: int, bk: int, keep_density: float):
 
 
 def _dense_matmul(w, x):
-    """The dense path's matmul, in full f32 (TF32 is refused)."""
+    """The dense path's matmul, in full f32 (TF32 is refused).  A bf16 x is
+    widened (exact), so the result is f32, as the reference's f32 weight
+    times a bf16 x gives."""
+    x = x.to(w.dtype)
     check_full_f32(x)
     return w @ x
 
 
 def _host(w) -> np.ndarray:
+    """``w`` as a host numpy array; a bf16 tensor widened to f32 (exact:
+    numpy has no bf16, and the reference's pruning widens to f32 too)."""
     if isinstance(w, torch.Tensor):
-        return w.detach().cpu().numpy()
+        w = w.detach()
+        return (w.float() if w.dtype == torch.bfloat16 else w).cpu().numpy()
     return np.asarray(w)
 
 
@@ -258,7 +265,10 @@ class SparseMatmul:
         same weight values (the reference's ``vmap`` with the weights held
         fixed): one ``[B, nnz]`` stack through the plan's stream, each
         element equal to an unbatched call bit for bit (the torch stream's
-        ``ALIGN``).  Differentiable in ``w_values`` and ``x``
+        ``ALIGN``).  A bf16 ``x`` is widened to f32 (exact), so its f32
+        products and the result are the reference's, whose f32 values times
+        bf16 activations promote to f32.  Differentiable in ``w_values`` and
+        ``x``
         (``torch.autograd``); the plan lookup keys only on ``x``'s shape.
         Column-major flattening turns the dense activations into the value
         array of the plan's dense B pattern, and the plan's canonical
@@ -267,6 +277,8 @@ class SparseMatmul:
         sync.
         """
         self._check_spgemm("apply_values")
+        if x.dtype == torch.bfloat16:
+            x = x.float()
         n = int(x.shape[-1])
         plan, flat, _ = self._spgemm_plan(n)
         xv = _column_major(x)
@@ -297,8 +309,12 @@ class SparseMatmul:
         return out
 
     def __call__(self, x, *, bn=None):
-        """y [M, N] = W @ x for x [K, N] f32 (one K5 launch on the bsr
-        path, whose N must be a multiple of ``bn``, default min(128, N))."""
+        """y [M, N] = W @ x for x [K, N] (one K5 launch on the bsr path,
+        whose N must be a multiple of ``bn``, default min(128, N)).
+
+        x is f32 or bf16, and the result's dtype is the reference's: x's on
+        the bsr path (the kernel's contract), f32 on the dense and spgemm
+        paths (the f32 weight promotes a bf16 x)."""
         if self.path == "dense":
             return _dense_matmul(self.dense_w, x)
         if self.path == "spgemm":
@@ -365,8 +381,12 @@ class SparseFFN:
         :meth:`SparseMatmul.from_dense`, on ``device`` (default the card)."""
 
         def mk(w):
+            # a tensor is transposed where it lies, so the host gets the
+            # weight C-contiguous and pruning tiles it without a copy
+            w = _host(w.T.contiguous()) if isinstance(w, torch.Tensor) \
+                else np.asarray(w).T
             return SparseMatmul.from_dense(
-                _host(w).T, bm=bm, bk=bk, keep_density=keep_density,
+                w, bm=bm, bk=bk, keep_density=keep_density,
                 t_density=t_density, path=path, stream_limit=stream_limit,
                 device=device)
 
@@ -427,7 +447,10 @@ class SparseFFN:
         A 3-D input runs the batched path: one launch per matrix for the
         whole batch (K5-b on the bsr path, one stack through the stream on
         the spgemm path), replacing the caller-side per-sequence loop.  The
-        result is a transposed view.
+        result is a transposed view.  On a bf16 x each step keeps the
+        reference's dtype (torch promotes as JAX does): bf16 through three
+        bsr matmuls, f32 from the first matmul on the dense or spgemm path
+        onward (a bf16 operand times an f32 one is f32).
         """
         silu = torch.nn.functional.silu
         if x.dim() == 3:

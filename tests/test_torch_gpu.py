@@ -4,8 +4,9 @@ CPU, on the per-group path and on the fused path (K1, forward and
 backward); the batched kernels K1-b … K4-b against their plain versions
 and, slice by slice, against the unbatched kernels, and the batched
 executes' host waits; K5 and K5-b (the BSR kernel) against their plain
-versions and each other, and the sparse FFN on the card against the same
-FFN on the CPU; the torch stream (``backend="torch"``) on the card
+versions and each other, in f32 and on bf16 operands (launched, never
+widened around the f32 kernel), and the sparse FFN on the card against the
+same FFN on the CPU, on f32 and bf16 activations; the torch stream (``backend="torch"``) on the card
 against its CPU run and the fused engine on integer values, bit-stable and
 batched == looped on real ones, with no host wait; and the gradient of
 ``[B, nnz]`` stacks on both stream engines against a loop; and the tiled
@@ -992,6 +993,125 @@ def test_bsr_layout_model_equals_the_kernels_choice(cuda):
             (32, 128, 130, 132, 200, 256, 2048), (1, 3, 8), (True, False)):
         args = (n_rb, bm, bk, n, batch, aligned)
         assert kernels.bsr_layout(*args) == model_layout(*args), args
+
+
+def test_bsr_layout_model_equals_the_kernels_choice_on_bf16_x(cuda):
+    """The same on bf16 x, whose 8x8 instances need N a multiple of 8 and
+    whose stages hold twice the rows."""
+    from torch_bsr_walk import model_layout
+
+    blocks = ((8, 8), (16, 16), (3, 5), (8, 256))
+    for n_rb, (bm, bk), n, batch, aligned in itertools.product(
+            (1, 37, 3072), blocks, (32, 128, 130, 132, 136, 200, 2048),
+            (1, 8), (True, False)):
+        args = (n_rb, bm, bk, n, batch, aligned, torch.bfloat16)
+        assert kernels.bsr_layout(*args) == model_layout(*args), args
+
+
+# K5 and K5-b on bf16 x, with f32 or bf16 blocks: N = 132 is aligned for f32
+# but not for bf16 (the generic instance), N = 136 for both (the 128-column
+# instance); the full width of a bsr-path FFN is chip_smoke.py's
+BF16_PAIRS = [(torch.float32, torch.bfloat16),
+              (torch.bfloat16, torch.bfloat16)]
+
+
+def _bf16_bsr_operands(dev, n, w_dtype, integer, batch=8, seed=24):
+    n_rb, n_cb = 37, 70
+    rng = np.random.default_rng([seed, n, integer])
+    kept = rng.uniform(size=(n_rb, n_cb)) < 0.3
+    kept[[3, 4, 36]] = False
+    draw = ((lambda s: rng.integers(-2, 3, s)) if integer
+            else rng.standard_normal)
+    w = (draw((n_rb, 8, n_cb, 8)).astype(np.float32)
+         * kept[:, None, :, None]).reshape(n_rb * 8, n_cb * 8)
+    bi, bnnz, blocks = _bsr_lift(w, 8, 8, dev)
+    xs = torch.from_numpy(draw((batch, n_cb * 8, n)).astype(np.float32))
+    return w, (bi, bnnz, blocks.to(w_dtype)), xs.to(dev).bfloat16()
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("integer", [True, False], ids=["int", "real"])
+@pytest.mark.parametrize("n", [132, 136])
+@pytest.mark.parametrize("w_dtype,x_dtype", BF16_PAIRS,
+                         ids=["f32_blocks", "bf16_blocks"])
+def test_bsr_kernel_on_bf16_equals_plain(cuda, w_dtype, x_dtype, n, integer,
+                                         batch):
+    """Each bf16 launch equals its plain version bit for bit (one body,
+    the same f32 order, one rounding at the store), K5-b's slices equal K5,
+    and integer values give the f64 product rounded once to bf16."""
+    w, ops, xs = _bf16_bsr_operands(cuda, n, w_dtype, integer, batch)
+    assert kernels.bsr_layout(37, 8, 8, n, batch, True, x_dtype)[
+        "instance"] == ("generic" if n == 132 else "8x8")
+    before = (kernels.bsr_spmm_batched.n_launches,
+              kernels.bsr_spmm_batched.n_launches_bf16)
+    got = _check_bsr_both(ops, xs)
+    assert (kernels.bsr_spmm_batched.n_launches,
+            kernels.bsr_spmm_batched.n_launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.bfloat16
+    if integer:
+        want = torch.from_numpy(w).double().to(cuda) @ xs.double()
+        assert torch.equal(got, want.bfloat16())
+
+
+@pytest.mark.parametrize("w_dtype,x_dtype", BF16_PAIRS,
+                         ids=["f32_blocks", "bf16_blocks"])
+def test_bsr_kernel_on_bf16_launches_without_widening(cuda, w_dtype,
+                                                      x_dtype):
+    """A bf16 call on the card launches the kernel (both counts rise) and
+    allocates its bf16 output and nothing else: no f32 copy of x or of the
+    output around an f32 launch."""
+    _, ops, xs = _bf16_bsr_operands(cuda, 256, w_dtype, False, batch=4)
+    out_bytes = ops[0].shape[0] * 8 * xs.shape[2] * 2
+    for fn, x, n_out in ((kernels.bsr_spmm, xs[0], out_bytes),
+                         (kernels.bsr_spmm_batched, xs, 4 * out_bytes)):
+        torch.cuda.synchronize()
+        before = (fn.n_launches, fn.n_launches_bf16)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        base = torch.cuda.memory_allocated(cuda)
+        got = fn(*ops, x)
+        torch.cuda.synchronize()
+        assert (fn.n_launches, fn.n_launches_bf16) == (before[0] + 1,
+                                                       before[1] + 1)
+        assert got.dtype == torch.bfloat16
+        assert torch.cuda.max_memory_allocated(cuda) - base \
+            <= -(-n_out // 512) * 512
+        assert torch.equal(got, (kernels.bsr_spmm_plain if x.dim() == 2
+                                 else kernels.bsr_spmm_batched_plain)(
+            *ops, x))
+
+
+@pytest.mark.parametrize("keep", [0.9, 0.25])
+def test_sparse_ffn_on_bf16_card_equals_cpu(cuda, keep):
+    """smoke(granite-20b) widths on bf16 activations: the FFN's dtype is
+    the reference's (bf16 on the bsr path, f32 on the dense path), its
+    launches bf16 K5 / K5-b on the bsr path and none on the dense path,
+    and its values within 1e-2 normwise of the same FFN on the CPU (SiLU
+    and the matmuls round to bf16 in other places on the two devices)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import SparseFFN, ffn_table, init_params, smoke
+
+    cfg = smoke(ARCHS["granite-20b"])
+    p = init_params(ffn_table(cfg), torch.Generator().manual_seed(14),
+                    device="cpu")
+    x = torch.randn((3, 16, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(15)).bfloat16()
+    on_cpu = SparseFFN.from_params(p, keep_density=keep, device="cpu")
+    on_card = SparseFFN.from_params(p, keep_density=keep, device=cuda)
+    bsr = on_card.gate.path == "bsr"
+    kernels.reset_launch_counts()
+    got3 = on_card(x.to(cuda))
+    got2 = on_card(x[0].to(cuda))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    for name in ("bsr_spmm", "bsr_spmm_batched"):
+        assert counts[name] == counts[f"{name}_bf16"] == (3 if bsr else 0)
+    for got, want in ((got3, on_cpu(x)), (got2, on_cpu(x[0]))):
+        assert got.dtype == want.dtype == (torch.bfloat16 if bsr
+                                           else torch.float32)
+        err = (got.cpu().double() - want.double()).norm() / want.double(
+            ).norm()
+        assert float(err) <= 1e-2
 
 
 # --- the torch stream (backend="torch") and the batched gradient ------------

@@ -11,32 +11,42 @@ import torch
 GROUP_UNITS, STAGES, STAGE_FLOATS, SLAB_ROWS = 16, 3, 16384, 8
 
 
-def model_layout(n_rb, bm, bk, n, batch=1, aligned=True) -> dict:
+def model_layout(n_rb, bm, bk, n, batch=1, aligned=True,
+                 x_dtype=torch.float32) -> dict:
     """The launch's shape that ``csrc/bsr_spmm.cu`` chooses, with the keys
     of ``kernels.bsr_layout``: 8 columns a lane on 8x8 blocks where N is a
-    multiple of 256, 4 on other 8x8 operands with N a multiple of 4, x and
-    the output 16-byte aligned and x with rows; 1 (the generic instance)
-    on any other."""
+    multiple of 256, 4 on other 8x8 operands whose row of x is a multiple
+    of 16 bytes (N a multiple of 4 in f32, of 8 in bf16), x and the output
+    16-byte aligned and x with rows; 1 (the generic instance) on any other.
+    A stage holds STAGE_FLOATS floats' bytes of x: twice the rows in
+    bf16."""
+    size = torch.empty((), dtype=x_dtype).element_size()
     slabs = -(-bm // SLAB_ROWS)
     groups = -(-(n_rb * slabs) // GROUP_UNITS)
-    fixed = bm == 8 and bk == 8 and n % 4 == 0 and aligned
+    fixed = bm == 8 and bk == 8 and n * size % 16 == 0 and aligned
     vec = 1 if not fixed else 8 if n % 256 == 0 else 4
     cols = 32 * vec
     return dict(instance="generic" if vec == 1 else "8x8", vec=vec,
-                cols=cols, chunk=STAGE_FLOATS // cols // bk, slabs=slabs,
-                groups=groups, ctas=groups * -(-n // cols) * batch,
+                cols=cols, chunk=STAGE_FLOATS * 4 // size // cols // bk,
+                slabs=slabs, groups=groups,
+                ctas=groups * -(-n // cols) * batch,
                 group_units=GROUP_UNITS, stages=STAGES)
 
 
 def walk_model(block_idx, block_nnz, blocks, xs, *, group=None,
                stage_floats=None):
-    """out [B, n_rb * bm, N] as the kernel computes it, step by step."""
+    """out [B, n_rb * bm, N] as the kernel computes it, step by step: bf16
+    operands widened where they are read, the f32 sums rounded once to
+    x's dtype where they are stored."""
     n_rb, _, bm, bk = blocks.shape
     batch, k_dim, n = xs.shape
-    lay = model_layout(n_rb, bm, bk, n, batch, k_dim > 0)
+    lay = model_layout(n_rb, bm, bk, n, batch, k_dim > 0, xs.dtype)
     group = group or GROUP_UNITS
     cols = lay["cols"]
-    chunk = (stage_floats or STAGE_FLOATS) // cols // bk
+    chunk = ((stage_floats or STAGE_FLOATS) * 4 // xs.element_size()
+             // cols // bk)
+    dtype = xs.dtype
+    blocks, xs = blocks.float(), xs.float()
     slab = SLAB_ROWS
     slabs = lay["slabs"]
     n_units = n_rb * slabs
@@ -82,4 +92,4 @@ def walk_model(block_idx, block_nnz, blocks, xs, *, group=None,
                     r1 = min(slab, bm - s * slab)
                     out[elem, i * bm + s * slab: i * bm + s * slab + r1,
                         col0: col0 + cols] = acc[u][:r1, : n - col0]
-    return out
+    return out.to(dtype)

@@ -4,6 +4,7 @@ numpy arrays, and the comparisons the tests state."""
 
 from __future__ import annotations
 
+import ml_dtypes
 import numpy as np
 import torch
 
@@ -28,6 +29,14 @@ REAL_RTOL = REAL_ATOL = 1e-6
 # values may differ by reassociation, so they are held to the reference's
 # own fused-engine tolerance (tests/test_fused_engine.py)
 FUSED_RTOL, FUSED_ATOL = 1e-5, 1e-6
+
+
+def bf16_to_reference(t: torch.Tensor) -> np.ndarray:
+    """A torch bf16 tensor as the JAX package's bf16 numpy array
+    (``ml_dtypes.bfloat16``), value for value: widened to f32 in torch and
+    narrowed back in numpy, both exact.  ``convert.bf16_from_reference``
+    goes the other way."""
+    return t.float().cpu().numpy().astype(ml_dtypes.bfloat16)
 
 
 def to_ref(m: CSC) -> RefCSC:
