@@ -3,42 +3,56 @@
 source of the kernel, on one NVIDIA card, at granite-20b's sparse FFN.
 
     python3 benchmarks/torch_bsr_shapes.py [--set NAME=K=V,K=V ...]
-        [--ablate fma|no_x|no_w|no_copy ...] [--baseline PATH]
+        [--ablate fma|no_copy|no_split|no_ldmatrix|no_stage_out|no_swizzle
+        ...] [--baseline PATH] [--pair f32|f32_bf16|bf16_bf16 ...]
         [--rounds N] [--reps N] [--seed N]
 
 Builds ``src/repro_torch/csrc/bsr_spmm.cu`` as it stands ("current"), once
 per ``--set`` with its ``constexpr int`` constants replaced (for example
 ``--set s6=kStages=6,kStageFloats=8192``), once per ``--ablate`` with one
 part of the work changed or left out (timing only, the results are wrong
-by construction: "fma" adds each product with one FMA instead of a
-multiply and an add, "no_x" reads no x from shared memory in the inner
-loop, the weights standing in, "no_w" reads no weights from shared memory
-there, the lane's own two standing in, "no_copy" stages no x, the electing
-warp only arriving), and ``--baseline``, another source of K5 with the same
-C entry point (for example the parent commit's, unpacked with ``git
-archive``).  Every build is driven through the wrappers
-(``kernels.bsr_spmm`` and ``bsr_spmm_batched``), its library swapped in
-for the port's.  granite-20b's gate, up and down weights (from ``--seed``) are
-pruned to keep 0.25 of their 8x8 blocks, as the sparse FFN's bsr path
-serves them, and a fourth weight of gate's shape keeps the same 192 random
-block-columns in every block-row ("balanced": every warp of a CTA has the
-same blocks in every chunk, so no warp waits for another).  Each build runs
-K5 on the prefill's operands (x [K, 2048]) and K5-b on the batch's ([8, K,
-128]), every output on ``torch.empty``; a 128-column slice of each output
-(one activation set of K5-b's) must equal the plain version on that slice
-of x bit for bit.  Then ``--rounds`` rounds time every build in turn (A, B,
-..., then the next round), each time CUDA events around ``--reps`` launches
-queued behind a device-side wait (``chip_smoke.event_ms``).  One JSON line a build
-gives its registers and spills (``-Xptxas -v``), one a (weight, operand)
-its multiply-adds, bytes (each input read once, the output written once),
-the bound of the exact order (twice the operation bound: a multiply and an
-add a product) and each build's times, one a weight the balance model of
-each build's walk at the launch shape that the build itself reports
-(``repro_bsr_layout``, so a ``--set`` of its constants moves it too; the
-baseline has none): how much longer its CTAs take when each warp must
-wait at each chunk's ring stage for the slowest one, against the slowest
-warp alone and against perfect balance (host numpy); and a last one the
-card.  The builds go to ``build/bsr_shapes/`` (git-ignored).
+by construction except for "no_swizzle"): on the SIMT body (f32 x),
+"fma" adds each product with one FMA instead of a multiply and an add;
+on both bodies "no_copy" stages no x, the electing lane only arriving; on
+the tensor-core body (8x8 blocks on bf16 x) "no_split" runs the hi part's
+MMAs only (f32 blocks: one pass where there are three), "no_ldmatrix"
+takes the A fragments from registers instead of shared memory,
+"no_stage_out" stores each sum straight from its lane (2-byte stores)
+instead of through shared memory in 16-byte rows, and "no_swizzle"
+stages x without the 128-byte swizzle and reads it unswizzled (the bank
+conflicts that the swizzle removes); and ``--baseline``, another source
+of K5 with the same C entry point (for example the parent commit's,
+unpacked with ``git archive``).  Every build is driven through the
+wrappers (``kernels.bsr_spmm`` and ``bsr_spmm_batched``), its library
+swapped in for the port's.  granite-20b's gate, up and down weights (from
+``--seed``) are pruned to keep 0.25 of their 8x8 blocks, as the sparse
+FFN's bsr path serves them, and a fourth weight of gate's shape keeps the
+same 192 random block-columns in every block-row ("balanced": every warp
+of a CTA has the same blocks in every chunk, so no warp waits for
+another).  Each ``--pair`` (blocks' and x's dtypes: "f32" both f32, the
+default; "f32_bf16" the FFN's f32 blocks on bf16 x; "bf16_bf16") runs K5
+on the prefill's operands (x [K, 2048]) and K5-b on the batch's ([8, K,
+128]), every output on ``torch.empty``; on a 128-column slice of x (one
+activation set of K5-b's) each non-ablated build's output must equal the
+plain version bit for bit where the build reports a SIMT instance, and be
+within ``kernels.bsr_mma_check``'s bound where it reports the
+tensor-core one (``instance "mma"``), and on integer-valued blocks and x
+equal the plain version bit for bit in every build.  Then ``--rounds``
+rounds time every build in turn (A, B, ..., then the next round), each
+time CUDA events around ``--reps`` launches queued behind a device-side
+wait (``chip_smoke.event_ms``).  One JSON line a build gives its
+registers and spills (``-Xptxas -v``), one a (weight, operand, pair) its
+multiply-adds, bytes (each input read once, the output written once),
+its bound (f32 SIMT operations on f32 x; on bf16 x the tensor cores' bf16
+rate, three passes for f32 blocks), the bound of the exact order on f32
+x (twice the operation bound: a multiply and an add a product) and each
+build's times, one a weight the balance model of each build's walk at
+the launch shape that the build itself reports (``repro_bsr_layout``, so
+a ``--set`` of its constants moves it too; the baseline has none): how
+much longer its CTAs take when each warp must wait at each chunk's ring
+stage for the slowest one, against the slowest warp alone and against
+perfect balance (host numpy); and a last one the card.  The builds go to
+``build/bsr_shapes/`` (git-ignored).
 """
 
 from __future__ import annotations
@@ -56,24 +70,53 @@ from kernel_builds import CSRC, ROOT, ablated, build_all, read_sources, \
 ARCH, KEEP, BLOCK = "granite-20b", 0.25, 8
 PREFILL, BATCH, BATCH_TOKENS = 2048, 8, 128
 CHECK_COLS = 128
-F32_FLOPS, MEM_BYTES = 67e12, 3.35e12   # the H100 SXM's published peaks
+# the H100 SXM's published peaks
+F32_FLOPS, BF16_FLOPS, MEM_BYTES = 67e12, 989e12, 3.35e12
+#: --pair: (blocks' dtype, x's dtype)
+PAIRS = {"f32": ("float32", "float32"), "f32_bf16": ("float32", "bfloat16"),
+         "bf16_bf16": ("bfloat16", "bfloat16")}
 
+_TILE_LOAD = "ldsm_x4_t(a[q], base + (m0 >> 2) * kRegionBytes + off[q]);"
+_TILE_LOAD8 = "ldsm_x2_t(a[q], base + (m0 >> 2) * kRegionBytes + off[q]);"
+_STAGE_OUT = """        o[2 * t][tok] = __float2bfloat16_rn(acc[mt][0]);
+        o[2 * t + 1][tok] = __float2bfloat16_rn(acc[mt][1]);
+        o[2 * t][tok + 8] = __float2bfloat16_rn(acc[mt][2]);
+        o[2 * t + 1][tok + 8] = __float2bfloat16_rn(acc[mt][3]);"""
+_DIRECT_OUT = """        const int cg = col0 + 64 * r + tok;
+        if (cg < n) {
+          orow[(2 * t) * n + cg] = __float2bfloat16_rn(acc[mt][0]);
+          orow[(2 * t + 1) * n + cg] = __float2bfloat16_rn(acc[mt][1]);
+        }
+        if (cg + 8 < n) {
+          orow[(2 * t) * n + cg + 8] = __float2bfloat16_rn(acc[mt][2]);
+          orow[(2 * t + 1) * n + cg + 8] = __float2bfloat16_rn(acc[mt][3]);
+        }"""
 
 # what each ablation replaces in the kernel's source
 ABLATIONS = {
     "fma": (("acc[r][v] = __fadd_rn(acc[r][v], __fmul_rn(wr[r], xv[v]));",
              "acc[r][v] = fmaf(wr[r], xv[v], acc[r][v]);"),),
-    "no_x": (("read_x<kVec>(xs + kk * kCols, xv);",
-              "for (int v = 0; v < kVec; ++v) xv[v] = v & 1 ? lo4.x : hi4.y;"),
-             ("xv[0] = widen(xs[kk * kCols]);", "xv[0] = lo4.x;")),
-    "no_w": (("const float4 lo4 = w4[2 * kk];",
-              "const float4 lo4 = make_float4(w0, w1, w0, w1);"),
-             ("const float4 hi4 = w4[2 * kk + 1];",
-              "const float4 hi4 = make_float4(w1, w0, w1, w0);")),
     "no_copy": (("bar_arrive_expect(&sm.full[s], kStageFloats * 4);",
                  "bar_arrive_expect(&sm.full[s], 0);"),
                 ("tma_load_3d(sm.x[s], &x_map,",
-                 "if (false) tma_load_3d(sm.x[s], &x_map,")),
+                 "if (false) tma_load_3d(sm.x[s], &x_map,"),
+                ("bar_arrive_expect(&sm.full[s], live_regions * kRegionBytes);",
+                 "bar_arrive_expect(&sm.full[s], 0);"),
+                ("tma_load_3d(sm.x[s] + r * kRegionBytes, &x_map,",
+                 "if (false) tma_load_3d(sm.x[s] + r * kRegionBytes, &x_map,")),
+    "no_split": (("const bool mid = kSplit && any_part(pa[1], pb[1]);",
+                  "const bool mid = false;"),
+                 ("const bool low = kSplit && any_part(pa[2], pb[2]);",
+                  "const bool low = false;")),
+    "no_ldmatrix": ((_TILE_LOAD, "a[q][0] = a[q][1] = a[q][2] = a[q][3] = "
+                     "base + off[q];"),
+                    (_TILE_LOAD8, "a[q][0] = a[q][1] = base + off[q];")),
+    "no_stage_out": ((_STAGE_OUT, _DIRECT_OUT),
+                     ("        if (col < n) {\n          *reinterpret_cast",
+                      "        if (false) {\n          *reinterpret_cast")),
+    "no_swizzle": (("CU_TENSOR_MAP_SWIZZLE_128B", "CU_TENSOR_MAP_SWIZZLE_NONE"),
+                   ("static_cast<unsigned>(((lane >> 3) & 1) ^ r8);",
+                    "static_cast<unsigned>((lane >> 3) & 1);")),
 }
 
 
@@ -144,19 +187,45 @@ def balance_model(block_idx, block_nnz, group: int, chunk: int,
                 mean_warp=float(per_warp.mean(axis=1).sum()))
 
 
-def work(ops, k_dim: int, batch: int, n: int) -> dict:
-    """Multiply-adds and bytes of one launch, its bound and the bound of
-    the exact order."""
+def work(ops, k_dim: int, batch: int, n: int, pair: str) -> dict:
+    """Multiply-adds and bytes of one launch on the ``pair``'s dtypes, its
+    bound (f32 SIMT operations on f32 x; on bf16 x the tensor cores' rate,
+    one pass a bf16 part of a weight) and, on f32 x, the bound of the exact
+    order."""
     block_idx, block_nnz, blocks = ops
     n_rb, _, bm, bk = blocks.shape
+    w_size, x_size = (4 if d == "float32" else 2 for d in PAIRS[pair])
     kept = int(block_nnz.sum())
     macs = batch * kept * bm * bk * n
-    nbytes = (kept * (bm * bk + 1) * 4 + n_rb * 4
-              + batch * (k_dim * n + n_rb * bm * n) * 4)
-    return dict(multiply_adds=macs, bytes=nbytes,
-                bound_ms=max(nbytes / MEM_BYTES, 2 * macs / F32_FLOPS) * 1e3,
-                exact_order_bound_ms=max(nbytes / MEM_BYTES,
-                                         4 * macs / F32_FLOPS) * 1e3)
+    nbytes = (kept * (bm * bk * w_size + 4) + n_rb * 4
+              + batch * (k_dim * n + n_rb * bm * n) * x_size)
+    if x_size == 4:
+        return dict(multiply_adds=macs, bytes=nbytes, bound_ms=max(
+            nbytes / MEM_BYTES, 2 * macs / F32_FLOPS) * 1e3,
+            exact_order_bound_ms=max(nbytes / MEM_BYTES,
+                                     4 * macs / F32_FLOPS) * 1e3)
+    passes = 3 if w_size == 4 else 1
+    return dict(multiply_adds=macs, bytes=nbytes, passes=passes,
+                bound_ms=max(nbytes / MEM_BYTES,
+                             2 * passes * macs / BF16_FLOPS) * 1e3)
+
+
+def check(ops, xs, lay, build, label):
+    """A build's output on a slice against the plain version: bit for bit
+    on a SIMT instance, within the bound on the tensor-core one."""
+    import torch
+    from repro_torch import kernels
+
+    got = run(ops, xs)
+    want = kernels.bsr_spmm_batched_plain(*ops, xs)
+    if lay.get("instance") == "mma":
+        rep = kernels.bsr_mma_check(*ops, xs, got, want)
+        ok = rep["ok"]
+    else:
+        ok = torch.equal(got, want)
+    if not ok:
+        raise SystemExit(f"FAIL: build {build} differs from the plain "
+                         f"version on {label}")
 
 
 def main(argv=None) -> int:
@@ -166,10 +235,12 @@ def main(argv=None) -> int:
     ap.add_argument("--ablate", action="append", default=[],
                     choices=sorted(ABLATIONS))
     ap.add_argument("--baseline")
+    ap.add_argument("--pair", action="append", choices=sorted(PAIRS))
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    pairs = args.pair or ["f32"]
     sys.path.insert(0, os.path.join(ROOT, "src"))
     sys.path.insert(0, ROOT)
     import torch
@@ -209,36 +280,50 @@ def main(argv=None) -> int:
         print(json.dumps(dict(weight=name, balance_model=model)), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    ops = {name: tuple(torch.from_numpy(a).to(dev) for a in w)
-           for name, (w, _) in weights.items()}
-    cases = [(name, shape, torch.randn(shape, generator=gen, device=dev))
-             for name in weights for shape in shapes[name]]
-    for name, shape, xs in cases:
+    f32_ops = {name: tuple(torch.from_numpy(a).to(dev) for a in w)
+               for name, (w, _) in weights.items()}
+    cases = []   # (weight, shape, pair, ops, xs)
+    for pair in pairs:
+        w_dtype, x_dtype = (getattr(torch, d) for d in PAIRS[pair])
+        for name in weights:
+            ops = f32_ops[name][:2] + (f32_ops[name][2].to(w_dtype),)
+            for shape in shapes[name]:
+                cases.append((name, shape, pair, ops, torch.randn(
+                    shape, generator=gen, device=dev).to(x_dtype)))
+    for name, shape, pair, ops, xs in cases:
         cut = xs[:1, :, :CHECK_COLS].contiguous()
-        want = kernels.bsr_spmm_batched_plain(*ops[name], cut)
+        ints = ops[:2] + (torch.randint(-2, 3, ops[2].shape, generator=gen,
+                                        device=dev).to(ops[2].dtype),)
+        cut_int = torch.randint(-2, 3, cut.shape, generator=gen,
+                                device=dev).to(cut.dtype)
+        want_int = kernels.bsr_spmm_batched_plain(*ints, cut_int)
         for build, lib in libs.items():
             if build.startswith("ablate_"):
                 continue
             with using(lib):
-                got = run(ops[name], xs)[:1, :, :CHECK_COLS]
-            if not torch.equal(got, want):
-                raise SystemExit(f"FAIL: build {build} differs from the "
-                                 f"plain version on {name} {list(shape)}")
-    times = {(name, shape): {build: [] for build in libs}
-             for name, shape, _ in cases}
+                lay = (kernels.bsr_layout(ops[2].shape[0], BLOCK, BLOCK,
+                                          CHECK_COLS, 1, True, xs.dtype)
+                       if hasattr(lib, "repro_bsr_layout") else {})
+                label = f"{name} {list(shape)} {pair}"
+                check(ops, cut, lay, build, label)
+                if not torch.equal(run(ints, cut_int), want_int):
+                    raise SystemExit(f"FAIL: build {build} differs from the "
+                                     f"plain version on integers, {label}")
+    times = {(name, shape, pair): {build: [] for build in libs}
+             for name, shape, pair, _, _ in cases}
     for _ in range(args.rounds):
-        for name, shape, xs in cases:
+        for name, shape, pair, ops, xs in cases:
             for build, lib in libs.items():
                 with using(lib):
-                    times[name, shape][build].append(cs.event_ms(
-                        lambda: run(ops[name], xs), args.reps))
-    for name, shape, xs in cases:
+                    times[name, shape, pair][build].append(cs.event_ms(
+                        lambda: run(ops, xs), args.reps))
+    for name, shape, pair, ops, xs in cases:
         print(json.dumps(dict(
             weight=name, x=list(shape) if shape[0] > 1 else list(shape[1:]),
-            kernel="K5-b" if shape[0] > 1 else "K5",
-            kept_blocks=int(ops[name][1].sum()),
-            **work(*weights[name], shape[0], shape[2]),
-            event_ms=times[name, shape])), flush=True)
+            kernel="K5-b" if shape[0] > 1 else "K5", pair=pair,
+            kept_blocks=int(ops[1].sum()),
+            **work(ops, weights[name][1], shape[0], shape[2], pair),
+            event_ms=times[name, shape, pair])), flush=True)
     print(json.dumps({"card": cs.card_line(),
                       "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0

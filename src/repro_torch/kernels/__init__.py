@@ -9,9 +9,12 @@
 - hash_spgemm.py  K4 HASH lock-step SpGEMM: two warps per lane, its table
                   in shared memory (or, for h >= 32768, in device memory)
 - bsr_spmm.py     K5 padded-BSR x dense: a CTA a group of 16 block-rows,
-                  x staged in shared memory chunk by chunk, an 8-row
-                  register tile a lane; and the host converter
-                  bsr_from_dense
+                  x staged in shared memory chunk by chunk; 8x8 blocks on
+                  bf16 x on the tensor cores (mma.sync, a warp's block-row
+                  as the MMA's 8 columns, within bsr_mma_tolerance of the
+                  plain version), every other operand on the SIMT body (an
+                  8-row register tile a lane, bit for bit); and the host
+                  converter bsr_from_dense
 - ref.py          plain-torch oracles for the tests
 - ops.py          group-level wrappers + spgemm_cuda
 - _build.py       nvcc build of csrc/ and the ctypes binding
@@ -24,12 +27,16 @@ runs its plain PyTorch version for CPU tensors, and counts its launches in
 """
 
 from repro_torch.kernels.bsr_spmm import (
+    bsr_abs_sums,
     bsr_from_dense,
     bsr_layout,
+    bsr_mma_check,
+    bsr_mma_tolerance,
     bsr_spmm,
     bsr_spmm_batched,
     bsr_spmm_batched_plain,
     bsr_spmm_plain,
+    split_bf16x3,
 )
 from repro_torch.kernels.fused_stream import (
     fused_stream,
@@ -83,8 +90,11 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNELS",
+    "bsr_abs_sums",
     "bsr_from_dense",
     "bsr_layout",
+    "bsr_mma_check",
+    "bsr_mma_tolerance",
     "bsr_spmm",
     "bsr_spmm_batched",
     "bsr_spmm_batched_plain",
@@ -108,4 +118,5 @@ __all__ = [
     "spars_spgemm_batched_plain",
     "spars_spgemm_plain",
     "spgemm_cuda",
+    "split_bf16x3",
 ]

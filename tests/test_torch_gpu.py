@@ -48,7 +48,10 @@ machine cannot import::
 
 Each cell takes its products in one order in the kernel and in its plain
 version, with no fused multiply-add, so they must agree exactly — on
-real-valued inputs too.
+real-valued inputs too.  The one exception is K5's tensor-core body (8x8
+blocks on bf16 x), which sums in the MMA's order: it is held to the bound
+``kernels.bsr_mma_check`` derives, and exactly on integer values, batched
+against looped and run against run.
 """
 
 import itertools
@@ -1009,8 +1012,10 @@ def test_bsr_layout_model_equals_the_kernels_choice_on_bf16_x(cuda):
 
 
 # K5 and K5-b on bf16 x, with f32 or bf16 blocks: N = 132 is aligned for f32
-# but not for bf16 (the generic instance), N = 136 for both (the 128-column
-# instance); the full width of a bsr-path FFN is chip_smoke.py's
+# but not for bf16 (the generic instance, SIMT, bit for bit), N = 136 and
+# 256 take the tensor-core body (128-column tiles, the second 8 wide, and
+# one 256-column tile), held to its bound; the full width of a bsr-path FFN
+# is chip_smoke.py's
 BF16_PAIRS = [(torch.float32, torch.bfloat16),
               (torch.bfloat16, torch.bfloat16)]
 
@@ -1029,25 +1034,64 @@ def _bf16_bsr_operands(dev, n, w_dtype, integer, batch=8, seed=24):
     return w, (bi, bnnz, blocks.to(w_dtype)), xs.to(dev).bfloat16()
 
 
+def _check_bsr_mma(ops, xs):
+    """The tensor-core body: K5-b on xs and K5 on each slice within the
+    bound of their plain versions (``kernels.bsr_mma_check``), K5-b's
+    slices bit for bit K5's, a second launch bit for bit the first, each
+    launch counted (and as bf16).  Returns (K5-b's output, the largest
+    |kernel - plain| / S)."""
+    assert kernels.bsr_layout(ops[0].shape[0], 8, 8, xs.shape[2],
+                              xs.shape[0], True, xs.dtype)["instance"] \
+        == "mma"
+    before = (kernels.bsr_spmm_batched.n_launches,
+              kernels.bsr_spmm_batched.n_launches_bf16)
+    got_b = kernels.bsr_spmm_batched(*ops, xs, bn=xs.shape[2])
+    torch.cuda.synchronize()
+    assert (kernels.bsr_spmm_batched.n_launches,
+            kernels.bsr_spmm_batched.n_launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    assert got_b.dtype == torch.bfloat16
+    rep = kernels.bsr_mma_check(
+        *ops, xs, got_b, kernels.bsr_spmm_batched_plain(*ops, xs))
+    assert rep["ok"], rep
+    assert torch.equal(kernels.bsr_spmm_batched(*ops, xs, bn=xs.shape[2]),
+                       got_b)
+    ratio = rep["max_err_over_sum"]
+    for b in range(xs.shape[0]):
+        got = kernels.bsr_spmm(*ops, xs[b], bn=xs.shape[2])
+        torch.cuda.synchronize()
+        assert torch.equal(got, got_b[b])
+        rep = kernels.bsr_mma_check(
+            *ops, xs[b][None], got[None],
+            kernels.bsr_spmm_plain(*ops, xs[b])[None])
+        assert rep["ok"], rep
+        ratio = max(ratio, rep["max_err_over_sum"])
+    return got_b, ratio
+
+
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("integer", [True, False], ids=["int", "real"])
-@pytest.mark.parametrize("n", [132, 136])
+@pytest.mark.parametrize("n", [132, 136, 256])
 @pytest.mark.parametrize("w_dtype,x_dtype", BF16_PAIRS,
                          ids=["f32_blocks", "bf16_blocks"])
 def test_bsr_kernel_on_bf16_equals_plain(cuda, w_dtype, x_dtype, n, integer,
                                          batch):
-    """Each bf16 launch equals its plain version bit for bit (one body,
-    the same f32 order, one rounding at the store), K5-b's slices equal K5,
-    and integer values give the f64 product rounded once to bf16."""
+    """Each bf16 launch against its plain version: the generic instance
+    (N = 132) bit for bit, the tensor-core body (N = 136, 256) within its
+    bound; K5-b's slices equal K5 bit for bit, and integer values give the
+    f64 product rounded once to bf16 on both bodies."""
     w, ops, xs = _bf16_bsr_operands(cuda, n, w_dtype, integer, batch)
     assert kernels.bsr_layout(37, 8, 8, n, batch, True, x_dtype)[
-        "instance"] == ("generic" if n == 132 else "8x8")
-    before = (kernels.bsr_spmm_batched.n_launches,
-              kernels.bsr_spmm_batched.n_launches_bf16)
-    got = _check_bsr_both(ops, xs)
-    assert (kernels.bsr_spmm_batched.n_launches,
-            kernels.bsr_spmm_batched.n_launches_bf16) == (
-        before[0] + 1, before[1] + 1)
+        "instance"] == ("generic" if n == 132 else "mma")
+    if n == 132:
+        before = (kernels.bsr_spmm_batched.n_launches,
+                  kernels.bsr_spmm_batched.n_launches_bf16)
+        got = _check_bsr_both(ops, xs)
+        assert (kernels.bsr_spmm_batched.n_launches,
+                kernels.bsr_spmm_batched.n_launches_bf16) == (
+            before[0] + 1, before[1] + 1)
+    else:
+        got, _ = _check_bsr_mma(ops, xs)
     assert got.dtype == torch.bfloat16
     if integer:
         want = torch.from_numpy(w).double().to(cuda) @ xs.double()
@@ -1076,9 +1120,112 @@ def test_bsr_kernel_on_bf16_launches_without_widening(cuda, w_dtype,
         assert got.dtype == torch.bfloat16
         assert torch.cuda.max_memory_allocated(cuda) - base \
             <= -(-n_out // 512) * 512
-        assert torch.equal(got, (kernels.bsr_spmm_plain if x.dim() == 2
-                                 else kernels.bsr_spmm_batched_plain)(
-            *ops, x))
+        xb = x if x.dim() == 3 else x[None]
+        want = kernels.bsr_spmm_batched_plain(*ops, xb)
+        assert kernels.bsr_mma_check(*ops, xb, got.reshape(want.shape),
+                                     want)["ok"]
+
+
+def _chunk_pattern_operands(dev, w_dtype, seed=25):
+    """Block-row 0 keeps block-columns 0, 2, 15 of chunk 0 (16 block-columns
+    a chunk at 256 columns of bf16): a k16 pair then a k8, 15 and 16
+    consecutive across the border, then 16, 17, 18, 20 of chunk 1 (two
+    pairs); block-row 1 keeps one block; block-row 2 every block of 3
+    chunks; the rest random.  Integer values."""
+    n_rb, n_cb = 20, 48
+    rng = np.random.default_rng(seed)
+    kept = rng.uniform(size=(n_rb, n_cb)) < 0.3
+    kept[:3] = False
+    kept[0, [0, 2, 15, 16, 17, 18, 20]] = True
+    kept[1, 9] = True
+    kept[2] = True
+    w = (rng.integers(-2, 3, (n_rb, 8, n_cb, 8)).astype(np.float32)
+         * kept[:, None, :, None]).reshape(n_rb * 8, n_cb * 8)
+    bi, bnnz, blocks = _bsr_lift(w, 8, 8, dev)
+    return w, (bi, bnnz, blocks.to(w_dtype))
+
+
+@pytest.mark.parametrize("n", [136, 256])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32_blocks", "bf16_blocks"])
+def test_bsr_mma_odd_blocks_and_chunk_borders(cuda, w_dtype, n):
+    """An odd number of a block-row's blocks in a chunk (the last as k8),
+    consecutive blocks across a chunk's border (never a pair), a block-row
+    of one block and one of every block: integer values exact, real ones
+    (the same pattern) within the bound; the walk model's steps pair as
+    the kernel's layout says."""
+    from torch_bsr_walk import walk_model
+
+    w, ops = _chunk_pattern_operands(cuda, w_dtype)
+    rng = np.random.default_rng(26)
+    xs = torch.from_numpy(rng.integers(-2, 3, (3, w.shape[1], n)).astype(
+        np.float32)).to(cuda).bfloat16()
+    got, _ = _check_bsr_mma(ops, xs)
+    want = torch.from_numpy(w).double().to(cuda) @ xs.double()
+    assert torch.equal(got, want.bfloat16())
+    steps = []
+    cpu = tuple(t.cpu() for t in ops)
+    assert torch.equal(walk_model(*cpu, xs.cpu(), steps=steps), got.cpu())
+    chunk = kernels.bsr_layout(20, 8, 8, n, 3, True, torch.bfloat16)["chunk"]
+    assert chunk == (16 if n == 256 else 32)
+    if n == 256:
+        assert [s for s in steps if s[0] == 0] == [
+            (0, 0, (0, 1)), (0, 0, (2,)), (0, 1, (3, 4)), (0, 1, (5, 6))]
+    real = ops[:2] + (torch.randn(ops[2].shape, device=cuda, generator=(
+        torch.Generator(device=cuda).manual_seed(27))).to(w_dtype),)
+    _check_bsr_mma(real, torch.randn(xs.shape, device=cuda).bfloat16())
+
+
+def test_bsr_mma_on_an_infinite_x(cuda):
+    """An infinite x: under bf16 blocks, and under f32 blocks whose weights
+    are bf16-exact (their mid and lo passes skipped), the kernel gives the
+    plain version's infinities and NaNs (0 x inf) exactly; where an f32
+    weight that is bf16-exact meets the infinity in a step whose other
+    weights are not, the zero mid part gives NaN where the plain version
+    gives the infinity (ROADMAP C22), and the finite elements keep the
+    bound."""
+    def same(a, b):
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+    w, ops, xs = _bf16_bsr_operands(cuda, 256, torch.float32, True, batch=2)
+    row = 8 * int(ops[0][0, 0]) + 2
+    xs[0, row, 3] = float("inf")
+    xs[1, row, 5] = -float("inf")
+    for blocks in (ops[2], ops[2].bfloat16()):
+        o = ops[:2] + (blocks,)
+        got = kernels.bsr_spmm_batched(*o, xs)
+        want = kernels.bsr_spmm_batched_plain(*o, xs)
+        assert torch.isinf(want).any() and torch.isnan(want).any()
+        assert same(got, want)
+        assert kernels.bsr_mma_check(*o, xs, got, want)["ok"]
+    mixed = ops[2] * (1 + 2.0 ** -12)
+    mixed[..., 2] = ops[2][..., 2]
+    o = ops[:2] + (mixed,)
+    got = kernels.bsr_spmm_batched(*o, xs)
+    want = kernels.bsr_spmm_batched_plain(*o, xs)
+    inf = torch.isinf(want)
+    assert inf.any() and torch.isnan(got[inf]).all()
+    fin = torch.isfinite(want)
+    assert same(got[~inf & ~fin], want[~inf & ~fin])
+    assert torch.equal(got[fin], want[fin])   # integers: exact
+
+
+def test_bsr_mma_sums_stay_within_the_bound_at_full_depth(cuda):
+    """gate's shape at a 256-column slice: K = 6144, 192 kept blocks a
+    block-row on average (n about 1,536 products an element, 4,608 parts
+    in f32 blocks); both pairs within the bound, and |kernel - plain|
+    within 2^-6 of S: one bf16 ulp of the output (2^-7 of it at most,
+    |plain| <= S) and the bound (about 8e-4 S at this n)."""
+    rng = np.random.default_rng(28)
+    n_rb, n_cb = 64, 768
+    kept = rng.uniform(size=(n_rb, n_cb)) < 0.25
+    w = (rng.standard_normal((n_rb, 8, n_cb, 8)).astype(np.float32)
+         * kept[:, None, :, None]).reshape(n_rb * 8, n_cb * 8)
+    ops32 = _bsr_lift(w, 8, 8, cuda)
+    xs = torch.randn((2, n_cb * 8, 256), device=cuda).bfloat16()
+    for blocks in (ops32[2], ops32[2].bfloat16()):
+        _, ratio = _check_bsr_mma(ops32[:2] + (blocks,), xs)
+        assert ratio < 2.0 ** -6
 
 
 @pytest.mark.parametrize("keep", [0.9, 0.25])
