@@ -301,7 +301,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``try_resume`` and 3 more steps, equal bit for bit to an uninterrupted
    6-step run.  (f) Layer 0's FFN (of (a)'s weights) through
    ``SparseFFN.from_params(keep_density=0.5, path="spgemm",
-   stream_limit=2**26)`` (2.18M values a matrix; x [16, 896]: 34.9M
+   stream_limit=2**26)`` (2.18M values a matrix; x [4, 896]: 8.7M
    products, past the default 8M guard): 10
    ``build_sparse_ffn_train_step`` steps, the loss below 0.7x the first,
    every warm step 0 host syncs and no plan built, no kernel of ours
@@ -376,17 +376,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    than the run can spare).  (b)
    qwen2-0.5b x decode_32k at the cell's own shape (B = 128, S = 32768,
    24 layers) on the host mesh (1x1, the card): its record from a meta
-   trace; f32 params from ``--seed``, a 51.54 GB bf16 cache filled by the
+   trace; bf16 params from ``--seed`` (the record's ``param_dtype``, the
+   reference's), a 51.54 GB bf16 cache filled by the
    same generator, cur_len per slot below 32768; the card's allocation
    within 1 % of the record's argument bytes; one ``decode_step(...,
    donate_cache=True)`` under ``FlopCounterMode``, whose count must equal
    the meta trace's, the cache's tensors and ``data_ptr`` unchanged, the
    logits finite and a second step's bit for bit; the peak memory, the
    step's median ms, device time and idle share beside the byte floor of
-   ``hbm_bytes_estimate`` at 3.35 TB/s.  (c) qwen2-0.5b (24 layers) and
+   ``hbm_bytes_estimate`` at 3.35 TB/s, and the same step on the weights
+   widened to f32 beside it.  (c) qwen2-0.5b (24 layers) and
    falcon-mamba-7b (2 of 64) at B = 4, S = 4096: two donated steps each
-   against the copying step, logits and cache bit for bit, every leaf in
-   place but a mamba window whose dtype the first step changes.  (b) runs
+   against the copying step on bf16 params, logits and cache bit for bit,
+   every leaf in place (a mamba window stays bf16); falcon-mamba-7b (2 of
+   64) again on f32 params, where the first step's mamba window comes back
+   f32 and must be a new tensor, every other leaf in place.  (b) runs
    first, with the host to itself; (a)'s workers start after it and trace
    while (c) runs.
 
@@ -405,9 +409,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    whole parameter tree as gradients, each timed beside its byte bound at
    3.35 TB/s with the device kernels a call makes; ``psum_compressed`` on 2
    shards of the card bit for bit the hand-computed mean and bit-stable.
-   (d) The params saved once and restored plainly and with ``shardings=``
-   on the host mesh: bit for bit, every leaf on the card; the seconds of
-   each.
+   (d) The params saved once and restored with ``shardings=`` on the
+   host mesh: bit for bit, every leaf on the card; the seconds of each.
+
+22. qwen2-0.5b at full width and depth on bf16 params
+   (``init_model(..., dtype=torch.bfloat16)``, well scaled), with the
+   counts set to 0 just before (a).  (a) Phase 18's setting: its FFNs
+   through ``sparsify_ffn_params`` (keep 0.1, f32 value stacks),
+   ``ServeEngine`` with 4 slots of 256 (an f32 cache), 4 prompts of 8
+   tokens and 16 new tokens each, twice: every tick a device tick with one
+   host sync, the second run bit for bit the first; the f32 port on the
+   same weights widened, teacher-forced along the engine's tokens, within
+   ``BF16_SERVE_TOL`` normwise of every tick's logits, its greedy tokens'
+   agreement printed; a warm decode step 0 host syncs, its ms beside the
+   f32 oracle's, device ms and idle share; no kernel of ours launched.
+   Then K1 on this path: layer 0's gate plan replayed with
+   ``engine="fused"`` on each slot's bf16 decode activation widened,
+   within ``STREAM_TOL`` of the torch stream.  The served bf16 path itself
+   launches no kernel of ours; K1's ``bf16_params`` entry in the kernels
+   line counts this replay's launches on its activation.  (b) ``init_train_state(..., dtype=bf16)``, 3
+   steps of 4096 tokens with ``accum_steps=2``, a bf16 buffer and 8-bit
+   moments, twice from one state: finite losses, bit for bit; step ms,
+   device ms, idle share, top device ops and peak GB beside phase 17's
+   f32 step.  Every product on bf16 sums in f32:
+   ``allow_bf16_reduced_precision_reduction`` is set to False first.
 
 The last two lines are the kernels' JSON and the card line; the very last is
 ``{"ok": true, "device": {...}}``.  Without a card, or without the rest of
@@ -2753,11 +2778,17 @@ def torch_stream_ms(tplans, name, vname, x, y, reps) -> float:
     return event_ms(lambda: replay(view, x, y), reps)
 
 
+#: medians of a looped execute (B executes each, up to 0.2 s a loop on the
+#: per-group path): three samples where the batched execute takes --reps
+LOOPED_REPS = 3
+
+
 def batched_timing_phase(stacks, fplans, dev, reps, syncs):
     """Per matrix, at B = BATCH with operands on the card: a batched
-    execute per multiply against a looped one (the same plan executed once
-    per value set), for the default method and the fused engine, with the
-    profiler's device time and idle share of one batched execute."""
+    execute per multiply (median of ``reps``) against a looped one (the
+    same plan executed once per value set, median of ``LOOPED_REPS``), for
+    the default method and the fused engine, with the profiler's device
+    time and idle share of one batched execute."""
     from repro_torch.core import cached_plan
 
     for name in MATRICES:
@@ -2776,7 +2807,7 @@ def batched_timing_phase(stacks, fplans, dev, reps, syncs):
                         for b in range(BATCH)]
 
             t_b = statistics.median(execute_ms(batched, reps))
-            t_l = statistics.median(execute_ms(looped, reps))
+            t_l = statistics.median(execute_ms(looped, LOOPED_REPS))
             by_name = device_profile(batched)
             device_ms = sum(by_name.values())
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
@@ -5022,7 +5053,7 @@ TRAIN_TOL = 1e-5                  # normwise, card against the CPU
 ACCUM_TOL = 1e-3                  # relative, accum_steps=2 (bf16) vs 1
 DRILL_AT, DRILL_TO = 3, 6         # (d): checkpoint at 3, resume to 6
 SFFN_KEEP = 0.5                   # (f): layer 0's FFN on the spgemm path
-SFFN_TOKENS = 16                  # x [16, 896]: 34.9M products a matrix,
+SFFN_TOKENS = 4                   # x [4, 896]: 8.7M products a matrix,
                                   # past the default guard: MODEL_STREAM_LIMIT
 SFFN_STEPS = 10
 SFFN_LR = 1e-3                    # build_sparse_ffn_train_step's default
@@ -5052,6 +5083,8 @@ def tree_bits_differ(a, b) -> list:
     out = [k for k in pa if k not in pb]
 
     def raw(t):
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16)
         return bits(t) if t.dtype == torch.float32 else t
 
     return out + [k for k in pa if k in pb
@@ -5310,7 +5343,7 @@ def train_sparse_ffn_phase(params, dev, seed, reps):
     """(f) Layer 0's FFN of (a)'s well-scaled weights through
     ``SparseFFN.from_params(keep_density=0.5, path="spgemm",
     stream_limit=MODEL_STREAM_LIMIT)``: 10
-    ``build_sparse_ffn_train_step`` steps on x, y [16, 896] from ``seed``,
+    ``build_sparse_ffn_train_step`` steps on x, y [4, 896] from ``seed``,
     with the counts set to 0 just before the warm steps: the loss below 0.7x
     the first, every warm step 0 host syncs and no plan built, and no
     kernel of ours launched (the torch stream).  Then on the same plans, K1
@@ -6174,6 +6207,10 @@ SWEEP_EXTRA = (("qwen2-0.5b", "train_4k"),)
 DRYRUN_CARD_ARCH = "qwen2-0.5b"
 DONATION_MODELS = {"qwen2-0.5b": None,     # every layer
                    "falcon-mamba-7b": 2}   # 2 of its 64 layers
+# on the port's default f32 params beside the dry run's bf16: a mamba conv
+# window then comes back f32 from a bf16 cache, the one leaf a donated step
+# must not alias (``models.blocks._donated``'s dtype-change branch)
+DONATION_F32_MODELS = {"falcon-mamba-7b": 2}
 DONATION_B, DONATION_S = 4, 4096
 
 
@@ -6250,16 +6287,18 @@ def finish_sweep(futures, t0):
     return recs
 
 
-def card_arguments(cfg, shape, dev, seed):
-    """The cell's arguments on the card: f32 params drawn from ``seed``, a
-    bf16 cache filled by the same generator, tokens and per-slot cur_len
-    below the cache length."""
+def card_arguments(cfg, shape, dev, seed, dtype=None):
+    """The cell's arguments on the card: params in ``dtype``, by default
+    the dry run's (bf16, ``launch.dryrun.PARAM_DTYPE``), drawn from
+    ``seed``, a bf16 cache filled by the same generator, tokens and
+    per-slot cur_len below the cache length."""
     import torch
+    from repro_torch.launch.dryrun import PARAM_DTYPE
     from repro_torch.models import init_cache, init_model
 
     b, s = shape.global_batch, shape.seq_len
     g = torch.Generator(device=dev).manual_seed(seed)
-    params = init_model(cfg, g, dev)
+    params = init_model(cfg, g, dev, dtype=dtype or PARAM_DTYPE)
     cache = init_cache(cfg, b, s, device=dev)
     for leaf in tree_leaves(cache):
         leaf.normal_(generator=g)
@@ -6270,10 +6309,16 @@ def card_arguments(cfg, shape, dev, seed):
     return params, token, cache, cur_len
 
 
+#: medians of phase 20 (b)'s step on f32 params, beside the record's bf16
+F32_DECODE_REPS = 5
+
+
 def dryrun_card_phase(dev, seed, reps, card):
     """Phase 20 (b): qwen2-0.5b x decode_32k at the cell's own shape on the
     host mesh (1x1, the card): the record of its meta trace against the
-    card's allocation, flop count and one donated step."""
+    card's allocation, flop count and one donated step, on the record's
+    bf16 params; the same step on the weights widened to f32 timed beside
+    it."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import get_config
@@ -6281,7 +6326,7 @@ def dryrun_card_phase(dev, seed, reps, card):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import DECODE_32K, decode_step
     from repro_torch.models.accounting import hbm_bytes_estimate
-    from repro_torch.training.tree import tree_paths
+    from repro_torch.training.tree import tree_map, tree_paths
 
     cfg, shape = get_config(DRYRUN_CARD_ARCH), DECODE_32K
     cell = Cell(cfg, shape, make_host_mesh("meta"))
@@ -6336,6 +6381,18 @@ def dryrun_card_phase(dev, seed, reps, card):
             round(v, 3))
            for k, v in sorted(prof.items(), key=lambda kv: -kv[1])[:6]]
     idle = idle_share(device_ms, ms)
+    # the same step on the same weights widened to f32, for comparison
+    p32 = tree_map(lambda t: t.float(), params)
+
+    @torch.no_grad()
+    def step32():
+        return decode_step(p32, cfg, token, cache, cur_len,
+                           donate_cache=True)
+
+    step32()
+    f32_ms = median_ms(step32, F32_DECODE_REPS)
+    f32_device_ms = sum(device_profile(step32, n=1).values())
+    del p32
     w_local = tree_bytes(params)
     floor = hbm_bytes_estimate(cfg, shape, n_devices=1, model_shards=1,
                                w_local=w_local)
@@ -6344,14 +6401,16 @@ def dryrun_card_phase(dev, seed, reps, card):
           f"{shape.global_batch}, S = {shape.seq_len}, {cfg.n_layers} "
           f"layers): record arguments {want} B, allocated {allocated} B "
           f"({(allocated - want) / want * 100:+.4f} %); params {w_local} B "
-          f"f32, cache {tree_bytes(cache)} B bf16; peak "
+          f"{rec['param_dtype']}, cache {tree_bytes(cache)} B bf16; peak "
           f"{peak / 1e9:.3f} GB during the step; flops {card_flops} on the "
           f"card = {meta_flops} on meta (trace {secs:.3f} s); step "
           f"{ms:.3f} ms (median of {reps}) against a byte floor of "
           f"{floor / 1e9:.3f} GB / 3.35 TB/s = {floor_ms:.3f} ms "
           f"({ms / floor_ms:.2f}x); device {device_ms:.3f} ms a step "
           f"(idle share {None if idle is None else round(idle, 4)}), top "
-          f"device ops {top}; cache "
+          f"device ops {top}; the same step on the weights widened to f32 "
+          f"{f32_ms:.3f} ms (median of {F32_DECODE_REPS}), device "
+          f"{f32_device_ms:.3f} ms; cache "
           f"data_ptr unchanged; logits finite; card: {card}", flush=True)
     del params, token, cache, cur_len, given, got
     gc.collect()
@@ -6360,9 +6419,12 @@ def dryrun_card_phase(dev, seed, reps, card):
 
 def donation_phase(dev, seed):
     """Phase 20 (c): the donated step against the copying one at B = 4,
-    S = 4096, two steps each (the second from the first's cache, where a
-    mamba window is f32): logits and cache bit for bit, and the donated
-    step's cache the given tensors wherever the dtype stays."""
+    S = 4096, two steps each (the second from the first's cache), on the
+    dry run's bf16 params (``DONATION_MODELS``) and on f32 params
+    (``DONATION_F32_MODELS``): logits and cache bit for bit, and the
+    donated step's cache the given tensors wherever the dtype stays (on
+    bf16 params a mamba window stays bf16; on f32 params it comes back
+    f32, a new tensor, and must)."""
     import dataclasses
 
     import torch
@@ -6372,11 +6434,15 @@ def donation_phase(dev, seed):
     from repro_torch.training.tree import tree_paths
 
     shape = ShapeConfig("donation", DONATION_S, DONATION_B, "decode")
-    for arch, n_layers in DONATION_MODELS.items():
+    runs = [(arch, n, torch.bfloat16) for arch, n in DONATION_MODELS.items()]
+    runs += [(arch, n, torch.float32)
+             for arch, n in DONATION_F32_MODELS.items()]
+    for arch, n_layers, dtype in runs:
         cfg = get_config(arch)
         if n_layers:
             cfg = dataclasses.replace(cfg, n_layers=n_layers)
-        params, token, cache, cur_len = card_arguments(cfg, shape, dev, seed)
+        params, token, cache, cur_len = card_arguments(cfg, shape, dev, seed,
+                                                       dtype)
         for i in range(2):
             with torch.no_grad():
                 want, want_cache = decode_step(params, cfg, token,
@@ -6398,7 +6464,10 @@ def donation_phase(dev, seed):
             check(all(gp[k].data_ptr() == ptrs[k] for k in kept)
                   and all(given[k].dtype != gp[k].dtype for k in new),
                   f"donation {arch} step {i}: leaves {new} copied")
-            print(f"donation (c) {arch} ({cfg.n_layers} layers, B = "
+            check(i or dtype == torch.bfloat16 or new,
+                  f"donation {arch} f32 params: no leaf changed its dtype")
+            print(f"donation (c) {arch} ({cfg.n_layers} layers, "
+                  f"{str(dtype)[6:]} params, B = "
                   f"{DONATION_B}, S = {DONATION_S}) step {i}: logits and "
                   f"cache bit for bit the copying step's; {len(kept)} of "
                   f"{len(gp)} cache leaves updated in place"
@@ -6663,9 +6732,10 @@ def compression_phase(cfg, params, dev, seed, card):
 
 
 def restore_phase(cfg, params, dev, card):
-    """Phase 21 (d): qwen2-0.5b's params saved once, restored plainly and
-    with ``shardings=`` from ``param_sharding(model_specs(...),
-    make_host_mesh())``: bit for bit, every leaf on the card."""
+    """Phase 21 (d): qwen2-0.5b's params saved once and restored with
+    ``shardings=`` from ``param_sharding(model_specs(...),
+    make_host_mesh())``: bit for bit the saved params, every leaf on the
+    card (a plain restore on the card is phase 17's resume drill)."""
     import torch
     from repro_torch.distributed.sharding import param_sharding, \
         sharding_rules
@@ -6679,27 +6749,23 @@ def restore_phase(cfg, params, dev, card):
     t0 = time.perf_counter()
     path = save_checkpoint(directory, 1, params)
     t1 = time.perf_counter()
-    plain, _, _ = restore_checkpoint(path, params)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
     mesh = make_host_mesh(dev)
     shardings = param_sharding(model_specs(cfg, sharding_rules(mesh)), mesh)
     got, step, _ = restore_checkpoint(path, params, shardings=shardings)
     torch.cuda.synchronize()
-    t3 = time.perf_counter()
-    pg, pp = tree_paths(got), tree_paths(plain)
-    check(step == 1 and pg.keys() == pp.keys()
+    t2 = time.perf_counter()
+    pg, want = tree_paths(got), tree_paths(params)
+    check(step == 1 and pg.keys() == want.keys()
           and all(t.device.type == torch.device(dev).type
                   for t in pg.values())
-          and all(torch.equal(bits(pg[k]), bits(pp[k])) for k in pp)
           and all(torch.equal(bits(pg[k]), bits(v))
-                  for k, v in tree_paths(params).items()),
-          "restore (d): the restore with shardings= differs from the plain "
-          "one or from the saved params, or a leaf is off the card")
+                  for k, v in want.items()),
+          "restore (d): the restore with shardings= differs from the "
+          "saved params, or a leaf is off the card")
     print(f"restore (d) {PIPE_ARCH} params ({tree_bytes(params)} B): save "
-          f"{t1 - t0:.2f} s, plain restore {t2 - t1:.2f} s, restore with "
-          f"shardings= on the host mesh {t3 - t2:.2f} s; bit for bit, "
-          f"{len(pg)} leaves on the card; card: {card}", flush=True)
+          f"{t1 - t0:.2f} s, restore with shardings= on the host mesh "
+          f"{t2 - t1:.2f} s; bit for bit, {len(pg)} leaves on the card; "
+          f"card: {card}", flush=True)
     shutil.rmtree(directory, ignore_errors=True)
 
 
@@ -6724,6 +6790,295 @@ def multi_device_phase(dev, seed, reps, card, record):
     torch.cuda.empty_cache()
     print(f"multi-device phases: {time.perf_counter() - t0:.1f} s, no "
           f"kernel of ours launched; card: {card}", flush=True)
+
+
+# phase 22: qwen2-0.5b on bf16 params at full width and depth, served
+# (phase 18's setting) and trained (phase 17's batch, the dry run's train
+# settings)
+BF16_SERVE_TOL = 7.5e-2    # normwise, the bf16 engine's logits against the
+                           # f32 port on the same weights (PERF.md section 6)
+BF16_TRAIN_STEPS = 3
+
+
+def bf16_setup(dev, seed):
+    """qwen2-0.5b at full width and depth drawn in bf16 from ``seed``
+    (``init_model(..., dtype=torch.bfloat16)``), rescaled by
+    ``well_scaled`` (bf16 still), its FFNs converted by
+    ``sparsify_ffn_params(keep_density=WARM_KEEP)``: f32 value stacks
+    beside bf16 leaves; phase 18's prompts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, sparsify_ffn_params
+    from repro_torch.training.tree import tree_paths
+
+    cfg = get_config(WARM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = well_scaled(cfg, init_model(cfg, gen, dev,
+                                         dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sparse, overlay = sparsify_ffn_params(cfg, params, keep_density=WARM_KEEP)
+    del params
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dtypes = {}
+    for k, t in tree_paths(sparse).items():
+        dtypes.setdefault(str(t.dtype), []).append(k)
+    counts = {d: len(keys) for d, keys in dtypes.items()}
+    check(set(dtypes) == {"torch.bfloat16", "torch.float32"}
+          and all("/ffn/" in k for k in dtypes["torch.float32"]),
+          f"bf16 setup: leaves by dtype {counts}")
+    prompts = torch.randint(
+        0, cfg.vocab, (WARM_SLOTS, WARM_PROMPT),
+        generator=torch.Generator().manual_seed(seed)).tolist()
+    print(f"bf16 setup: {WARM_ARCH} at full width and depth on bf16 params "
+          f"({tree_bytes(sparse)} B with the f32 value stacks); init "
+          f"{t1 - t0:.2f} s, sparsify (keep {WARM_KEEP}) {t2 - t1:.2f} s",
+          flush=True)
+    return dict(cfg=cfg, sparse=sparse, overlay=overlay, prompts=prompts)
+
+
+def bf16_serve_phase(data, dev, card):
+    """Phase 22 (a): ``ServeEngine`` (``WARM_SLOTS`` slots of
+    ``WARM_CACHE``, an f32 cache) on the bf16 params and their overlay:
+    every tick a device tick with one host sync; a second run's tokens and
+    logits bit for bit the first's.  The oracle, the f32 port on the same
+    weights widened, teacher-forced along the engine's tokens: its logits
+    within ``BF16_SERVE_TOL`` normwise of every tick's, and its greedy
+    tokens' agreement with the engine's.  A warm decode step on the card
+    makes 0 host syncs; its time beside the oracle's."""
+    import torch
+    from repro_torch.core import plan_cache_clear
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.training.tree import tree_map
+
+    cfg = data["cfg"]
+    plan_cache_clear()
+    runs = []
+    for run in range(2):
+        eng = warm_engine(data, dev)
+        log = record_logits(eng)
+        rids = warm_submit(eng, data)
+        tokens, ticks = warm_finish(eng, rids, f"bf16 serve (a) run {run}")
+        check(all(t["kind"] == "device" and t["syncs"] == 1 for t in ticks),
+              f"bf16 serve (a) run {run}: a tick was not one device step "
+              "with one host sync")
+        runs.append((tokens, log, ticks))
+    (tokens, log, ticks), (tokens2, log2, _) = runs
+    check(tokens == tokens2 and all(
+        np.array_equal(a.view(np.int32), b.view(np.int32))
+        for a, b in zip(log, log2)),
+          "bf16 serve (a): a second run's tokens or logits differ")
+
+    p32 = tree_map(lambda t: t.float(), data["sparse"])
+    seq = torch.tensor([p + g for p, g in zip(data["prompts"], tokens)],
+                       device=dev)
+    cache = init_cache(cfg, WARM_SLOTS, WARM_CACHE, dtype=torch.float32,
+                       device=dev)
+    errs, agree, n_gen = [], 0, 0
+    with torch.no_grad():
+        for t in range(len(log)):
+            lg, cache = decode_step(p32, cfg, seq[:, t:t + 1], cache, t,
+                                    sparse_ffn=data["overlay"])
+            want = lg[:, 0, :cfg.vocab].double()
+            errs.append(rel_err(torch.from_numpy(log[t]).to(dev), want))
+            if t >= WARM_PROMPT - 1:
+                agree += int((want.argmax(-1) == seq[:, t + 1]).sum())
+                n_gen += WARM_SLOTS
+    del cache
+
+    tok = seq[:, :1].contiguous()
+    cur = torch.zeros(WARM_SLOTS, dtype=torch.int32, device=dev)
+    cache = init_cache(cfg, WARM_SLOTS, WARM_CACHE, dtype=torch.float32,
+                       device=dev)
+
+    def step(params):
+        @torch.no_grad()
+        def run():
+            return decode_step(params, cfg, tok, cache, cur,
+                               sparse_ffn=data["overlay"])
+        return run
+
+    bf16_step, f32_step = step(data["sparse"]), step(p32)
+    bf16_step()
+    syncs = host_syncs(bf16_step)
+    bf16_ms = statistics.median(execute_ms(bf16_step, 10))
+    f32_ms = statistics.median(execute_ms(f32_step, 10))
+    prof = device_profile(bf16_step, n=1)
+    device_ms = sum(prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
+    del p32, cache
+    out = dict(ticks=len(log), tokens_agree=agree, tokens_compared=n_gen,
+               max_logits_err=max(errs), bound=BF16_SERVE_TOL,
+               errs_first_last=[errs[0], errs[-1]],
+               warm_step_syncs=syncs, bf16_step_ms=bf16_ms,
+               f32_oracle_step_ms=f32_ms,
+               device_tick_ms=median_of(ticks[1:], "device"),
+               bf16_device_ms=device_ms,
+               bf16_idle=idle_share(device_ms, bf16_ms),
+               top_device_ops={k[:80]: round(v, 4) for k, v in top})
+    print(f"bf16 serve (a) {WARM_ARCH}, {WARM_SLOTS} slots of {WARM_CACHE}, "
+          f"keep {WARM_KEEP}: {json.dumps(out)}; card: {card}", flush=True)
+    check(max(errs) <= BF16_SERVE_TOL, f"bf16 serve (a): logits "
+          f"{max(errs):.3g} normwise off the f32 port's (limit "
+          f"{BF16_SERVE_TOL})")
+    check(syncs == 0, f"bf16 serve (a): {syncs} host syncs in a warm step")
+    return dict(out, tok=tok)
+
+
+def bf16_k1_phase(data, dev):
+    """Phase 22 (a), K1 on this path's activation (the served path itself,
+    on the torch stream, launches no kernel of ours; these launches are
+    the kernels line's ``bf16_params`` entry): layer 0's gate matrix's
+    N = 1 plan,
+    ``plan.stream_apply(w, x, engine="fused")`` with x each slot's bf16
+    activation of a decode step (captured where ``apply_values`` receives
+    it) widened as ``apply_values`` widens it, within ``STREAM_TOL`` of the
+    torch stream; K1's count must rise.  Returns its launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import decode_step, init_cache
+
+    cfg = data["cfg"]
+    m = data["overlay"]["l0"].gate
+    seen = []
+    apply_values = m.apply_values
+
+    def capture(w, x):
+        seen.append(x)
+        return apply_values(w, x)
+
+    m.apply_values = capture
+    with torch.no_grad():
+        decode_step(data["sparse"], cfg,
+                    torch.zeros((WARM_SLOTS, 1), dtype=torch.long,
+                                device=dev),
+                    init_cache(cfg, WARM_SLOTS, 8, dtype=torch.float32,
+                               device=dev), 0,
+                    sparse_ffn=data["overlay"])
+    del m.apply_values
+    x = seen[0]                                  # [B, K, 1]: a slot each
+    check(x.dtype == torch.bfloat16 and x.shape == (WARM_SLOTS, m.shape[1],
+                                                    1),
+          f"bf16 K1: the FFN's activation is {x.dtype} {tuple(x.shape)}")
+    plan = m._spgemm_plan(1)[0]
+    w = data["sparse"]["blocks"]["l0"]["ffn"]["gate"][0]
+    before = kernels.launch_counts()["fused_stream"]
+    k1 = [plan.stream_apply(w, xs.float().reshape(-1), engine="fused")
+          for xs in x]
+    launched = kernels.launch_counts()["fused_stream"] - before
+    ts = torch.stack([plan.stream_apply(w, xs.float().reshape(-1))
+                      for xs in x])
+    k1 = torch.stack(k1)
+    err = rel_err(k1, ts.double())
+    print(f"bf16 K1 gate [{m.shape[0]} x {m.shape[1]}] on each slot's bf16 "
+          f"decode activation [{m.shape[1]}, 1] widened: {launched} "
+          f"launches, {err:.3g} normwise off the torch stream, max |diff| "
+          f"{float((k1 - ts).abs().max()):.3g}", flush=True)
+    check(launched > 0, "bf16 K1: fused_stream was not launched")
+    check(err <= STREAM_TOL, f"bf16 K1: {err:.3g} normwise off the torch "
+          f"stream (limit {STREAM_TOL})")
+    return launched
+
+
+def bf16_train_phase(dev, seed, card, f32_run):
+    """Phase 22 (b): qwen2-0.5b at full width and depth drawn in bf16
+    (``init_train_state(..., dtype=torch.bfloat16)``), ``BF16_TRAIN_STEPS``
+    steps of phase 17's 4096-token batches with the dry run's train
+    settings (``accum_steps=2``, a bf16 buffer, 8-bit moments), twice from
+    one state: every loss finite, the two runs bit for bit; step ms, one
+    step's device ms, idle share and top device ops, the peak memory,
+    beside phase 17's f32 step and the bound of 8·N·tokens at the bf16
+    peak."""
+    import torch
+    from repro_torch.training import AdamWConfig, DataConfig, \
+        SyntheticLoader, TrainConfig, build_train_step, init_train_state
+
+    cfg = train_cfg()
+    tc = TrainConfig(total_steps=TRAIN_STEPS, peak_lr=TRAIN_LR,
+                     warmup_steps=TRAIN_WARMUP, accum_steps=2,
+                     accum_dtype="bfloat16",
+                     opt=AdamWConfig(quantize_moments=True))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    init = init_train_state(cfg, tc, gen, device=dev, dtype=torch.bfloat16)
+    n_params = sum(t.numel() for t in tree_leaves(init["params"]))
+    n_matmul = n_params - init["params"]["embed"]["embedding"].numel()
+    dcfg = DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed)
+    step = build_train_step(cfg, tc)
+
+    def run(state):
+        loader = SyntheticLoader(dcfg, device=dev)
+        losses, ms = [], []
+        for i in range(BF16_TRAIN_STEPS):
+            batch = next(loader)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, i)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return state, losses, ms, batch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a, la, ma, _ = run(clone_tree(init))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    b, lb, mb, batch = run(init)
+    differ = tree_bits_differ(a, b)
+    del a
+    prof = device_profile(lambda: step(b, batch, BF16_TRAIN_STEPS), n=1)
+    del b
+    device_ms = sum(prof.values())
+    top = sorted(prof.items(), key=lambda kv: -kv[1])[:6]
+    step_ms = statistics.median(ma[1:] + mb[1:])
+    flops = 8 * n_matmul * TRAIN_SEQ * TRAIN_BATCH
+    out = dict(losses=la, losses_again=lb, step_ms=ma + mb,
+               median_step_ms=step_ms, device_ms=device_ms,
+               idle=idle_share(device_ms, step_ms),
+               top_device_ops={k[:80]: round(v, 3) for k, v in top},
+               peak_gb=peak, bound_ms=flops / PEAK_BF16_PER_S * 1e3,
+               f32_median_step_ms=f32_run["median_step_ms"],
+               f32_device_ms=f32_run["device_ms"],
+               f32_peak_gb=f32_run["peak_gb_full"],
+               leaves_differing=differ)
+    print(f"bf16 train (b) {TRAIN_ARCH} at full width and depth, "
+          f"{TRAIN_SEQ * TRAIN_BATCH} tokens a step, accum 2 (bf16), 8-bit "
+          f"moments: {json.dumps(out)}; card: {card}", flush=True)
+    check(all(np.isfinite(la + lb)), f"bf16 train (b): a loss is not finite:"
+          f" {la} {lb}")
+    check(la == lb and not differ, f"bf16 train (b): two runs differ: "
+          f"losses {la} vs {lb}, leaves {differ[:5]}")
+    return out
+
+
+def bf16_phase(dev, seed, card, f32_run):
+    """Phase 22, with the launch counts set to 0 just before (a): (a)
+    served, then K1 on its activation, then (b) trained.  Returns K1's
+    launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import plan_cache_clear
+
+    t0 = time.perf_counter()
+    data = timed(bf16_setup, dev, seed)
+    kernels.reset_launch_counts()
+    timed(bf16_serve_phase, data, dev, card)
+    counts = kernels.launch_counts()
+    check(not any(counts.values()), f"bf16 serve (a): kernels launched on "
+          f"the torch stream's path: {counts}")
+    k1 = timed(bf16_k1_phase, data, dev)
+    del data
+    plan_cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed(bf16_train_phase, dev, seed, card, f32_run)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"bf16 phases: {time.perf_counter() - t0:.1f} s; card: {card}",
+          flush=True)
+    return k1
 
 
 def timed(phase, *args):
@@ -6758,6 +7113,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device is available", file=sys.stderr)
         return 2
+    # the model's bf16 products sum in f32, as the reference's bf16 dot
+    # (models.layers.check_full_f32 refuses them otherwise)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     src = os.path.join(HERE, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch")):
         print(f"FAIL: {src}/repro_torch not found beside chip_smoke.py",
@@ -6927,7 +7285,7 @@ def main(argv=None) -> int:
     # phase 17: training, qwen2-0.5b at full width and depth
     t_train = time.perf_counter()
     grad_params, _ = timed(train_grad_phase, dev, args.seed)
-    run, _ = timed(train_run_phase, dev, args.seed)
+    run, f32_run = timed(train_run_phase, dev, args.seed)
     timed(train_settings_phase, run, dev)
     timed(train_drill_phase, run, dev)
     del run
@@ -6971,6 +7329,12 @@ def main(argv=None) -> int:
 
     # phase 21: the pipeline, the compression and the sharded restore
     multi_device_phase(dev, args.seed, PIPE_REPS, card, record)
+
+    # phase 22: qwen2-0.5b on bf16 params, served and trained
+    k1_bf16 = bf16_phase(dev, args.seed, card, f32_run)
+    for row in rows:
+        if row["name"] == KERNELS["fused"]["name"]:
+            row["launches_by_path"]["bf16_params"] = k1_bf16
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, build "
           "included", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

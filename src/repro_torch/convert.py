@@ -48,36 +48,46 @@ def batched_csc_from_reference(values, row_indices, col_ptr, shape,
                       cp.astype(np.int32), tuple(int(s) for s in shape))
 
 
+def _is_bf16(a) -> bool:
+    """Whether ``a`` is an ``ml_dtypes.bfloat16`` array (the JAX package's
+    bf16 as numpy), told by its dtype's name: this module imports neither
+    JAX nor ``ml_dtypes``."""
+    return np.asarray(a).dtype.name == "bfloat16"
+
+
+def _tree_from_reference(node, dev, dtype=None):
+    """A numpy tree's tensors on ``dev``: a bf16 leaf exactly, through
+    :func:`bf16_from_reference`; any other leaf as ``dtype``, or in its own
+    dtype where ``dtype`` is None."""
+    if isinstance(node, dict):
+        return {k: _tree_from_reference(v, dev, dtype)
+                for k, v in node.items()}
+    if _is_bf16(node):
+        return bf16_from_reference(node, dev)
+    return torch.from_numpy(np.array(node, dtype)).to(dev)
+
+
 def model_params_from_reference(params, device=None) -> dict:
-    """The port's param tree (nested dicts of f32 tensors on ``device``,
+    """The port's param tree (nested dicts of tensors on ``device``,
     default the card) of a JAX-package param tree given as numpy arrays:
     a whole LM's (stacked ``[n_rep, ...]`` leaves, the MoE layers'
     ``[n_rep, E, d, f]`` expert stacks, the hybrid family's unstacked
     ``shared`` table, and ``[n_rep, nnz]`` FFN value stacks after
-    ``sparsify_ffn_params``) or one FFN's, subtree for subtree."""
-    dev = resolve_device(device)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node, np.float32)).to(dev)
-
-    return walk(params)
+    ``sparsify_ffn_params``) or one FFN's, subtree for subtree.  A bf16
+    leaf stays bf16, value for value; any other floating leaf comes across
+    as f32."""
+    return _tree_from_reference(params, resolve_device(device), np.float32)
 
 
 def train_state_from_reference(state, device=None) -> dict:
     """The port's train state of a JAX-package one given as numpy arrays
     (``{"params", "opt": {"step", "m", "v"}}``, 8-bit moments as
-    ``{"q", "scale"}``), every leaf in its own dtype on ``device`` (default
-    the card), so that both packages train from one state."""
+    ``{"q", "scale"}``), every leaf in its own dtype, bf16 params included,
+    on ``device`` (default the card), so that both packages train from one
+    state."""
     dev = resolve_device(device)
-
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node)).to(dev)
-
-    return {"params": walk(state["params"]), "opt": walk(state["opt"])}
+    return {"params": _tree_from_reference(state["params"], dev),
+            "opt": _tree_from_reference(state["opt"], dev)}
 
 
 # an FFN's params (``{"gate"/"up"/"down": {"w": [d_in, d_out]}}``) are a

@@ -75,9 +75,9 @@ from repro_torch.training.optimizer import AdamWConfig, adamw_init, \
 from repro_torch.training.train_loop import TrainConfig, build_train_step
 from repro_torch.training.tree import tree_map
 
-#: the port's model computes in f32, so its params are f32: a bf16 weight
-#: meets an f32 activation in ``dense`` and fails
-PARAM_DTYPE = torch.float32
+#: the params every cell is sized and traced with: bf16, the reference's
+#: (``abstract_model(cfg, jnp.bfloat16)``)
+PARAM_DTYPE = torch.bfloat16
 #: the H100's memory, and the share of it that replicated serve params may
 #: take: the reference's 9 of its 16 GiB v5e budget
 DEVICE_BYTES = 80e9
@@ -108,8 +108,8 @@ def _accum_for(cfg) -> int:
 
 def param_mode(cfg, shape: ShapeConfig, mesh) -> str:
     """"serve" (params replicated over the DP axes, TP only) for a decode
-    cell whose f32 params fit a device so; else "train" (ZeRO-3 x TP).
-    The reference's rule with the card's budget and the port's dtype."""
+    cell whose bf16 params fit a device so; else "train" (ZeRO-3 x TP).
+    The reference's rule, its 2-byte params against the card's budget."""
     if shape.kind != "decode":
         return "train"
     serve_bytes = local_param_bytes(cfg, mesh_axis_sizes(mesh), mode="serve",

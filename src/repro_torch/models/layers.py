@@ -13,12 +13,16 @@ The reference's checkpoint policies are :func:`remat`: each key chunk of
 insides in the backward, as the reference's ``jax.checkpoint`` does there.
 They change what a backward keeps, never a value of the forward pass.
 
-Every product is full f32 (:func:`check_full_f32`); a bf16 operand (a bf16
-KV cache) is widened before its product, as the reference's
-``preferred_element_type=float32`` accumulates it.  Cross-attention (the
-VLM and encoder-decoder kinds) is :func:`attention` with ``kv_src=`` over a
-full sequence and :func:`cross_attention_cached` against the memory's
-K/V at decode.
+Every product sums in full f32 (:func:`check_full_f32`).  On f32
+operands the products are f32; on bf16 params and activations ``dense``
+and the unembedding are bf16 GEMMs with f32 sums and a bf16 result, as the
+reference's bf16 dot; the attention's and the experts' einsums widen
+their operands (exact) and sum in f32, as the reference's
+``preferred_element_type=float32`` does (the experts' results are then
+rounded to the activations' dtype, as the reference's plain einsum).
+Cross-attention (the VLM and encoder-decoder kinds) is :func:`attention`
+with ``kv_src=`` over a full sequence and :func:`cross_attention_cached`
+against the memory's K/V at decode.
 """
 
 from __future__ import annotations
@@ -40,10 +44,23 @@ DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def check_full_f32(x: torch.Tensor) -> None:
-    """The model's products are full f32: TF32 would keep about three
-    decimal digits, so a caller that switched it on is refused (on the
-    card; the CPU has no TF32)."""
-    if x.is_cuda and torch.get_float32_matmul_precision() != "highest":
+    """The model's products sum in full f32, on the card as on the CPU.
+    TF32 would keep about three decimal digits of an f32 operand, so a
+    caller that switched it on is refused; a product of bf16 operands
+    (``x``'s dtype) is refused while cuBLAS may reduce it in bf16
+    (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``,
+    PyTorch's default), where the reference's bf16 dot sums in f32.  The
+    CPU has neither, so nothing is refused there."""
+    if not x.is_cuda:
+        return
+    matmul = torch.backends.cuda.matmul
+    if x.dtype == torch.bfloat16 \
+            and matmul.allow_bf16_reduced_precision_reduction:
+        raise RuntimeError(
+            "the model sums its bf16 products in f32, but cuBLAS may "
+            "reduce them in bf16; set torch.backends.cuda.matmul."
+            "allow_bf16_reduced_precision_reduction = False")
+    if torch.get_float32_matmul_precision() != "highest":
         raise RuntimeError(
             "the model computes its products in full f32, but float32 "
             f"matmul precision is {torch.get_float32_matmul_precision()!r} "
@@ -73,9 +90,12 @@ def remat(fn, *args, policy: str = "full"):
 
 
 def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``einsum`` of the operands widened to f32, with an f32 result."""
+    """``einsum`` of the operands widened to f32, with an f32 result: on
+    bf16 operands the exact products and f32 sums of the reference's
+    ``preferred_element_type=float32``."""
+    a, b = a.float(), b.float()
     check_full_f32(a)
-    return torch.einsum(eq, a.float(), b.float())
+    return torch.einsum(eq, a, b)
 
 
 def rms_norm(p, x, eps=1e-5):

@@ -3,7 +3,8 @@
 The port of the JAX package's ``repro/models/lm.py``, every family.  Public
 surface:
   model_tables(cfg)                          -> declarative param table
-  init_model(cfg, generator, device=None)    -> param tree on the card
+  init_model(cfg, generator, device=None, dtype=torch.float32)
+                                             -> param tree on the card
   abstract_model(cfg, dtype) / model_specs(cfg, rules)
                                              -> meta tensors / PartitionSpecs
   train_loss(params, cfg, batch)             batch: tokens, labels (+aux)
@@ -59,10 +60,12 @@ def model_tables(cfg):
     return t
 
 
-def init_model(cfg, generator: torch.Generator, device=None):
-    """The model's f32 params on ``device`` (default the card), drawn from
-    ``generator`` (which lies on that device)."""
-    return init_params(model_tables(cfg), generator, device)
+def init_model(cfg, generator: torch.Generator, device=None,
+               dtype=torch.float32):
+    """The model's params in ``dtype`` on ``device`` (default the card),
+    drawn in f32 from ``generator`` (which lies on that device) and rounded
+    once (:func:`~repro_torch.models.params.init_params`)."""
+    return init_params(model_tables(cfg), generator, device, dtype)
 
 
 def abstract_model(cfg, dtype=torch.bfloat16):

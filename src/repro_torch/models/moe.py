@@ -141,9 +141,10 @@ def _combine(y_disp, dst, keep, g_sorted, order, eg):
     eg [G, Tg, k] the expert ids.  Returns [G*Tg, D].  The reference
     scatter-adds a group's pairs in sorted position (``.at[toks].add``,
     which XLA applies update by update), so each token's pairs arrive in
-    ascending expert id onto a zero.  The same sum here: each token's k
-    contributions ordered by expert and added left to right, a fixed
-    order with no atomics.
+    ascending expert id onto a zero of x's dtype, each weighted pair
+    rounded to it first.  The same sum here: each token's k contributions
+    ordered by expert and added left to right in ``y_disp``'s dtype (x's),
+    a fixed order with no atomics.
     """
     g, tg, k = eg.shape
     d = y_disp.shape[-1]
@@ -156,7 +157,7 @@ def _combine(y_disp, dst, keep, g_sorted, order, eg):
                          by_expert[:, :, None].expand(g * tg, k, d))
     y = torch.zeros((g * tg, d), dtype=y_disp.dtype, device=y_disp.device)
     for j in range(k):
-        y = y + y_tok[:, j]
+        y = y + y_tok[:, j].to(y.dtype)
     return y
 
 
@@ -188,11 +189,15 @@ def moe_ffn(p, cfg, x):
         xg, eg, gate_vals.reshape(g, tg, k), e=e, cap=cap)
     x_disp = hint(x_disp, "dp", "model", None, None)        # [G,E,cap,D]
 
-    # the reference's plain products "gecd,edf->gecf", "gecf,efd->gecd"
-    hid = _einsum("gecd,edf->gecf", x_disp, p["gate"].to(x.dtype))
-    up = _einsum("gecd,edf->gecf", x_disp, p["up"].to(x.dtype))
-    y_disp = _einsum("gecf,efd->gecd", F.silu(hid) * up,
-                     p["down"].to(x.dtype))                  # [G,E,cap,D]
+    # the reference's plain products "gecd,edf->gecf", "gecf,efd->gecd":
+    # f32 sums, each result in x's dtype (a bf16 x rounds it once)
+    def product(eq, a, w):
+        return _einsum(eq, a, w.to(x.dtype)).to(x.dtype)
+
+    hid = product("gecd,edf->gecf", x_disp, p["gate"])
+    up = product("gecd,edf->gecf", x_disp, p["up"])
+    y_disp = product("gecf,efd->gecd", F.silu(hid) * up,
+                     p["down"])                              # [G,E,cap,D]
     y_disp = hint(y_disp, "dp", "model", None, None)
     y = _combine(y_disp, dst, keep, g_sorted, order, eg)
     y = hint(y.reshape(g, tg, d), "dp", None, None).reshape(t, d)

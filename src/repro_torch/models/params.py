@@ -88,16 +88,21 @@ def _init_leaf(leaf: Leaf, generator, device):
                        device=device) * std
 
 
-def init_params(table, generator: torch.Generator, device=None):
-    """The table's tensors, f32, on ``device`` (default the card).
+def init_params(table, generator: torch.Generator, device=None,
+                dtype=torch.float32):
+    """The table's tensors in ``dtype`` on ``device`` (default the card).
 
-    Leaves are drawn in sorted-key order (the order ``jax.tree_util``
-    flattens a dict), one after another from ``generator``, which must lie
-    on ``device``.  The numbers differ from the JAX package's for the same
-    seed: tests carry weights across as numpy arrays instead.
+    Leaves are drawn in f32, in sorted-key order (the order
+    ``jax.tree_util`` flattens a dict), one after another from
+    ``generator``, which must lie on ``device``; each is then rounded once
+    to ``dtype`` (to nearest, ties to even, as the reference's ``astype``),
+    so a bf16 draw is the f32 draw rounded and an f32 draw is unchanged.
+    The numbers differ from the JAX package's for the same seed: tests
+    carry weights across as numpy arrays instead.
     """
     dev = resolve_device(device)
-    return _map_table(table, lambda l: _init_leaf(l, generator, dev))
+    return _map_table(
+        table, lambda l: _init_leaf(l, generator, dev).to(dtype))
 
 
 def abstract_params(table, dtype=torch.float32):

@@ -280,11 +280,12 @@ class ServeEngine:
             key = f"l{i}"
             reps = [_rep(self.params["blocks"][key]["xattn"], r)
                     for r in range(n_rep)]
-            # the cache is f32: no cast
-            self.cache[key]["xk"] = torch.stack(
-                [dense(p["wk"], aux).reshape(shape) for p in reps])
-            self.cache[key]["xv"] = torch.stack(
-                [dense(p["wv"], aux).reshape(shape) for p in reps])
+            # in the cache's dtype (f32), as the reference casts a bf16
+            # memory's projections
+            for name, w in (("xk", "wk"), ("xv", "wv")):
+                self.cache[key][name] = torch.stack(
+                    [dense(p[w], aux).reshape(shape) for p in reps]).to(
+                        self.cache[key][name].dtype)
 
     # -- request lifecycle ---------------------------------------------------
 

@@ -117,11 +117,12 @@ def build_train_step(model_cfg, tc: TrainConfig):
 
 
 def init_train_state(model_cfg, tc: TrainConfig, generator: torch.Generator,
-                     device=None):
-    """``{"params", "opt"}``: the model's f32 params drawn from
-    ``generator`` and zero AdamW moments, on ``device`` (default the
-    card)."""
-    params = init_model(model_cfg, generator, device)
+                     device=None, dtype=torch.float32):
+    """``{"params", "opt"}``: the model's params in ``dtype`` drawn from
+    ``generator`` (:func:`~repro_torch.models.lm.init_model`) and zero
+    AdamW moments (f32, or int8 with f32 scales), on ``device`` (default
+    the card)."""
+    params = init_model(model_cfg, generator, device, dtype)
     return {"params": params, "opt": adamw_init(params, tc.opt)}
 
 

@@ -39,10 +39,9 @@ from torch_training_parity import one_thread  # noqa: F401  (fixture)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCH_NAMES = sorted(ARCHS)
 
-#: decode cells whose param_mode is not the reference's rule: the port's
-#: f32 params against the card's 45 GB share replicate llama-3.2-vision
-#: (22.7 GB a device), which the reference's bf16 params against 9 GiB
-#: of a v5e do not (10.6 GiB)
+#: decode cells whose param_mode is not the reference's rule: both count
+#: bf16 params, and the card's 45 GB share replicates llama-3.2-vision
+#: (11.3 GB a device), which 9 GiB of a v5e does not (10.6 GiB)
 MODE_DIFFERS = [("llama-3.2-vision-90b", "decode_32k", "16x16"),
                 ("llama-3.2-vision-90b", "decode_32k", "2x16x16")]
 
@@ -68,12 +67,12 @@ def test_qwen2_full_width_decode_32k_on_meta():
     rec = dr.run_cell("qwen2-0.5b", DECODE_32K, multi_pod=False)
     mesh = make_production_mesh()
     sizes = mesh_axis_sizes(mesh)
-    assert rec["param_mode"] == "serve" and rec["param_dtype"] == "float32"
+    assert rec["param_mode"] == "serve" and rec["param_dtype"] == "bfloat16"
     assert (rec["seq_len"], rec["global_batch"]) == (s, b)
     # every KV leaf [24, 128, 32768, 2, 64] bf16: B over data, the two KV
     # heads do not divide 16, so the sequence over model
     kv_local = 24 * 2 * (b // 16) * (s // 16) * 2 * 64 * 2
-    params_local = local_param_bytes(cfg, sizes, mode="serve", dtype_bytes=4)
+    params_local = local_param_bytes(cfg, sizes, mode="serve", dtype_bytes=2)
     mem = rec["memory"]
     assert mem["argument_size_in_bytes"] == \
         params_local + kv_local + 2 * (b // 16) * 4
@@ -90,7 +89,7 @@ def test_qwen2_full_width_decode_32k_on_meta():
     cache = 24 * 2 * b * s * 2 * 64 * 2
     assert cache == 51_539_607_552
     assert one["memory"]["argument_size_in_bytes"] == \
-        4 * n_params + cache + 2 * b * 4
+        2 * n_params + cache + 2 * b * 4
     assert one["mesh"] == "1x1" and one["n_devices"] == 1
     assert one["cost"]["flops"] == rec["cost"]["flops"]
 
@@ -113,9 +112,9 @@ def test_record_names_what_only_a_tpu_compile_gives():
 
 def test_param_mode_differences_from_the_reference():
     """The serve/train choice keeps the reference's rule (replicate when
-    the params fit) with the port's f32 params and the card's budget; the
-    decode cells where that gives another mode than the reference's
-    (bf16 params under 9 GiB) are exactly ``MODE_DIFFERS``."""
+    the bf16 params fit) with the card's budget, 9/16 of 80 GB; the decode
+    cells where that gives another mode than the reference's (9 GiB) are
+    exactly ``MODE_DIFFERS``."""
     assert dr.SERVE_PARAM_BYTES == 9 / 16 * 80e9
     differs = []
     for arch in ARCH_NAMES:
@@ -155,7 +154,7 @@ def test_meta_train_step_equals_a_real_cpu_step_in_shape(arch, one_thread):
     tc = TrainConfig(accum_steps=dr._accum_for(cfg), accum_dtype="bfloat16",
                      opt=AdamWConfig(quantize_moments=True))
     g = torch.Generator().manual_seed(0)
-    state = init_train_state(cfg, tc, g, device="cpu")
+    state = init_train_state(cfg, tc, g, device="cpu", dtype=dr.PARAM_DTYPE)
     batch = {k: torch.randint(0, cfg.vocab, (4, 64), generator=g,
                               dtype=torch.int32)
              for k in ("tokens", "labels")}
@@ -184,9 +183,14 @@ def test_meta_train_step_equals_a_real_cpu_step_in_shape(arch, one_thread):
         == {k: (t.shape, t.dtype) for k, t in got.items()}
 
 
-def test_alias_bytes_count_only_leaves_updated_in_place():
-    """A mamba window comes back f32 from a bf16 cache (a new tensor, as
-    XLA leaves such a donated buffer unused): the alias excludes it."""
+@pytest.mark.parametrize("param_dtype", [torch.bfloat16, torch.float32])
+def test_alias_bytes_count_only_leaves_updated_in_place(param_dtype,
+                                                        monkeypatch):
+    """On f32 params a mamba window comes back f32 from a bf16 cache (a
+    new tensor, as XLA leaves such a donated buffer unused): the alias
+    excludes it.  On bf16 params, the dry run's, the window stays bf16 and
+    is updated in place: the alias counts it."""
+    monkeypatch.setattr(dr, "PARAM_DTYPE", param_dtype)
     cfg = smoke(ARCHS["falcon-mamba-7b"])
     shape = ShapeConfig("decode_32k", 96, 32, "decode")
     mesh = make_production_mesh()
@@ -196,10 +200,15 @@ def test_alias_bytes_count_only_leaves_updated_in_place():
     cache = cell.args[2]
     sh = param_sharding(cache_specs(cfg, cache, mesh), mesh)
     h_bytes = dr.local_bytes(cache["l0"]["h"], sh["l0"]["h"])
-    assert rec["memory"]["alias_size_in_bytes"] == h_bytes
+    conv_bytes = dr.local_bytes(cache["l0"]["conv"], sh["l0"]["conv"])
     assert out[1]["l0"]["h"] is cache["l0"]["h"]
-    assert out[1]["l0"]["conv"].dtype == torch.float32
     assert cache["l0"]["conv"].dtype == torch.bfloat16
+    if param_dtype == torch.float32:
+        assert rec["memory"]["alias_size_in_bytes"] == h_bytes
+        assert out[1]["l0"]["conv"].dtype == torch.float32
+    else:
+        assert rec["memory"]["alias_size_in_bytes"] == h_bytes + conv_bytes
+        assert out[1]["l0"]["conv"] is cache["l0"]["conv"]
 
 
 def test_records_go_under_dryrun_torch(tmp_path, monkeypatch, capsys):

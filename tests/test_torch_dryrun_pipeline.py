@@ -45,7 +45,7 @@ def test_pipeline_record_at_the_references_shape(record, one_thread):
     assert {k: record[k] for k in ("arch", "shape", "kind", "mesh",
                                    "param_dtype")} == {
         "arch": "qwen2-0.5b", "shape": "pipeline_pp2", "kind": "pipeline",
-        "mesh": "2x16x16", "param_dtype": "float32"}
+        "mesh": "2x16x16", "param_dtype": "bfloat16"}
     assert set(record) == {"arch", "shape", "kind", "mesh", "param_dtype",
                            "trace_seconds", "memory", "cost", "tpu_only"}
     assert "collectives" in record["tpu_only"]
@@ -53,7 +53,7 @@ def test_pipeline_record_at_the_references_shape(record, one_thread):
 
     blocks = abstract_model(cfg, dr.PARAM_DTYPE)["blocks"]
     x = torch.empty((dr.PIPELINE_BM, dr.PIPELINE_SEQ, cfg.d_model),
-                    device="meta")
+                    dtype=dr.PARAM_DTYPE, device="meta")
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
         dr.pipeline_stage_fn(cfg)(blocks, x)
     assert record["cost"]["flops"] == \
@@ -61,7 +61,7 @@ def test_pipeline_record_at_the_references_shape(record, one_thread):
 
     param_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(blocks))
-    x_bytes = dr.PIPELINE_MICRO * x.numel() * 4
+    x_bytes = dr.PIPELINE_MICRO * x.numel() * x.element_size()
     assert record["memory"] == {
         "argument_size_in_bytes": param_bytes // dr.PIPELINE_STAGES
         + x_bytes,

@@ -32,8 +32,12 @@ host wait an execute, and more shards than cards refused without
 ``device=``; and the multi-device pieces on the one card: the pipelined
 smoke-size stack bit for bit the unpipelined one, ``psum_compressed`` on
 2 shards bit-stable and the hand-computed mean, and
-``restore_checkpoint(shardings=)`` placing each leaf on the card.  Every
-test needs a card (marker ``gpu``) and skips without one.
+``restore_checkpoint(shardings=)`` placing each leaf on the card; and the
+model stack on bf16 params: a decode step with no host wait, bit-stable,
+near the f32 run on the same weights, two train steps bit-stable, and a
+bf16 product refused while cuBLAS may reduce it in bf16.  Every test
+needs a card (marker ``gpu``) and skips without one; the ``cuda`` fixture
+sets ``allow_bf16_reduced_precision_reduction`` to False.
 
 The module pins ``REPRO_PROFILE_DIR`` to a path nothing writes before any
 profile is consulted (as ``tests/conftest.py`` does for the CPU suite,
@@ -88,6 +92,9 @@ METHODS = ("spa", "spars-16/64", "spars-40/40", "h-spa-16/64", "h-spa-40/40",
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
+    # the model's bf16 products sum in f32, as the reference's bf16 dot
+    # (models.layers.check_full_f32 refuses them otherwise)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return torch.device("cuda")
 
 
@@ -2294,14 +2301,16 @@ def test_mesh_with_no_device_needs_a_card_a_shard(cuda):
 # -- the launch dry run and the donated decode step ------------------------
 
 
-def _dryrun_args(cfg, b, s, dev, seed=0):
-    """A decode cell's arguments on ``dev``: f32 params and a bf16 cache
-    drawn from ``seed``, tokens and per-slot ``cur_len`` below ``s``."""
+def _dryrun_args(cfg, b, s, dev, seed=0, dtype=None):
+    """A decode cell's arguments on ``dev``: params in ``dtype``, by
+    default the dry run's (bf16), and a bf16 cache drawn from ``seed``,
+    tokens and per-slot ``cur_len`` below ``s``."""
+    from repro_torch.launch.dryrun import PARAM_DTYPE
     from repro_torch.models import init_cache, init_model
     from repro_torch.training.tree import tree_leaves
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    params = init_model(cfg, g, dev)
+    params = init_model(cfg, g, dev, dtype=dtype or PARAM_DTYPE)
     cache = init_cache(cfg, b, s, device=dev)
     for leaf in tree_leaves(cache):
         leaf.normal_(generator=g)
@@ -2354,22 +2363,28 @@ def test_dryrun_decode_cell_on_card_matches_its_record(cuda):
     assert torch.equal(again.view(torch.int32), logits.view(torch.int32))
 
 
+@pytest.mark.parametrize("param_dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b",
                                   "zamba2-2.7b", "qwen3-moe-30b-a3b",
                                   "llama-3.2-vision-90b",
                                   "seamless-m4t-large-v2"])
-def test_donated_decode_on_card_equals_the_copying_step(arch, cuda):
-    """Smoke size on the card, two steps: the donated step's logits and
-    cache equal the copying step's bit for bit, and every cache leaf is
-    the given tensor (its storage unchanged) but a mamba window whose
-    dtype the first step changes."""
+def test_donated_decode_on_card_equals_the_copying_step(arch, param_dtype,
+                                                        cuda):
+    """Smoke size on the card, bf16 (the dry run's) or f32 params, two
+    steps: the donated step's logits and cache equal the copying step's
+    bit for bit, and every cache leaf whose dtype stays is the given
+    tensor (its storage unchanged).  On f32 params the first step's mamba
+    window comes back f32 from the bf16 cache: a new tensor, which it must
+    be for the mamba families."""
     from repro_torch.configs import ARCHS
     from repro_torch.models import decode_step, smoke
     from repro_torch.training.tree import tree_map, tree_paths
 
     cfg = smoke(ARCHS[arch])
-    params, token, cache, cur = _dryrun_args(cfg, 3, 64, cuda, seed=1)
-    for _ in range(2):
+    dtype = getattr(torch, param_dtype)
+    params, token, cache, cur = _dryrun_args(cfg, 3, 64, cuda, seed=1,
+                                             dtype=dtype)
+    for i in range(2):
         with torch.no_grad():
             want, want_cache = decode_step(
                 params, cfg, token, tree_map(torch.clone, cache), cur)
@@ -2384,6 +2399,10 @@ def test_donated_decode_on_card_equals_the_copying_step(arch, cuda):
             assert gp[k].dtype == wp[k].dtype and torch.equal(gp[k], wp[k])
             if gp[k].dtype == given[k].dtype:
                 assert gp[k] is given[k] and gp[k].data_ptr() == ptrs[k]
+        changed = [k for k in gp if gp[k].dtype != given[k].dtype]
+        mamba = i == 0 and dtype == torch.float32 and any(
+            "conv" in k for k in gp)
+        assert bool(changed) == mamba, changed
         cache, cur = got_cache, cur + 1
 
 
@@ -2456,3 +2475,197 @@ def test_restore_with_shardings_places_each_leaf_on_card(cuda, tmp_path):
         assert leaf.is_cuda, k
         assert torch.equal(leaf.cpu().view(torch.int32),
                            want[k].view(torch.int32)), k
+
+
+# -- the model stack on bf16 params -------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-moe-30b-a3b",
+                                  "falcon-mamba-7b"])
+def test_bf16_params_decode_on_card(arch, cuda):
+    """A smoke-size decode step on bf16 params (an f32 cache, as the
+    serving engine's): logits finite and within 3e-2 normwise of the same
+    bf16 model's steps on the CPU (``tests/test_torch_bf16_params.py``'s
+    bound between two bf16 runs that round differently; a bf16 run is not
+    held to an f32 one here, since a bf16 router's tie can pick another
+    expert), a second run bit for bit, and a warm step with no host
+    sync."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_model, smoke
+
+    cfg = smoke(get_config(arch))
+    params = _well_scaled(cfg, init_model(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda,
+        dtype=torch.bfloat16))
+    token = torch.tensor([[3], [5], [7]])
+    cur = torch.tensor([0, 2, 5], dtype=torch.int32)
+
+    def run(p, dev, steps=3):
+        cache = init_cache(cfg, 3, 16, dtype=torch.float32, device=dev)
+        out = []
+        with torch.no_grad():
+            for i in range(steps):
+                lg, cache = decode_step(p, cfg, (token + i).to(dev), cache,
+                                        (cur + i).to(dev))
+                out.append(lg)
+        return torch.stack(out), cache
+
+    got, cache = run(params, cuda)
+    again, _ = run(params, cuda)
+    want, _ = run(_to(params, "cpu"), "cpu")
+    assert got.dtype == torch.float32
+    assert torch.isfinite(got[..., :cfg.vocab]).all()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert _normwise(got[..., :cfg.vocab].cpu(),
+                     want[..., :cfg.vocab]) <= 3e-2
+    dtoken, dcur = token.to(cuda), (cur + 3).to(cuda)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        with torch.no_grad():
+            decode_step(params, cfg, dtoken, cache, dcur)
+        torch.cuda.set_sync_debug_mode("default")
+    assert not [w for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def test_bf16_product_refused_while_reduced_precision_reduction_is_on(cuda):
+    """``dense`` and the unembedding on bf16 operands raise while cuBLAS
+    may reduce a bf16 GEMM in bf16; an f32 product does not; with the flag
+    False the bf16 product runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import smoke
+    from repro_torch.models.layers import dense, lm_logits
+
+    cfg = smoke(get_config("qwen2-0.5b"))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = {"w": torch.randn((cfg.d_model, cfg.vocab_padded), generator=gen,
+                          device=cuda)}
+    x = torch.randn((2, 3, cfg.d_model), generator=gen, device=cuda)
+    p16, x16 = {"w": p["w"].bfloat16()}, x.bfloat16()
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        for fn in (lambda: dense(p16, x16),
+                   lambda: lm_logits(p16, cfg, x16)):
+            with pytest.raises(RuntimeError,
+                               match="allow_bf16_reduced_precision"):
+                fn()
+        assert dense(p, x).dtype == torch.float32
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = False
+    assert dense(p16, x16).dtype == torch.bfloat16
+    assert lm_logits(p16, cfg, x16).dtype == torch.float32
+
+
+# ``tests/test_torch_bf16_params_train.py``'s bounds between two bf16 train
+# steps that round differently (there the port's and the reference's; here
+# the card's and the CPU's), each step from one state
+BF16_LOSS_RTOL = 1e-3
+BF16_PARAM_TOL = 5e-3
+
+
+def _moments(tree):
+    """An AdamW moment tree's values, f32 and flat, in ``_paths``'s order of
+    the params: an 8-bit ``{"q", "scale"}`` leaf dequantized."""
+    if isinstance(tree, dict) and set(tree) == {"q", "scale"}:
+        return (tree["q"].float() * tree["scale"]).flatten().cpu()
+    if isinstance(tree, dict):
+        return torch.cat([_moments(tree[k]) for k in sorted(tree)])
+    return tree.float().flatten().cpu()
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-moe-30b-a3b"])
+def test_bf16_train_steps_on_card_match_cpu(arch, cuda, record_property):
+    """Two smoke-size steps on bf16 params with the dry run's train
+    settings (``accum_steps=2``, a bf16 buffer, 8-bit moments) on the card,
+    each against the same step on the CPU from the card's state before it:
+    the f32 loss within BF16_LOSS_RTOL relative, the params within
+    BF16_PARAM_TOL normwise and nearer each other than to where the step
+    started, as the CPU file holds the port against the reference's step.
+    The draw is well scaled before it is rounded to bf16, as there.
+
+    Compared are the elements whose step is bounded: not those whose 8-bit
+    second moment reads back 0 beside a first moment that does not (none
+    in the first step).  There AdamW, the reference's rule, divides m by
+    sqrt(0.05 g^2 / (1 - b2^t)) + eps, so a last-bit difference of a tiny
+    g moves the param without limit (at the smoke models' second step a
+    fifth of the elements, which move the params by 14-20 times their
+    norm).  Each step's distances and the share left out are recorded as
+    properties (``--junitxml``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, smoke
+    from repro_torch.training import AdamWConfig, DataConfig, TrainConfig, \
+        adamw_init, build_train_step, synth_batch
+    from repro_torch.training.tree import tree_map
+
+    cfg = smoke(get_config(arch))
+    tc = TrainConfig(total_steps=10, peak_lr=1e-3, warmup_steps=2,
+                     accum_steps=2, accum_dtype="bfloat16",
+                     opt=AdamWConfig(quantize_moments=True))
+    params = tree_map(lambda t: t.to(cuda, torch.bfloat16), _well_scaled(
+        cfg, init_model(cfg, torch.Generator().manual_seed(0),
+                        device="cpu")))
+    state = {"params": params, "opt": adamw_init(params, tc.opt)}
+    step = build_train_step(cfg, tc)
+
+    def flat(tree):
+        return torch.cat([t.detach().cpu().double().flatten()
+                          for _, t in _paths(tree)])
+
+    for i in range(2):
+        batch = {k: torch.from_numpy(v) for k, v in synth_batch(
+            DataConfig(cfg.vocab, 32, 4, seed=3), i).items()}
+        cpu_state = tree_map(lambda t: t.to("cpu", copy=True), state)
+        before = flat(state["params"])
+        unbounded = (_moments(state["opt"]["v"]) == 0) & (
+            _moments(state["opt"]["m"]) != 0)
+        kept = ~unbounded
+        want, wm = step(cpu_state, batch, i)
+        state, m = step(state, _to(batch, cuda), i)
+        loss, want_loss = float(m["loss"]), float(wm["loss"])
+        assert m["loss"].dtype == torch.float32
+        assert abs(loss - want_loss) <= BF16_LOSS_RTOL * abs(want_loss), i
+        got, ref = flat(state["params"]), flat(want["params"])
+        assert all(t.dtype == torch.bfloat16
+                   for _, t in _paths(state["params"]))
+        assert not unbounded.any() or i > 0
+        apart = _normwise(got[kept], ref[kept])
+        moved = _normwise(got[kept], before[kept])
+        record_property(f"step{i}", dict(
+            loss_rel=abs(loss - want_loss) / abs(want_loss),
+            params_apart=apart, params_moved=moved,
+            left_out=float(unbounded.double().mean())))
+        assert apart <= BF16_PARAM_TOL and apart < moved, (i, apart)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-moe-30b-a3b"])
+def test_bf16_train_steps_on_card_are_bit_stable(arch, cuda):
+    """Two runs of two steps from one state on bf16 params with the dry
+    run's train settings (``accum_steps=2``, a bf16 buffer, 8-bit
+    moments): finite f32 losses, bf16 params, every leaf bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import smoke
+    from repro_torch.training import AdamWConfig, DataConfig, TrainConfig, \
+        build_train_step, init_train_state, synth_batch
+
+    cfg = smoke(get_config(arch))
+    tc = TrainConfig(total_steps=10, peak_lr=1e-3, warmup_steps=2,
+                     accum_steps=2, accum_dtype="bfloat16",
+                     opt=AdamWConfig(quantize_moments=True))
+    state = init_train_state(cfg, tc, torch.Generator(device=cuda)
+                             .manual_seed(0), cuda, dtype=torch.bfloat16)
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in synth_batch(
+        DataConfig(cfg.vocab, 32, 4, seed=3), i).items()} for i in range(2)]
+    step = build_train_step(cfg, tc)
+    a, la = _train(step, state, batches)
+    b, lb = _train(step, state, batches)
+    assert la.dtype == torch.float32 and torch.isfinite(la).all()
+    assert torch.equal(la, lb)
+    for (k, x), (_, y) in zip(_paths(a), _paths(b)):
+        if k.startswith("params/"):
+            assert x.dtype == torch.bfloat16, k
+        raw = (lambda t: t.view(torch.int16)) \
+            if x.dtype == torch.bfloat16 else (lambda t: t)
+        assert torch.equal(raw(x), raw(y)), k
